@@ -1,0 +1,131 @@
+"""Build and load the CUDA kernels of the port.
+
+Counterpart of :mod:`bialign_tpu.native` (lazy build at first use, ctypes
+load).  ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface, ``build/bialign_tpu_torch/
+libbialign_cuda.so`` at the root of the checkout, and rebuilds it when a
+source is newer than the library.  Nothing here runs at import: the CPU
+tests import every module on a machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "bialign_tpu_torch"
+LIB_PATH = BUILD_DIR / "libbialign_cuda.so"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",    # registers, shared memory and spills per kernel
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes of the library's extern "C" functions (csrc/*.cu)
+_SIGNATURES = {
+    "bialign_fill_affine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bialign_fill_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bialign_walk_affine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    "bialign_walk_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.is_file():
+        return str(path)
+    raise FileNotFoundError(
+        "nvcc not found on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin; "
+        "the CUDA engine needs the CUDA toolkit"
+    )
+
+
+def stale() -> bool:
+    """True when the library is missing or older than a source."""
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in sources())
+
+
+def build() -> str:
+    """Compile the library; return nvcc's report (ptxas resource usage).
+
+    The library is written under a temporary name and renamed into place,
+    so a process never loads a half-written file.
+    """
+    compiler = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return proc.stdout + proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The loaded library, built first if it is stale."""
+    global _lib
+    if _lib is None:
+        if stale():
+            build()
+        lib = ctypes.CDLL(str(LIB_PATH))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.bialign_error_string.argtypes = [ctypes.c_int]
+        lib.bialign_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call library function ``name`` on ``device``'s current stream.
+
+    ``args`` are tensors (passed as their data pointers) and ints, in the
+    order of the C signature; the device index and the stream are appended.
+    Raises when the function reports a CUDA error.
+    """
+    lib = load()
+    cargs = [
+        _P(a.data_ptr()) if isinstance(a, torch.Tensor) else _I(a)
+        for a in args
+    ]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, name)(*cargs, _I(device.index), _P(stream))
+    if err:
+        msg = lib.bialign_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,57 @@
+"""State of the JAX package -> state of the port.
+
+The DP has no learned parameters: its "weights" are the dense score tables
+``mu1``/``mu2`` built on the host by :mod:`bialign_tpu.scoring.tables`,
+and its state is the filled band.  Both cross as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.band import DeviceBand
+from bialign_tpu.ops.cases import N_STATES
+
+_I32 = np.iinfo(np.int32)
+
+
+def tables_to_torch(mu1, mu2, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense ``[n+1, m+1]`` score tables as contiguous int32 tensors on
+    ``device``.  Raises if a value does not fit int32."""
+    out = []
+    for name, mu in (("mu1", mu1), ("mu2", mu2)):
+        a = np.asarray(mu)
+        if a.ndim != 2 or not np.issubdtype(a.dtype, np.integer):
+            raise ValueError(f"{name} must be a 2-D integer array, got "
+                             f"{a.dtype} {a.shape}")
+        if a.size and (a.min() < _I32.min or a.max() > _I32.max):
+            raise ValueError(f"{name} has values outside int32")
+        out.append(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                   .to(device))
+    if out[0].shape != out[1].shape:
+        raise ValueError(f"mu1 {tuple(out[0].shape)} and mu2 "
+                         f"{tuple(out[1].shape)} differ in shape")
+    return out[0], out[1]
+
+
+def band_from_jax(ys, n: int, m: int, max_shift: int, affine: bool,
+                  p_last: bool) -> DeviceBand:
+    """A band filled by the JAX package, as a port band on the CPU.
+
+    ``ys`` is the JAX ``DeviceBand.ys`` as an array: the Pallas layout
+    ``[D_pad, (Q,) W, W, Ppad]`` (``p_last``) or the XLA layout
+    ``[D, (Q,) P, W, W]``.  Both are cropped to the port's
+    ``[n+m+1, (Q,) W, W, n+1]``; rows off a diagonal's live range keep the
+    JAX engine's values, which no walk reads.
+    """
+    ys = np.asarray(ys)
+    D, P, W = n + m + 1, n + 1, 2 * max_shift + 1
+    if not p_last:
+        ys = np.moveaxis(ys, -3, -1)
+    ys = ys[:D, ..., :P]
+    want = (D, *((N_STATES,) if affine else ()), W, W, P)
+    if ys.shape != want:
+        raise ValueError(f"JAX band crops to {ys.shape}, expected {want}")
+    return DeviceBand(ys=torch.from_numpy(np.ascontiguousarray(ys, np.int32)),
+                      n=n, m=m, max_shift=max_shift, affine=affine)

@@ -1,0 +1,47 @@
+// Definitions shared by the CUDA kernels of bialign_tpu_torch.
+//
+// All DP values are int32.  The host checks int32 safety first
+// (bialign_tpu/ops/cases.py check_int32_safe), so no sum below can wrap.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace bialign {
+
+// The reference's -infinity (bialign_tpu/ops/cases.py NEG_INF) and the
+// masked-case sentinel (bialign_tpu/ops/xla_dp.py INVALID).
+constexpr int32_t NEG_INF = -(1 << 30);
+constexpr int32_t INVALID = -(1 << 30) - (1 << 29);
+
+constexpr int N_STATES = 9;
+constexpr int N_AFFINE_CASES = 15;     // per target state: 9 A, 3 B, 3 C
+constexpr int N_NONAFFINE_CASES = 13;
+constexpr int FIRST_B = 9;             // affine case order of iter_affine_cases
+constexpr int FIRST_C = 12;
+
+// One recursion case is REC int32 values, packed by
+// bialign_tpu_torch/ops/cuda_dp.py (affine_case_table, nonaffine_case_table):
+// source state, column (x0, x1, x2, x3), mu1/mu2 multiplicities, the
+// constant gap/shift term, and the source state's intrinsic shifts
+// (s0 - s2, s1 - s3) for the walk's tie-break key.
+enum Field { SRC = 0, X0, X1, X2, X3, MU1C, MU2C, CST, SRCA, SRCB, REC };
+
+// Offset of band cell (d, q, sk, sl, i) in the layout [D, nq, W, W, P]
+// (nq = 9 affine, 1 non-affine).  Rows are last, so the threads of a warp,
+// which hold neighbouring rows, touch neighbouring addresses.
+__device__ __forceinline__ long long cell_offset(int d, int q, int sk, int sl,
+                                                 int i, int nq, int W, int P) {
+  return ((((long long)d * nq + q) * W + sk) * W + sl) * P + i;
+}
+
+// mu1/mu2 are dense [n+1, m+1]; a (k, l) outside it scores 0, as in the
+// diagonal tables of the JAX engines (xla_dp._diag_mu_tables).
+__device__ __forceinline__ int32_t mu_at(const int32_t* mu, int k, int l,
+                                         int n, int m) {
+  return (k >= 0 && k <= n && l >= 0 && l <= m)
+             ? mu[(long long)k * (m + 1) + l]
+             : 0;
+}
+
+}  // namespace bialign
