@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of the port.
 
 Counterpart of :mod:`bialign_tpu.native` (lazy build at first use, ctypes
-load).  ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared
+load).  ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a``, all sources at
+once in processes of their own, and links the objects into one shared
 library with a plain C interface, ``build/bialign_tpu_torch/
-libbialign_cuda.so`` at the root of the checkout, and rebuilds it when a
+libbialign_cuda.so`` at the root of the checkout; it is rebuilt when a
 source is newer than the library.  Nothing here runs at import: the CPU
 tests import every module on a machine with no ``nvcc``.
 """
@@ -23,11 +24,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "bialign_tpu_torch"
 LIB_PATH = BUILD_DIR / "libbialign_cuda.so"
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",    # registers, shared memory and spills per kernel
 ]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +37,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "bialign_fill_affine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_fill_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bialign_score_affine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bialign_score_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bialign_score_affine_ms0": [_P, _P, _P, _P, _I, _I, _I, _P],
     "bialign_walk_affine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "bialign_walk_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
 }
@@ -72,27 +77,40 @@ def stale() -> bool:
 def build() -> str:
     """Compile the library; return nvcc's report (ptxas resource usage).
 
-    The library is written under a temporary name and renamed into place,
-    so a process never loads a half-written file.
+    One ``nvcc -c`` per source, all started together, then one link.  The
+    objects go into a temporary directory and the library is written under
+    a temporary name and renamed into place, so a process never loads a
+    half-written file.
     """
     compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    try:
+    report = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = str(Path(objdir) / (src.stem + ".o"))
+            cmd = [compiler, *COMPILE_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outputs = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, _obj, proc in jobs]     # waits for every job
+        for cmd, out, rc in outputs:
+            if rc != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+            report.append(out)
+        tmp = str(Path(objdir) / "libbialign_cuda.so")
+        cmd = [compiler, *LINK_FLAGS, "-o", tmp, *[obj for _c, obj, _p in jobs]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+                f"{proc.stdout}{proc.stderr}")
+        report.append(proc.stdout + proc.stderr)
         os.replace(tmp, LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stdout + proc.stderr
+    return "".join(report)
 
 
 def load() -> ctypes.CDLL:

@@ -1,10 +1,13 @@
 """BiAligner on PyTorch: one pair, band filled and walked on the device.
 
 Counterpart of :class:`bialign_tpu.aligner.BiAligner` for the single-pair
-path: host preprocessing and score tables (reused from ``bialign_tpu``),
-the band fill (:mod:`bialign_tpu_torch.ops.cuda_dp`), the final score, the
-walk on the device (:mod:`bialign_tpu_torch.ops.device_traceback`) and the
-host decode (:mod:`bialign_tpu.render.decode`).
+path, on the port's own layers: host preprocessing
+(:mod:`bialign_tpu_torch.models.molecule`), score tables
+(:mod:`bialign_tpu_torch.scoring.tables`), the band fill
+(:mod:`bialign_tpu_torch.ops.cuda_dp`), the final score, the walk on the
+device (:mod:`bialign_tpu_torch.ops.device_traceback`) and the host decode
+(:mod:`bialign_tpu_torch.render.decode`).  Nothing is imported from
+``bialign_tpu``.
 
 Engines (``engine=``; the device is explicit, ``device=``):
 
@@ -19,20 +22,46 @@ the int64 engine for tables that fail the int32 check (P2).
 
 from __future__ import annotations
 
+import sys
+
+import numpy as np
 import torch
 
-from bialign_tpu.aligner import PARAM_DEFAULTS
-from bialign_tpu.aligner import BiAligner as _JaxAligner
-from bialign_tpu.models.molecule import MoleculeError, preprocess_molecule
-from bialign_tpu.ops.cases import check_int32_safe
-from bialign_tpu.render import decode as render_decode
-from bialign_tpu.scoring.tables import build_score_tables
-
 from .convert import tables_to_torch
+from .models.molecule import MoleculeError, preprocess_molecule
 from .ops import cuda_dp
 from .ops import device_traceback as dtb
+from .ops.cases import (
+    NonAffineTables,
+    affine_score_multiplicities,
+    check_int32_safe,
+)
+from .render import decode as render_decode
+from .scoring.tables import build_score_tables
 
 ENGINES = ("cuda", "torch")
+
+# Reference parameter defaults (bialign.py:25-96).  The reference requires
+# every key to be present in **params (KeyError otherwise); missing keys
+# default to the CLI defaults, a strict superset of accepted inputs.
+PARAM_DEFAULTS = {
+    "type": "RNA",
+    "sequence_match_similarity": 100,
+    "sequence_mismatch_similarity": 0,
+    "structure_weight": 400,
+    "gap_opening_cost": 0,
+    "gap_cost": -200,
+    "shift_cost": -250,
+    "max_shift": 2,
+    "simmatrix": None,
+    "nameA": "A",
+    "nameB": "B",
+    # modes of the JAX package that the port refuses until they are ported
+    "lowmem": False,
+    "checkpoint_block": None,
+    "seqsplit_mesh": None,
+    "seqsplit_axis": "sp",
+}
 
 
 class BiAligner:
@@ -44,19 +73,6 @@ class BiAligner:
 
     nl = render_decode.NL_ROW
     outmodes = render_decode.OUTMODES
-
-    # Methods of the JAX package's class that touch no JAX, shared as they
-    # are: the decode, the verbose replay (through self.traceback and
-    # self._band_cells below) and the table accessors.
-    _is_rna = _JaxAligner._is_rna
-    _affine = _JaxAligner._affine
-    error = staticmethod(_JaxAligner.error)
-    mu1_at = _JaxAligner.mu1_at
-    mu2_at = _JaxAligner.mu2_at
-    decode_trace_full = _JaxAligner.decode_trace_full
-    decode_trace = _JaxAligner.decode_trace
-    eval_trace = _JaxAligner.eval_trace
-    _eval_affine_trace = _JaxAligner._eval_affine_trace
 
     def __init__(self, seqA, seqB, strA, strB, *, engine: str = "cuda",
                  device="cuda", **params):
@@ -89,6 +105,29 @@ class BiAligner:
             self.molA, self.molB, self._params, is_rna=self._is_rna
         )
         self._band = None
+
+    @property
+    def _is_rna(self) -> bool:
+        return self._params["type"] == "RNA"
+
+    @property
+    def _affine(self) -> bool:
+        return int(self._params["gap_opening_cost"]) != 0
+
+    @staticmethod
+    def error(text):
+        print("ERROR:", text)
+        sys.exit(-1)
+
+    # -- scoring accessors (1-based, reference pyx:435-440) ----------------
+
+    def mu1_at(self, i: int, j: int) -> int:
+        return int(self.mu1[i, j])
+
+    def mu2_at(self, k: int, l: int) -> int:
+        return int(self.mu2[k, l])
+
+    # -- fill, score, walk -------------------------------------------------
 
     def _fill(self):
         if self._params.get("lowmem"):
@@ -147,3 +186,97 @@ class BiAligner:
     def _band_cells(self, idxs):
         """Values of band cells (i, j, k, l), for the verbose replay."""
         return self._band.cells(idxs)
+
+    # -- decoding ----------------------------------------------------------
+
+    def decode_trace_full(self, trace=None):
+        if trace is None:
+            trace = self.traceback()
+        return render_decode.decode_trace_full(
+            trace, self.molA, self.molB,
+            nameA=self._params["nameA"], nameB=self._params["nameB"],
+            is_rna=self._is_rna,
+        )
+
+    def decode_trace(self, trace=None):
+        return render_decode.decode_trace(
+            self.decode_trace_full(trace),
+            outmode=self._params.get("outmode") or "default",
+            nodescription=bool(self._params.get("nodescription")),
+        )
+
+    # -- verbose evaluation (CLI -v; pyx:745-832) ---------------------------
+
+    def eval_trace(self, trace=None):
+        if self._affine:
+            yield from self._eval_affine_trace(trace)
+            return
+        if trace is None:
+            trace = self.traceback()
+
+        tab = NonAffineTables(self.gamma, self.delta)
+        cols = [tuple(int(v) for v in c) for c in tab.cols]
+
+        # pass 1: per-column case scores and predecessor cells
+        rows = []
+        pred_idx = []
+        idx = [0] * 4
+        for y in trace:
+            for k in range(4):
+                idx[k] += y[k]
+            i, j, k, l = idx
+            for ci, col in enumerate(cols):
+                if col == tuple(y):
+                    case_score = (
+                        int(tab.const[ci])
+                        + int(tab.mu1_coef[ci]) * self.mu1_at(i, j)
+                        + int(tab.mu2_coef[ci]) * self.mu2_at(k, l)
+                    )
+                    rows.append((list(idx), tuple(y), case_score))
+                    pred_idx.append(
+                        (i - col[0], j - col[1], k - col[2], l - col[3])
+                    )
+                    break
+
+        # pass 2: one gather on the band's device for all predecessors
+        if not pred_idx:
+            return
+        preds = self._band_cells(np.asarray(pred_idx, dtype=np.int64))
+        for (row_idx, y, case_score), pred in zip(rows, preds):
+            yield " ".join(
+                str(item)
+                for item in [row_idx, y, case_score, "-->",
+                             int(pred) + case_score]
+            )
+
+    def _eval_affine_trace(self, trace=None):
+        """Replay an affine trace, yielding debug lines (pyx:745-800)."""
+        if trace is None:
+            trace = self.traceback()
+
+        def update_state(x, y):
+            y = list(y)
+            if y[0] == 0 and y[1] == 0:
+                y[0], y[1] = x[0], x[1]
+            if y[2] == 0 and y[3] == 0:
+                y[2], y[3] = x[2], x[3]
+            return y
+
+        total_score = 0
+        state = [1, 1, 1, 1]
+        idx = [0] * 4
+        for y in trace:
+            for k in range(4):
+                idx[k] += y[k]
+            i, j, k, l = idx
+            mu1c, mu2c, ng, nb, nd = affine_score_multiplicities(state, y)
+            score = (
+                ng * self.gamma + nb * self.beta + nd * self.delta
+                + mu1c * self.mu1_at(i, j) + mu2c * self.mu2_at(k, l)
+            )
+            total_score += score
+            state = update_state(state, y)
+            yield " ".join(
+                str(item)
+                for item in [idx, list(y), score, "-->", total_score]
+            )

@@ -1,8 +1,9 @@
 """State of the JAX package -> state of the port.
 
 The DP has no learned parameters: its "weights" are the dense score tables
-``mu1``/``mu2`` built on the host by :mod:`bialign_tpu.scoring.tables`,
-and its state is the filled band.  Both cross as numpy arrays.
+``mu1``/``mu2`` built on the host (``scoring/tables.py`` of either
+package), and its state is the filled band, or in score-only mode the last
+diagonal's slab.  All cross as numpy arrays.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 
 from .ops.band import DeviceBand
-from bialign_tpu.ops.cases import N_STATES
+from .ops.cases import N_STATES
 
 _I32 = np.iinfo(np.int32)
 
@@ -55,3 +56,21 @@ def band_from_jax(ys, n: int, m: int, max_shift: int, affine: bool,
         raise ValueError(f"JAX band crops to {ys.shape}, expected {want}")
     return DeviceBand(ys=torch.from_numpy(np.ascontiguousarray(ys, np.int32)),
                       n=n, m=m, max_shift=max_shift, affine=affine)
+
+
+def slab_from_jax(last, n: int, max_shift: int, affine: bool) -> torch.Tensor:
+    """The last-diagonal slab of a JAX score-only fill, as a port slab on
+    the CPU.
+
+    ``last`` is the output of the JAX package's score-only kernels in the
+    Pallas layout, ``[1, 9, W, W, Ppad]`` (affine) or ``[1, W, W, Ppad]``
+    (non-affine), cropped to the port's ``[(9,) W, W, n+1]``.  Only row n is
+    live on the last diagonal; the other rows keep the JAX kernel's values.
+    """
+    last = np.asarray(last)
+    W = 2 * max_shift + 1
+    want = (1, *((N_STATES,) if affine else ()), W, W)
+    if last.shape[:-1] != want or last.shape[-1] < n + 1:
+        raise ValueError(f"JAX slab {last.shape}, expected {want} + "
+                         f"(>= {n + 1},)")
+    return torch.from_numpy(np.array(last[0, ..., :n + 1], dtype=np.int32))

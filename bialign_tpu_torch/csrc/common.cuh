@@ -1,7 +1,8 @@
 // Definitions shared by the CUDA kernels of bialign_tpu_torch.
 //
 // All DP values are int32.  The host checks int32 safety first
-// (bialign_tpu/ops/cases.py check_int32_safe), so no sum below can wrap.
+// (bialign_tpu_torch/ops/cases.py check_int32_safe), so no sum below can
+// wrap.
 #pragma once
 
 #include <cstdint>
@@ -33,6 +34,16 @@ enum Field { SRC = 0, X0, X1, X2, X3, MU1C, MU2C, CST, SRCA, SRCB, REC };
 __device__ __forceinline__ long long cell_offset(int d, int q, int sk, int sl,
                                                  int i, int nq, int W, int P) {
   return ((((long long)d * nq + q) * W + sk) * W + sl) * P + i;
+}
+
+// Where diagonal d lives: slab d of a band [n+m+1, ...], or slab d % RING of
+// the ring [RING, ...] that the score-only kernels carry (d >= -2: the
+// slab of a guarded-out predecessor of diagonals 0 and 1 is computed, never
+// read).
+constexpr int RING = 3;
+template <bool kRing>
+__device__ __forceinline__ int slab_of(int d) {
+  return kRing ? (d + RING) % RING : d;
 }
 
 // mu1/mu2 are dense [n+1, m+1]; a (k, l) outside it scores 0, as in the

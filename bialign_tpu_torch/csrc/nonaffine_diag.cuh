@@ -1,0 +1,108 @@
+// One diagonal of the non-affine recurrence of one pair: the device function
+// that csrc/fill_nonaffine.cu (K2, band mode) and csrc/score_nonaffine.cu
+// (K2, score-only mode) share.
+//
+// Replaces bialign_tpu/ops/pallas_dp.py:_nonaffine_kernel with its slab
+// update _make_nonaffine_update (launched by _nonaffine_pallas).  Same
+// recurrence, same int32 values on every genuine cell: the 13 columns of
+// the reference (pyx:225-252), of which the 9 that advance a sequence read
+// diagonals d-1 and d-2 and the 4 str-only ones read this diagonal in
+// ascending t = sk + sl; the INVALID mask of a failed guard,
+// INVALID -> NEG_INF, and 0 at the origin.
+//
+// As in csrc/affine_diag.cuh the two modes differ only in where diagonal d
+// lives (template kRing): slab d of the band [n+m+1, W, W, n+1], or slab
+// d % 3 of the ring [3, W, W, n+1].
+//
+// What bounds it on an H100 80GB HBM3 at 700 W (measured; PERF.md,
+// Findings): as in csrc/affine_diag.cuh, one thread's chain of dependent
+// loads, each case's loads behind that case's guard: 25 positions x 13
+// cases, about 325 serial L2 round trips, about 50 us per launch, in
+// either mode.
+//
+// Design: as csrc/affine_diag.cuh.  One launch per diagonal, one thread
+// per live lattice row, shift positions in ascending t with each value
+// written at once, so the str-only cases read this thread's own earlier
+// writes.  With no state axis, one guard serves all 13 cases: for the
+// str-only columns (x0 = x1 = 0) it reduces to the reference's sk >= x2,
+// sl >= x3, k >= x2, l >= x3.  Rows outside the live range are never
+// written and, by the guard, never read.
+#pragma once
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace bialign {
+namespace {
+
+constexpr int kNonaffineBlock = 128;
+constexpr int kNonaffineTable = N_NONAFFINE_CASES * REC;
+
+template <bool kRing>
+__global__ void nonaffine_diag(int32_t* slabs,
+                               const int32_t* __restrict__ mu1,
+                               const int32_t* __restrict__ mu2,
+                               const int32_t* __restrict__ cases, int n, int m,
+                               int S, int d, int lo, int hi) {
+  __shared__ int32_t tab[kNonaffineTable];
+  for (int x = threadIdx.x; x < kNonaffineTable; x += blockDim.x)
+    tab[x] = cases[x];
+  __syncthreads();
+
+  const int i = lo + blockIdx.x * blockDim.x + threadIdx.x;
+  if (i > hi) return;
+  const int j = d - i;
+  const int W = 2 * S + 1;
+  const int P = n + 1;
+  const int32_t m1 = mu1[(long long)i * (m + 1) + j];
+
+  for (int t = 0; t <= 4 * S; ++t) {
+    for (int sk = max(0, t - 2 * S); sk <= min(2 * S, t); ++sk) {
+      const int sl = t - sk;
+      const int k = i + sk - S;
+      const int l = j + sl - S;
+      const int32_t m2 = mu_at(mu2, k, l, n, m);
+
+      int32_t best = INVALID;
+      for (int ci = 0; ci < N_NONAFFINE_CASES; ++ci) {
+        const int32_t* cc = tab + ci * REC;
+        const int x0 = cc[X0], x1 = cc[X1], x2 = cc[X2], x3 = cc[X3];
+        const int psk = sk - x2 + x0, psl = sl - x3 + x1;
+        if (i >= x0 && j >= x1 && k >= x2 && l >= x3 && psk >= 0 && psk < W &&
+            psl >= 0 && psl < W) {
+          const int32_t pred = slabs[cell_offset(
+              slab_of<kRing>(d - x0 - x1), 0, psk, psl, i - x0, 1, W, P)];
+          best = max(best, pred + cc[CST] + cc[MU1C] * m1 + cc[MU2C] * m2);
+        }
+      }
+      int32_t val = best == INVALID ? NEG_INF : best;
+      if (d == 0 && i == 0 && sk == S && sl == S) val = 0;  // pyx:464-465
+      slabs[cell_offset(slab_of<kRing>(d), 0, sk, sl, i, 1, W, P)] = val;
+    }
+  }
+}
+
+// Runs diagonals 0..n+m on `stream`, one launch each.  Returns 0, or the
+// first launch error as a cudaError_t value.
+template <bool kRing>
+int run_nonaffine_diagonals(int32_t* slabs, const int32_t* mu1,
+                            const int32_t* mu2, const int32_t* cases, int n,
+                            int m, int S, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int d = 0; d <= n + m; ++d) {
+    const int lo = std::max(0, d - m);
+    const int hi = std::min(n, d);
+    const int blocks = (hi - lo + 1 + kNonaffineBlock - 1) / kNonaffineBlock;
+    nonaffine_diag<kRing><<<blocks, kNonaffineBlock, 0, st>>>(
+        slabs, mu1, mu2, cases, n, m, S, d, lo, hi);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+}  // namespace
+}  // namespace bialign

@@ -1,26 +1,37 @@
-"""Single-pair band fills: CUDA kernel wrappers and their plain twins.
+"""Single-pair band fills and band-free scores: CUDA kernel wrappers and
+their plain twins.
 
-Counterpart of the band mode of :mod:`bialign_tpu.ops.pallas_dp` (K1
-``_affine_kernel``, K2 ``_nonaffine_kernel``).  Both fills produce a
-:class:`~bialign_tpu_torch.ops.band.DeviceBand` in the layout
-``[n+m+1, (9,) W, W, n+1]``.
+Counterpart of the single-pair kernels of :mod:`bialign_tpu.ops.pallas_dp`:
+K1 ``_affine_kernel`` and K2 ``_nonaffine_kernel`` in band mode and in
+score-only mode, and K3 ``_affine_ms0_kernel`` (affine, ``max_shift`` 0,
+score only).
 
-* ``fill_affine_device`` / ``fill_nonaffine_device`` launch the kernels of
-  ``csrc/fill_affine.cu`` / ``csrc/fill_nonaffine.cu`` for tables on a
-  CUDA device, and run the plain twin only for tables on the CPU, where no
-  kernel can run.  The user's choice of engine is made in
+* ``fill_affine_device`` / ``fill_nonaffine_device`` produce a
+  :class:`~bialign_tpu_torch.ops.band.DeviceBand` in the layout
+  ``[n+m+1, (9,) W, W, n+1]`` (``csrc/fill_affine.cu``,
+  ``csrc/fill_nonaffine.cu``).
+* ``affine_score`` / ``nonaffine_score`` return the optimal score and keep
+  no band: the kernels (``csrc/score_affine.cu``, ``csrc/score_nonaffine.cu``
+  and, for ``affine_score`` at ``max_shift`` 0, ``csrc/score_affine_ms0.cu``)
+  carry a ring of three diagonal slabs ``[3, (9,) W, W, n+1]``, diagonal
+  ``d`` in slab ``d % 3``.  ``*_last_slab`` return the slab of the last
+  diagonal, from which the score is read outside the kernel.
+* Each wrapper launches its kernel for tables on a CUDA device, and runs
+  the plain twin only for tables on the CPU, where no kernel can run.  The
+  user's choice of engine is made in
   :class:`~bialign_tpu_torch.aligner.BiAligner`, which refuses
   ``engine="cuda"`` on the CPU and so never reaches that branch.
-* ``fill_affine_plain`` / ``fill_nonaffine_plain`` are the same recurrence
-  in plain PyTorch, after :mod:`bialign_tpu.ops.xla_dp`
-  (``_build_affine_step``, ``_build_nonaffine_step``): a loop over
-  diagonals, vectorised over rows and shifts, on any device.  They are the
-  specification the kernels are held to.
+* ``*_plain`` are the same recurrences in plain PyTorch, after
+  :mod:`bialign_tpu.ops.xla_dp` (``_build_affine_step``,
+  ``_build_nonaffine_step``): a loop over diagonals, vectorised over rows
+  and shifts, on any device.  Band and score share one per-diagonal step.
+  They are the specification the kernels are held to.
 
 Inputs are the dense score tables ``mu1``, ``mu2``: int32 ``[n+1, m+1]``
 tensors on one device (:func:`bialign_tpu_torch.convert.tables_to_torch`).
-The caller checks int32 safety first
-(:func:`bialign_tpu.ops.cases.check_int32_safe`).
+The fills' caller checks int32 safety first
+(:func:`bialign_tpu_torch.ops.cases.check_int32_safe`); the scores check it
+themselves.
 """
 
 from __future__ import annotations
@@ -29,7 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from bialign_tpu.ops.cases import (
+from .. import _build
+from .band import DeviceBand
+from .cases import (
     NEG_INF,
     N_STATES,
     NONAFFINE_COLS,
@@ -37,18 +50,18 @@ from bialign_tpu.ops.cases import (
     STATES,
     AffineTables,
     NonAffineTables,
+    check_int32_safe,
     iter_affine_cases,
 )
 
-from .. import _build
-from .band import DeviceBand
-
-# Masked-case sentinel, the value of bialign_tpu/ops/xla_dp.py INVALID
-# (defined again here: that module imports jax).
+# Masked-case sentinel, the value of bialign_tpu/ops/xla_dp.py INVALID.
 INVALID = -(1 << 30) - (1 << 29)
 
-# Kernel launches per wrapper (one per fill), for run reports.
-LAUNCHES = {"fill_affine": 0, "fill_nonaffine": 0}
+# Kernel launches per wrapper (one per fill or score), for run reports.
+LAUNCHES = {"fill_affine": 0, "fill_nonaffine": 0, "score_affine": 0,
+            "score_nonaffine": 0, "score_affine_ms0": 0}
+
+RING = 3      # slabs of the score-only carry; csrc/common.cuh RING
 
 # Field order of one packed recursion case; csrc/common.cuh `Field`.
 SRC, X0, X1, X2, X3, MU1C, MU2C, CST, SRCA, SRCB, REC = range(11)
@@ -57,7 +70,7 @@ N_AFFINE_CASES = 15
 
 def affine_case_table(beta: int, gamma: int, delta: int) -> np.ndarray:
     """int32 ``[9, 15, REC]``: the affine cases of each target state in
-    reference order (:func:`~bialign_tpu.ops.cases.iter_affine_cases`:
+    reference order (:func:`~bialign_tpu_torch.ops.cases.iter_affine_cases`:
     9 group A, 3 group B, 3 group C), for the fill and walk kernels."""
     tab = np.zeros((N_STATES, N_AFFINE_CASES, REC), dtype=np.int32)
     for q in range(N_STATES):
@@ -103,6 +116,85 @@ def _check_tables(mu1: torch.Tensor, mu2: torch.Tensor, max_shift: int):
         raise ValueError(f"max_shift must be >= 0, got {max_shift}")
 
 
+def ms0_live_tables(beta: int, gamma: int, delta: int):
+    """Live states at ``max_shift`` 0 and their case constants, after
+    ``pallas_dp._ms0_live_tables``: ``(live, const[t][s], mu1_coef[t],
+    mu2_coef[t])`` with t, s over the three states whose column advances
+    both alignment copies in lockstep, in STATES order.  Only the full
+    columns of group A between live states survive at ``max_shift`` 0."""
+    live = [q for q, (a, b, c, e) in enumerate(STATES) if (a, b) == (c, e)]
+    assert len(live) == 3 and STATE_BOTH_MATCH in live
+    pos = {q: t for t, q in enumerate(live)}
+    const = np.zeros((3, 3), dtype=np.int32)
+    mu1c, mu2c = [0] * 3, [0] * 3
+    for t, q in enumerate(live):
+        for (src, col, m1c, m2c, ng, nb, nd, _g) in iter_affine_cases(q):
+            if tuple(col) == STATES[q] and src in pos:
+                const[t, pos[src]] = ng * gamma + nb * beta + nd * delta
+                mu1c[t], mu2c[t] = m1c, m2c
+    return live, const, mu1c, mu2c
+
+
+def ms0_case_table(beta: int, gamma: int, delta: int) -> np.ndarray:
+    """int32 ``[3, 7]``: per live target state (a, b, mu1_coef, mu2_coef,
+    const[0..2]), for ``csrc/score_affine_ms0.cu`` (``Ms0Field``)."""
+    live, const, mu1c, mu2c = ms0_live_tables(beta, gamma, delta)
+    return np.array([[STATES[q][0], STATES[q][1], mu1c[t], mu2c[t], *const[t]]
+                     for t, q in enumerate(live)], dtype=np.int32)
+
+
+def _check_tables(mu1: torch.Tensor, mu2: torch.Tensor, max_shift: int):
+    for name, mu in (("mu1", mu1), ("mu2", mu2)):
+        if not isinstance(mu, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(mu)}")
+        if mu.dtype != torch.int32 or mu.dim() != 2 or not mu.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous 2-D int32 tensor, got "
+                f"{mu.dtype} {tuple(mu.shape)}"
+            )
+        if mu.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name} on unsupported device {mu.device}")
+    if mu1.shape != mu2.shape or mu1.device != mu2.device:
+        raise ValueError(
+            f"mu1 {tuple(mu1.shape)} on {mu1.device} and mu2 "
+            f"{tuple(mu2.shape)} on {mu2.device} differ"
+        )
+    if max_shift < 0:
+        raise ValueError(f"max_shift must be >= 0, got {max_shift}")
+
+
+def _require_int32_safe(mu1, mu2, gamma, delta, beta=0):
+    """Refuse tables and costs whose scores could leave the certified int32
+    range (:func:`~bialign_tpu_torch.ops.cases.check_int32_safe`, which
+    reads a table's shape and largest magnitude only)."""
+    lo, hi = torch.stack([torch.minimum(mu1.min(), mu2.min()),
+                          torch.maximum(mu1.max(), mu2.max())]).tolist()
+    peak = np.broadcast_to(np.int64(max(-lo, hi)), tuple(mu1.shape))
+    costs = dict(gap_cost=gamma, gap_opening_cost=beta, shift_cost=delta)
+    if not check_int32_safe(peak, peak, costs):
+        raise NotImplementedError(
+            "these scores exceed the certified int32 range and need the "
+            "int64 engine, which is not ported yet: ROADMAP.md Queue 1 P2"
+        )
+
+
+def _ring_shape(mu1, S: int, states: tuple) -> tuple:
+    W = 2 * S + 1
+    return (RING, *states, W, W, mu1.shape[0])
+
+
+def _check_ring(ring, shape, mu1):
+    if ring is None:
+        return
+    if (tuple(ring.shape) != shape or ring.dtype != torch.int32
+            or ring.device != mu1.device or not ring.is_contiguous()):
+        raise ValueError(
+            f"ring must be a contiguous int32 tensor {shape} on "
+            f"{mu1.device}, got {ring.dtype} {tuple(ring.shape)} on "
+            f"{ring.device}"
+        )
+
+
 # -- kernel wrappers ---------------------------------------------------------
 
 def fill_affine_device(mu1, mu2, max_shift, beta, gamma, delta) -> DeviceBand:
@@ -138,6 +230,88 @@ def _fill_kernel(name, cases, mu1, mu2, S, *, affine) -> DeviceBand:
     return DeviceBand(ys=band, n=n, m=m, max_shift=S, affine=affine)
 
 
+def affine_last_slab(mu1, mu2, max_shift, beta, gamma, delta, *, ring=None):
+    """Slab ``[9, W, W, n+1]`` of the last diagonal n+m of the affine
+    recurrence, no band kept (K1 score-only mode): the CUDA kernel for
+    tables on a CUDA device, the plain twin for tables on the CPU.  Only
+    row n is live on that diagonal.  ``ring``: the carry
+    ``[3, 9, W, W, n+1]`` to use, whatever it holds (default: fresh,
+    uninitialised memory)."""
+    _check_tables(mu1, mu2, max_shift)
+    if mu1.device.type == "cpu":
+        return affine_last_slab_plain(mu1, mu2, max_shift, beta, gamma, delta,
+                                      ring=ring)
+    return _score_kernel("score_affine", affine_case_table(beta, gamma, delta),
+                         mu1, mu2, _ring_shape(mu1, max_shift, (N_STATES,)),
+                         ring, max_shift)
+
+
+def nonaffine_last_slab(mu1, mu2, max_shift, gamma, delta, *, ring=None):
+    """Slab ``[W, W, n+1]`` of the last diagonal of the non-affine
+    recurrence, no band kept (K2 score-only mode); as
+    :func:`affine_last_slab`, ``ring`` being ``[3, W, W, n+1]``."""
+    _check_tables(mu1, mu2, max_shift)
+    if mu1.device.type == "cpu":
+        return nonaffine_last_slab_plain(mu1, mu2, max_shift, gamma, delta,
+                                         ring=ring)
+    return _score_kernel("score_nonaffine", nonaffine_case_table(gamma, delta),
+                         mu1, mu2, _ring_shape(mu1, max_shift, ()), ring,
+                         max_shift)
+
+
+def affine_ms0_last_slab(mu1, mu2, beta, gamma, delta, *, ring=None):
+    """Slab ``[3, n+1]`` (the three live states) of the last diagonal of
+    the affine recurrence at ``max_shift`` 0 (K3); as
+    :func:`affine_last_slab`, ``ring`` being ``[3, 3, n+1]``."""
+    _check_tables(mu1, mu2, 0)
+    if mu1.device.type == "cpu":
+        return affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta,
+                                          ring=ring)
+    return _score_kernel("score_affine_ms0",
+                         ms0_case_table(beta, gamma, delta), mu1, mu2,
+                         (RING, 3, mu1.shape[0]), ring)
+
+
+def _score_kernel(name, cases, mu1, mu2, ring_shape, ring, *shift):
+    """Launch score-only kernel ``name`` over ``ring`` (fresh memory if
+    None); ``shift`` is the kernel's max_shift argument, which K3 lacks.
+    Returns the slab of the last diagonal, a view of the ring."""
+    n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
+    dev = mu1.device
+    _check_ring(ring, ring_shape, mu1)
+    if ring is None:
+        ring = torch.empty(ring_shape, dtype=torch.int32, device=dev)
+    cases_t = torch.from_numpy(cases).to(dev)
+    _build.launch(f"bialign_{name}", dev, ring, mu1, mu2, cases_t, n, m,
+                  *shift)
+    LAUNCHES[name] += 1
+    return ring[(n + m) % RING]
+
+
+def affine_score(mu1, mu2, max_shift, beta, gamma, delta) -> int:
+    """Affine optimal score of one pair, no band kept (pallas_dp.py
+    ``affine_score``): K3 at ``max_shift`` 0, else K1 in score-only mode.
+    The score is the max over the states of the last slab at (S, S, n), one
+    small copy to the host."""
+    _check_tables(mu1, mu2, max_shift)
+    _require_int32_safe(mu1, mu2, gamma, delta, beta)
+    n, S = mu1.shape[0] - 1, max_shift
+    if S == 0:
+        return int(affine_ms0_last_slab(mu1, mu2, beta, gamma, delta)[:, n]
+                   .max())
+    slab = affine_last_slab(mu1, mu2, S, beta, gamma, delta)
+    return int(slab[:, S, S, n].max())
+
+
+def nonaffine_score(mu1, mu2, max_shift, gamma, delta) -> int:
+    """Non-affine optimal score of one pair, no band kept (pallas_dp.py
+    ``nonaffine_score``): K2 in score-only mode."""
+    _check_tables(mu1, mu2, max_shift)
+    _require_int32_safe(mu1, mu2, gamma, delta)
+    n, S = mu1.shape[0] - 1, max_shift
+    return int(nonaffine_last_slab(mu1, mu2, S, gamma, delta)[S, S, n])
+
+
 # -- plain twins -------------------------------------------------------------
 
 def _shift(x, dk: int, dl: int, di: int):
@@ -151,46 +325,57 @@ def _in_slab(idx, W: int):
 
 
 class _Geometry:
-    """Index grids of a diagonal's slab ``[W, W, P]`` and the score tables
-    in diagonal layout, ``mu1d[d] = mu1[i, d-i]`` and ``mu2d[d] =
-    mu2[k, l]``, 0 outside [0, n] x [0, m] (xla_dp._diag_mu_tables)."""
+    """Index grids of a diagonal's slab ``[W, W, P]``, and per diagonal
+    (:meth:`diag`) the score tables in diagonal layout, 0 outside
+    [0, n] x [0, m] (xla_dp._diag_mu_tables).  Nothing here is the size of
+    a band."""
 
     def __init__(self, mu1, mu2, S: int):
         n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
         dev = mu1.device
-        W, P, D = 2 * S + 1, n + 1, n + m + 1
+        W, P = 2 * S + 1, n + 1
+        self.mu1, self.mu2 = mu1, mu2
         self.n, self.m, self.S, self.W = n, m, S, W
         i = self.i = torch.arange(P, device=dev)[None, None, :]
         sk = self.sk = torch.arange(W, device=dev)[:, None, None]
         sl = self.sl = torch.arange(W, device=dev)[None, :, None]
         k = self.k = i + sk - S
+        self.k_ok = (k >= 0) & (k <= n)
         self.t = sk + sl
         self.origin = (i == 0) & (sk == S) & (sl == S)
-        j = torch.arange(D, device=dev)[:, None, None, None] - i
-        l = j + sl - S                                       # [D, 1, W, P]
-        self.live = (j >= 0) & (j <= m)                      # [D, 1, 1, P]
-        self.mu1d = torch.where(self.live, mu1[i, j.clamp(0, m)], 0)
-        ok = (k >= 0) & (k <= n) & (l >= 0) & (l <= m)
-        self.mu2d = torch.where(ok, mu2[k.clamp(0, n), l.clamp(0, m)], 0)
-        # the guards' terms in j and l, the only ones that change with d
-        self.j_ge = [j >= 0, j >= 1]
-        self.l_ge = [l >= 0, l >= 1]
+        self.no_origin = torch.zeros_like(self.origin)
+
+    def diag(self, d: int):
+        """(mu1_row ``[1, 1, P]``, mu2_blk ``[W, W, P]``, j_ge, l_ge, live
+        ``[1, 1, P]``) of diagonal d: ``mu1[i, d-i]``, ``mu2[k, l]``, the
+        guards' terms in j and l (the only ones that change with d), and
+        the rows with 0 <= j <= m."""
+        n, m = self.n, self.m
+        j = d - self.i                                        # [1, 1, P]
+        l = j + self.sl - self.S                              # [1, W, P]
+        live = (j >= 0) & (j <= m)
+        mu1_row = torch.where(live, self.mu1[self.i, j.clamp(0, m)], 0)
+        ok = self.k_ok & (l >= 0) & (l <= m)
+        mu2_blk = torch.where(
+            ok, self.mu2[self.k.clamp(0, n), l.clamp(0, m)], 0)
+        return mu1_row, mu2_blk, [j >= 0, j >= 1], [l >= 0, l >= 1], live
 
 
 def _index(rows, dev):
     return torch.as_tensor(rows, dtype=torch.long, device=dev)
 
 
-def fill_affine_plain(mu1, mu2, max_shift, beta, gamma, delta) -> DeviceBand:
-    """Affine band fill in plain PyTorch, on the tables' device
-    (xla_dp._build_affine_step, with the band layout of the kernel)."""
-    _check_tables(mu1, mu2, max_shift)
-    S = max_shift
+def _affine_step(g: _Geometry, beta, gamma, delta):
+    """The affine recurrence of one diagonal: ``step(d, vm1, vm2)`` maps
+    the slabs ``[9, W, W, P]`` of diagonals d-1 and d-2 to (slab of d, its
+    live rows); band fill and score share it.  Rows of the result off the
+    live range are not meaningful, and rows of vm1/vm2 off their own live
+    ranges may hold anything: every case that would read one is guarded
+    out (xla_dp._build_affine_step)."""
     Q = N_STATES
-    g = _Geometry(mu1, mu2, S)
-    n, m, W = g.n, g.m, g.W
+    S, W = g.S, g.W
     i, k, sk, sl = g.i, g.k, g.sk, g.sl
-    dev = mu1.device
+    dev = g.mu1.device
     tabs = AffineTables(beta, gamma, delta)
 
     def consts(a):
@@ -216,16 +401,10 @@ def fill_affine_plain(mu1, mu2, max_shift, beta, gamma, delta) -> DeviceBand:
               for t in range(4 * S + 1)]
     init = torch.full((Q, 1, 1, 1), NEG_INF, dtype=torch.int32, device=dev)
     init[STATE_BOTH_MATCH] = 0
-    no_origin = torch.zeros_like(g.origin)
 
-    band = torch.empty((n + m + 1, Q, W, W, n + 1), dtype=torch.int32,
-                       device=dev)
-    vm1 = vm2 = torch.full((Q, W, W, n + 1), INVALID, dtype=torch.int32,
-                           device=dev)
-    for d in range(n + m + 1):
-        mu1_row, mu2_blk = g.mu1d[d], g.mu2d[d]
-        j_ge, l_ge = [x[d] for x in g.j_ge], [x[d] for x in g.l_ge]
-        best = torch.empty((Q, W, W, n + 1), dtype=torch.int32, device=dev)
+    def step(d, vm1, vm2):
+        mu1_row, mu2_blk, j_ge, l_ge, live = g.diag(d)
+        best = torch.empty((Q, W, W, g.n + 1), dtype=torch.int32, device=dev)
         for q in range(Q):
             a, b, c, e = STATES[q]
             pred = vm1 if a + b == 1 else vm2
@@ -244,7 +423,7 @@ def fill_affine_plain(mu1, mu2, max_shift, beta, gamma, delta) -> DeviceBand:
             cC = torch.where(gC[q] & j_ge[b], aggC, INVALID)
             best[q] = torch.maximum(cA, cC)
         val = torch.where(best == INVALID, NEG_INF, best)
-        protect = g.origin if d == 0 else no_origin
+        protect = g.origin if d == 0 else g.no_origin
         val = torch.where(protect, init, val)
 
         # group B: str-only half columns (0, 0, c, e) within the diagonal;
@@ -263,22 +442,17 @@ def fill_affine_plain(mu1, mu2, max_shift, beta, gamma, delta) -> DeviceBand:
                 vq = torch.where(bq == INVALID, NEG_INF, bq)
                 best[q] = torch.where(commit, bq, best[q])
                 val[q] = torch.where(commit, vq, val[q])
+        return val, live
 
-        val = torch.where(g.live[d], val, INVALID)
-        band[d] = val
-        vm1, vm2 = val, vm1
-    return DeviceBand(ys=band, n=n, m=m, max_shift=S, affine=True)
+    return step
 
 
-def fill_nonaffine_plain(mu1, mu2, max_shift, gamma, delta) -> DeviceBand:
-    """Non-affine band fill in plain PyTorch, on the tables' device
-    (xla_dp._build_nonaffine_step, with the band layout of the kernel)."""
-    _check_tables(mu1, mu2, max_shift)
-    S = max_shift
-    g = _Geometry(mu1, mu2, S)
-    n, m, W = g.n, g.m, g.W
+def _nonaffine_step(g: _Geometry, gamma, delta):
+    """The non-affine recurrence of one diagonal, as :func:`_affine_step`
+    on slabs ``[W, W, P]`` (xla_dp._build_nonaffine_step)."""
+    W, S = g.W, g.S
     i, k, sk, sl = g.i, g.k, g.sk, g.sl
-    dev = mu1.device
+    dev = g.mu1.device
     tab = NonAffineTables(gamma, delta)
     # (column, constant, mu1 and mu2 multiplicities, guard terms fixed in d)
     external, internal = [], []
@@ -291,16 +465,10 @@ def fill_nonaffine_plain(mu1, mu2, max_shift, gamma, delta) -> DeviceBand:
                                     & _in_slab(sl - x3 + x1, W),))
         else:
             internal.append(case + ((k >= x2) & (sk >= x2) & (sl >= x3),))
-    no_origin = torch.zeros_like(g.origin)
 
-    band = torch.empty((n + m + 1, W, W, n + 1), dtype=torch.int32,
-                       device=dev)
-    vm1 = vm2 = torch.full((W, W, n + 1), INVALID, dtype=torch.int32,
-                           device=dev)
-    for d in range(n + m + 1):
-        mu1_row, mu2_blk = g.mu1d[d], g.mu2d[d]
-        j_ge, l_ge = [x[d] for x in g.j_ge], [x[d] for x in g.l_ge]
-        best = torch.full((W, W, n + 1), INVALID, dtype=torch.int32,
+    def step(d, vm1, vm2):
+        mu1_row, mu2_blk, j_ge, l_ge, live = g.diag(d)
+        best = torch.full((W, W, g.n + 1), INVALID, dtype=torch.int32,
                           device=dev)
         for (x0, x1, x2, x3), const, m1c, m2c, fixed in external:
             pred = vm1 if x0 + x1 == 1 else vm2
@@ -312,7 +480,7 @@ def fill_nonaffine_plain(mu1, mu2, max_shift, gamma, delta) -> DeviceBand:
             ok = fixed & j_ge[x1] & l_ge[x3]
             best = torch.maximum(best, torch.where(ok, contrib, INVALID))
         val = torch.where(best == INVALID, NEG_INF, best)
-        protect = g.origin if d == 0 else no_origin
+        protect = g.origin if d == 0 else g.no_origin
         val = torch.where(protect, 0, val)
 
         # the 4 str-only columns, within the diagonal in ascending t
@@ -328,8 +496,133 @@ def fill_nonaffine_plain(mu1, mu2, max_shift, gamma, delta) -> DeviceBand:
             best = torch.where(commit, b2, best)
             val = torch.where(commit, torch.where(b2 == INVALID, NEG_INF, b2),
                               val)
+        return val, live
 
-        val = torch.where(g.live[d], val, INVALID)
+    return step
+
+
+def _fill_plain(step, g: _Geometry, states: tuple, affine: bool) -> DeviceBand:
+    """Run ``step`` over all diagonals into a band; rows off a diagonal's
+    live range hold INVALID, as in the kernels' band."""
+    n, m, W = g.n, g.m, g.W
+    dev = g.mu1.device
+    band = torch.empty((n + m + 1, *states, W, W, n + 1), dtype=torch.int32,
+                       device=dev)
+    vm1 = vm2 = torch.full((*states, W, W, n + 1), INVALID,
+                           dtype=torch.int32, device=dev)
+    for d in range(n + m + 1):
+        val, live = step(d, vm1, vm2)
+        val = torch.where(live, val, INVALID)
         band[d] = val
         vm1, vm2 = val, vm1
-    return DeviceBand(ys=band, n=n, m=m, max_shift=S, affine=False)
+    return DeviceBand(ys=band, n=n, m=m, max_shift=g.S, affine=affine)
+
+
+def _ring_plain(step, n: int, m: int, shape: tuple, ring, dev):
+    """Run ``step`` over all diagonals on a ring of three slabs, as the
+    score-only kernels do: diagonal d reads slabs (d-1) % 3 and (d-2) % 3
+    and writes the live rows of slab d % 3, the other rows keeping what
+    they held.  Returns the slab of diagonal n+m."""
+    if ring is None:
+        ring = torch.full(shape, INVALID, dtype=torch.int32, device=dev)
+    for d in range(n + m + 1):
+        val, live = step(d, ring[(d - 1) % RING], ring[(d - 2) % RING])
+        ring[d % RING] = torch.where(live, val, ring[d % RING])
+    return ring[(n + m) % RING]
+
+
+def fill_affine_plain(mu1, mu2, max_shift, beta, gamma, delta) -> DeviceBand:
+    """Affine band fill in plain PyTorch, on the tables' device
+    (xla_dp._build_affine_step, with the band layout of the kernel)."""
+    _check_tables(mu1, mu2, max_shift)
+    g = _Geometry(mu1, mu2, max_shift)
+    return _fill_plain(_affine_step(g, beta, gamma, delta), g, (N_STATES,),
+                       affine=True)
+
+
+def fill_nonaffine_plain(mu1, mu2, max_shift, gamma, delta) -> DeviceBand:
+    """Non-affine band fill in plain PyTorch, on the tables' device
+    (xla_dp._build_nonaffine_step, with the band layout of the kernel)."""
+    _check_tables(mu1, mu2, max_shift)
+    g = _Geometry(mu1, mu2, max_shift)
+    return _fill_plain(_nonaffine_step(g, gamma, delta), g, (), affine=False)
+
+
+def affine_last_slab_plain(mu1, mu2, max_shift, beta, gamma, delta, *,
+                           ring=None):
+    """Plain twin of the K1 score-only kernel: the step of
+    :func:`fill_affine_plain` on a ring of three slabs, no band."""
+    _check_tables(mu1, mu2, max_shift)
+    shape = _ring_shape(mu1, max_shift, (N_STATES,))
+    _check_ring(ring, shape, mu1)
+    g = _Geometry(mu1, mu2, max_shift)
+    return _ring_plain(_affine_step(g, beta, gamma, delta), g.n, g.m, shape,
+                       ring, mu1.device)
+
+
+def nonaffine_last_slab_plain(mu1, mu2, max_shift, gamma, delta, *,
+                              ring=None):
+    """Plain twin of the K2 score-only kernel: the step of
+    :func:`fill_nonaffine_plain` on a ring of three slabs, no band."""
+    _check_tables(mu1, mu2, max_shift)
+    shape = _ring_shape(mu1, max_shift, ())
+    _check_ring(ring, shape, mu1)
+    g = _Geometry(mu1, mu2, max_shift)
+    return _ring_plain(_nonaffine_step(g, gamma, delta), g.n, g.m, shape,
+                       ring, mu1.device)
+
+
+def affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta, *, ring=None):
+    """Plain twin of the K3 kernel (pallas_dp._make_update_ms0): three live
+    states, slabs ``[3, P]``, on a ring of three."""
+    _check_tables(mu1, mu2, 0)
+    n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
+    dev = mu1.device
+    shape = (RING, 3, n + 1)
+    _check_ring(ring, shape, mu1)
+    live_states, const, mu1c, mu2c = ms0_live_tables(beta, gamma, delta)
+    const_t = torch.as_tensor(const, device=dev)[..., None]     # [3, 3, 1]
+    i = torch.arange(n + 1, device=dev)
+    init = torch.tensor([0 if q == STATE_BOTH_MATCH else NEG_INF
+                         for q in live_states], dtype=torch.int32, device=dev)
+
+    def step(d, vm1, vm2):
+        j = d - i
+        live = (j >= 0) & (j <= m)
+        at = (i, j.clamp(0, m))
+        m1 = torch.where(live, mu1[at], 0)
+        m2 = torch.where(live, mu2[at], 0)
+        out = []
+        for t, q in enumerate(live_states):
+            a, b = STATES[q][:2]
+            pred = vm1 if a + b == 1 else vm2
+            acc = (F.pad(pred, (a, -a), value=INVALID) + const_t[t]).amax(0)
+            acc = acc + mu1c[t] * m1 + mu2c[t] * m2
+            out.append(torch.where((i >= a) & (j >= b), acc, NEG_INF))
+        val = torch.stack(out)
+        if d == 0:
+            val = torch.where(i == 0, init[:, None], val)
+        return val, live
+
+    return _ring_plain(step, n, m, shape, ring, dev)
+
+
+def affine_score_plain(mu1, mu2, max_shift, beta, gamma, delta) -> int:
+    """Affine optimal score through :func:`affine_last_slab_plain`."""
+    n, S = mu1.shape[0] - 1, max_shift
+    slab = affine_last_slab_plain(mu1, mu2, S, beta, gamma, delta)
+    return int(slab[:, S, S, n].max())
+
+
+def nonaffine_score_plain(mu1, mu2, max_shift, gamma, delta) -> int:
+    """Non-affine optimal score through :func:`nonaffine_last_slab_plain`."""
+    n, S = mu1.shape[0] - 1, max_shift
+    return int(nonaffine_last_slab_plain(mu1, mu2, S, gamma, delta)[S, S, n])
+
+
+def affine_ms0_score_plain(mu1, mu2, beta, gamma, delta) -> int:
+    """Affine optimal score at ``max_shift`` 0 through
+    :func:`affine_ms0_last_slab_plain`."""
+    n = mu1.shape[0] - 1
+    return int(affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta)[:, n]
+               .max())

@@ -3,8 +3,8 @@
 Counterpart of :mod:`bialign_tpu.ops.device_traceback`.  The walk runs on
 the device that holds the band (``csrc/walk.cu``, one thread), so only the
 trace, O(n+m) column codes, crosses to the host.  Its plain twin is the
-host walk :mod:`bialign_tpu.ops.traceback`, which the kernel must match
-trace for trace, over ``band.to_numpy()``.
+host walk :mod:`bialign_tpu_torch.ops.traceback`, which the kernel must
+match trace for trace, over ``band.to_numpy()``.
 
 Both return what the JAX package's walks return: ``(trace, complete)``
 (affine) or ``trace`` (non-affine), the trace a forward list of column
@@ -16,9 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bialign_tpu.ops import traceback as host_tb
-
 from .. import _build
+from . import traceback as host_tb
 from .band import DeviceBand
 from .cuda_dp import affine_case_table, nonaffine_case_table
 

@@ -2,31 +2,41 @@
 """Smoke run of the PyTorch/CUDA port (bialign_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py --kernels-only     # phases 1-3, then stop
 
-Needs one CUDA card and nvcc; imports no JAX.  Phases, one line each:
+Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
+package.  Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds csrc/*.cu into build/bialign_tpu_torch/;
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card,
-   on random tables at small to medium shapes (bands and traces exact);
+   on random tables at small to medium shapes (bands, last slabs and
+   traces exact; the score-only kernels on a ring pre-filled with garbage);
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
-5. full size: the DNA-Pol-1 928x933 pair, affine max_shift 1 (SCORE 761500
-   and the six md5 row anchors of tests/test_dnapol.py), and at the CLI
-   defaults (non-affine, max_shift 2) against the plain twins; end-to-end
-   times, kernel times against the plain twins', band bytes, peak memory;
-6. launch counts of phases 4-5, each of which must be > 0;
+5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
+   1 (SCORE 761500 and the six md5 row anchors of tests/test_dnapol.py),
+   and the CLI defaults (non-affine, max_shift 2) against the plain twins.
+   The score-only path through the port's tables: affine_score = 761500,
+   at max_shift 0 (K3) and 2 and nonaffine_score at the CLI defaults equal
+   to the band path's.  End-to-end times, kernel times against the plain
+   twins', band bytes, peak memory.  Then a 4000x3990 pair of random
+   tables, affine max_shift 1: score-only against the band kernel;
+6. launch counts of the two paths, counted apart, each of which must be
+   > 0;
 7. profile: where the time of the DNA-Pol-1 runs goes, stage by stage on
    the host clock and from a torch.profiler trace (device busy and idle
    time, per-kernel times); traces and report in build/profile/.
 
-Then one JSON line of per-kernel results, and last the line
+Then one JSON line of per-kernel results (with each kernel's bound: the
+least time the card could take for the same work), and last the line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 nonzero and that line is not printed.  Exits 2 without a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import ast
 import hashlib
 import importlib.util
@@ -62,6 +72,14 @@ DNAPOL_PREFIX = dict(type="Protein", shift_cost=-210, structure_weight=800,
                      simmatrix="BLOSUM62", gap_opening_cost=-200,
                      gap_cost=-50, max_shift=1)     # tests/test_dnapol.py:15-23
 DNAPOL_CLI_DEFAULTS = dict(type="Protein")         # non-affine, max_shift 2
+MS0_SHAPES = [(7, 9), (1, 1), (0, 3), (5, 0), (20, 13)]   # (n, m) for K3
+BIG_PAIR = (4000, 3990, 1)              # README: a synthetic protein pair
+
+# Peaks of one H100 SXM for the kernels' bounds: device memory 3.35 TB/s;
+# int32 on the CUDA cores 132 SMs x 64 lanes x 1.98 GHz (boost) = 16.7e12
+# operations a second.  These kernels have no tensor-core form.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 KERNELS = {
     # name: (source, the TPU-side program it replaces)
@@ -69,6 +87,12 @@ KERNELS = {
                     "bialign_tpu/ops/pallas_dp.py:542"),
     "fill_nonaffine": ("bialign_tpu_torch/csrc/fill_nonaffine.cu",
                        "bialign_tpu/ops/pallas_dp.py:414"),
+    "score_affine": ("bialign_tpu_torch/csrc/score_affine.cu",
+                     "bialign_tpu/ops/pallas_dp.py:542"),
+    "score_nonaffine": ("bialign_tpu_torch/csrc/score_nonaffine.cu",
+                        "bialign_tpu/ops/pallas_dp.py:414"),
+    "score_affine_ms0": ("bialign_tpu_torch/csrc/score_affine_ms0.cu",
+                         "bialign_tpu/ops/pallas_dp.py:741"),
     "walk_affine": ("bialign_tpu_torch/csrc/walk.cu",
                     "bialign_tpu/ops/device_traceback.py:85"),
     "walk_nonaffine": ("bialign_tpu_torch/csrc/walk.cu",
@@ -142,6 +166,46 @@ def band_err(a, b) -> int:
     return int((a.ys.long() - b.ys.long()).abs().max())
 
 
+def row_err(a, b, n: int) -> int:
+    """Max |a - b| over row n, the live row of the last diagonal's slab."""
+    check(a.shape == b.shape, f"slab shapes {a.shape} {b.shape}")
+    return int((a[..., n].long() - b[..., n].long()).abs().max())
+
+
+def garbage_ring(rng, shape, dev):
+    """A ring of arbitrary int32 values for a score-only kernel to run on:
+    it must read none of them."""
+    return torch.from_numpy(
+        rng.integers(-2 ** 31, 2 ** 31, size=shape).astype(np.int32)).to(dev)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` and do ``ops`` int32 operations."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def dp_bound(n, m, S, cases: int, states: int, band: bool):
+    """Bound of a fill or score over a pair: the two tables and the case
+    table read once; the band (fill) or the last diagonal's slab (score)
+    written once; one add and one max per (cell, shift position, state,
+    case)."""
+    cells, W2 = (n + 1) * (m + 1), (2 * S + 1) ** 2
+    slab = states * W2 * (n + 1) * 4
+    nbytes = 2 * cells * 4 + (n + m + 1 if band else 1) * slab
+    return bound(nbytes, cells * W2 * states * cases * 2)
+
+
+def walk_bound(steps: int, cases: int):
+    """Bound of a walk of ``steps`` columns (this run's trace): per step
+    the cell, its cases' predecessors and the two table entries read, one
+    code written; one add and one compare per case."""
+    return bound(steps * ((cases + 3) * 4 + 4), steps * cases * 2)
+
+
 def trace_err(ta, tb) -> int:
     check(len(ta) == len(tb), f"trace lengths {len(ta)} != {len(tb)}")
     enc = [np.asarray([8 * c[0] + 4 * c[1] + 2 * c[2] + c[3] for c in t],
@@ -163,6 +227,7 @@ def phase_kernels(dev, errs: dict) -> None:
         check(e == 0, f"fill_affine band ({n}, {m}, {S}): max |err| {e}")
         check(bk.final_score() == bp.final_score(), f"affine score {n, m, S}")
         errs["fill_affine"] = max(errs["fill_affine"], e)
+        affine_band = bk
         tk, ck = dtb.affine_traceback(bk, beta, gamma, delta, t1, t2)
         tp, cp = dtb.affine_traceback_plain(bp, beta, gamma, delta, t1, t2)
         e = trace_err(tk, tp)
@@ -181,9 +246,49 @@ def phase_kernels(dev, errs: dict) -> None:
         e = trace_err(tk, tp)
         check(e == 0, f"walk_nonaffine trace ({n}, {m}, {S})")
         errs["walk_nonaffine"] = max(errs["walk_nonaffine"], e)
+        nonaffine_band = bk
+
+        # score-only: the last slab's live row against the plain twin's and
+        # the band kernel's, on a ring of garbage; the score on a fresh one
+        W = 2 * S + 1
+        sk = cuda_dp.affine_last_slab(
+            t1, t2, S, beta, gamma, delta,
+            ring=garbage_ring(rng, (3, 9, W, W, n + 1), dev))
+        sp = cuda_dp.affine_last_slab_plain(t1, t2, S, beta, gamma, delta)
+        e = max(row_err(sk, sp, n), row_err(sk, affine_band.ys[n + m], n))
+        check(e == 0, f"score_affine last slab ({n}, {m}, {S}): |err| {e}")
+        errs["score_affine"] = max(errs["score_affine"], e)
+        check(cuda_dp.affine_score(t1, t2, S, beta, gamma, delta)
+              == affine_band.final_score(), f"score_affine score {n, m, S}")
+
+        sk = cuda_dp.nonaffine_last_slab(
+            t1, t2, S, g2, d2, ring=garbage_ring(rng, (3, W, W, n + 1), dev))
+        sp = cuda_dp.nonaffine_last_slab_plain(t1, t2, S, g2, d2)
+        e = max(row_err(sk, sp, n), row_err(sk, nonaffine_band.ys[n + m], n))
+        check(e == 0, f"score_nonaffine last slab ({n}, {m}, {S}): |err| {e}")
+        errs["score_nonaffine"] = max(errs["score_nonaffine"], e)
+        check(cuda_dp.nonaffine_score(t1, t2, S, g2, d2)
+              == nonaffine_band.final_score(),
+              f"score_nonaffine score {n, m, S}")
+
+    # K3 against its plain twin and against K1 score-only at max_shift 0
+    live = cuda_dp.ms0_live_tables(beta, gamma, delta)[0]
+    for n, m in MS0_SHAPES + [(150, 150), (300, 257)]:
+        rng = np.random.default_rng(SEED + 1000 * n + 10 * m)
+        t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
+        k3 = cuda_dp.affine_ms0_last_slab(
+            t1, t2, beta, gamma, delta,
+            ring=garbage_ring(rng, (3, 3, n + 1), dev))
+        p3 = cuda_dp.affine_ms0_last_slab_plain(t1, t2, beta, gamma, delta)
+        k1 = cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
+        e = max(row_err(k3, p3, n), row_err(k3, k1[live, 0, 0], n))
+        check(e == 0, f"score_affine_ms0 last slab ({n}, {m}): |err| {e}")
+        errs["score_affine_ms0"] = max(errs["score_affine_ms0"], e)
+        check(cuda_dp.affine_score(t1, t2, 0, beta, gamma, delta)
+              == int(k1[:, 0, 0, n].max()), f"score_affine_ms0 score {n, m}")
     torch.cuda.synchronize()
-    say("3 kernels", shapes=SHAPES, bands_equal=True, traces_equal=True,
-        max_abs_err=errs)
+    say("3 kernels", shapes=SHAPES, ms0_shapes=MS0_SHAPES, bands_equal=True,
+        last_slabs_equal=True, traces_equal=True, max_abs_err=errs)
 
 
 def phase_goldens(G) -> None:
@@ -282,10 +387,81 @@ def phase_full_main(mol, md5) -> dict:
     )
 
 
-def phase_full_timing(mol, errs: dict) -> dict:
-    """Kernels against plain twins at the DNA-Pol-1 shapes (not counted)."""
+def port_tables(mol, params):
+    """(aligner, mu1, mu2) of the pair through the port's host layers, the
+    tables on the card."""
     seqA, strA, seqB, strB = mol
-    times = {}
+    ba = BiAligner(seqA, seqB, strA, strB, **params)
+    return ba, *tables_to_torch(ba.mu1, ba.mu2, "cuda")
+
+
+def score_only(ba, t1, t2) -> int:
+    """The pair's score through the band-free entry point of its mode."""
+    if ba._affine:
+        return cuda_dp.affine_score(t1, t2, ba.max_shift, ba.beta, ba.gamma,
+                                    ba.delta)
+    return cuda_dp.nonaffine_score(t1, t2, ba.max_shift, ba.gamma, ba.delta)
+
+
+def phase_full_score(mol) -> dict:
+    """The DNA-Pol-1 pair through the score-only path (counted launches):
+    the port's tables, then cuda_dp.affine_score / nonaffine_score, against
+    the golden score and the band path's scores."""
+    found = {}
+    for name, params, want in SCORED:
+        ba, t1, t2 = port_tables(mol, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        score = score_only(ba, t1, t2)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()    # tables and ring alone
+        band_score = ba.optimize()
+        check(score == band_score,
+              f"{name}: score only {score} != band path {band_score}")
+        check(want is None or score == want, f"{name}: {score} != {want}")
+        found[name] = dict(
+            score=score, band_score=band_score, seconds=seconds,
+            max_memory_allocated=peak, band_bytes=ba._band.ys.numel() * 4)
+    return found
+
+
+def phase_big_pair(dev) -> dict:
+    """A 4000x3990 pair of random tables, affine max_shift 1: score-only
+    against the band kernel's final score, with both times and both peak
+    memories (not against the plain twin: about 8000 diagonals of
+    host-bound torch ops)."""
+    n, m, S = BIG_PAIR
+    beta, gamma, delta = AFFINE_PARAMS
+    t1, t2 = tables_to_torch(
+        *rand_tables(np.random.default_rng(SEED), n, m), dev)
+    runs = {
+        "score_only": lambda: cuda_dp.affine_score(t1, t2, S, beta, gamma,
+                                                   delta),
+        "band": lambda: cuda_dp.fill_affine_device(t1, t2, S, beta, gamma,
+                                                   delta).final_score(),
+    }
+    found = {name: dict(ms=[]) for name in runs}
+    runs["score_only"]()                                      # warm-up
+    for name in ("score_only", "band", "band", "score_only"):  # in turns
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms, score = cuda_ms(runs[name], reps=1)
+        found[name]["ms"].append(ms)
+        found[name].update(
+            score=score,
+            peak_bytes_above_tables=torch.cuda.max_memory_allocated() - base)
+    check(found["score_only"]["score"] == found["band"]["score"],
+          f"{n}x{m} scores differ: {found}")
+    return dict(n=n, m=m, max_shift=S, **found)
+
+
+def phase_full_timing(mol, errs: dict) -> tuple[dict, dict]:
+    """Kernels against plain twins at the DNA-Pol-1 shapes (not counted);
+    returns (times, bounds) by kernel name."""
+    seqA, strA, seqB, strB = mol
+    times, bounds = {}, {}
     for name, params in (("affine", DNAPOL_FULL),
                          ("nonaffine", DNAPOL_CLI_DEFAULTS)):
         ba = BiAligner(seqA, seqB, strA, strB, engine="torch",
@@ -306,6 +482,37 @@ def phase_full_timing(mol, errs: dict) -> dict:
         check(e == 0, f"fill_{name} DNA-Pol band: max |err| {e}")
         errs[f"fill_{name}"] = max(errs[f"fill_{name}"], e)
         times[f"fill_{name}"] = (ms_k, ms_p)
+        n, m = bk.n, bk.m
+        cases, states = (15, 9) if name == "affine" else (13, 1)
+        bounds[f"fill_{name}"] = dp_bound(n, m, S, cases, states, band=True)
+
+        # the same recurrence, score only
+        if name == "affine":
+            kern, plain = cuda_dp.affine_last_slab, cuda_dp.affine_last_slab_plain
+        else:
+            kern = cuda_dp.nonaffine_last_slab
+            plain = cuda_dp.nonaffine_last_slab_plain
+        kern(t1, t2, S, *p)                                   # warm-up
+        ms_k, sk = cuda_ms(lambda: kern(t1, t2, S, *p), reps=5)
+        ms_p, sp = cuda_ms(lambda: plain(t1, t2, S, *p), reps=1)
+        e = max(row_err(sk, sp, n), row_err(sk, bk.ys[n + m], n))
+        check(e == 0, f"score_{name} DNA-Pol last slab: max |err| {e}")
+        errs[f"score_{name}"] = max(errs[f"score_{name}"], e)
+        times[f"score_{name}"] = (ms_k, ms_p)
+        bounds[f"score_{name}"] = dp_bound(n, m, S, cases, states, band=False)
+
+        if name == "affine":                                  # K3
+            k3 = lambda: cuda_dp.affine_ms0_last_slab(t1, t2, *p)  # noqa
+            k3()
+            ms_k, sk = cuda_ms(k3, reps=5)
+            ms_p, sp = cuda_ms(
+                lambda: cuda_dp.affine_ms0_last_slab_plain(t1, t2, *p), reps=1)
+            e = row_err(sk, sp, n)
+            check(e == 0, f"score_affine_ms0 DNA-Pol last slab: |err| {e}")
+            errs["score_affine_ms0"] = max(errs["score_affine_ms0"], e)
+            times["score_affine_ms0"] = (ms_k, ms_p)
+            # three live states, three sources each, no shift axes
+            bounds["score_affine_ms0"] = dp_bound(n, m, 0, 3, 3, band=False)
 
         if name == "affine":
             walk = lambda: dtb.affine_traceback(bk, *p, t1, t2)[0]  # noqa
@@ -322,12 +529,18 @@ def phase_full_timing(mol, errs: dict) -> dict:
         check(e == 0, f"walk_{name} DNA-Pol trace differs")
         errs[f"walk_{name}"] = max(errs[f"walk_{name}"], e)
         times[f"walk_{name}"] = (ms_w, ms_wp)
-    return times
+        bounds[f"walk_{name}"] = walk_bound(len(tk), cases)
+    return times, bounds
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")   # device activity
 PROFILED = (("affine_ms1", DNAPOL_FULL),
             ("nonaffine_ms2_cli_defaults", DNAPOL_CLI_DEFAULTS))
+# the score-only runs: (name, parameters, golden score if there is one)
+SCORED = (("affine_ms1", DNAPOL_FULL, 761500),
+          ("affine_ms0", dict(DNAPOL_FULL, max_shift=0), None),      # K3
+          ("affine_ms2", dict(DNAPOL_FULL, max_shift=2), None),
+          ("nonaffine_ms2_cli_defaults", DNAPOL_CLI_DEFAULTS, None))
 
 
 def staged_run(mol, params) -> dict:
@@ -359,16 +572,17 @@ def kernel_name(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0][:80].strip()
 
 
-def profiled_run(mol, params, trace_path: Path) -> dict:
-    """One end-to-end run under torch.profiler.  From the exported trace:
-    the device's busy time (the union of its kernel, memcpy and memset
-    intervals) and idle share inside the run's window, each kernel's count
-    and time, and for the fill kernels (one per diagonal d, in order) the
-    gaps between them and their mean time by live rows on the diagonal."""
+def profiled_run(run, n: int, m: int, trace_path: Path) -> dict:
+    """One end-to-end ``run()`` of an n x m pair under torch.profiler.
+    From the exported trace: the device's busy time (the union of its
+    kernel, memcpy and memset intervals) and idle share inside the run's
+    window, each kernel's count and time, and for the DP kernels (one per
+    diagonal d, in order) the gaps between them and their mean time by
+    live rows on the diagonal."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("e2e"):
-            _t, _score, _lines, ba = run_e2e(mol, params)
+            run()
         torch.cuda.synchronize()
     prof.export_chrome_trace(str(trace_path))
     events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
@@ -389,9 +603,8 @@ def profiled_run(mol, params, trace_path: Path) -> dict:
         k = kernels.setdefault(name, {"count": 0, "total_us": 0.0})
         k["count"] += 1
         k["total_us"] += f - s
-    fills = [(s, f) for s, f, name in dev if "fill_" in name]
-    n, m = ba._band.n, ba._band.m
-    check(len(fills) == n + m + 1, f"{len(fills)} fill kernels traced")
+    fills = [(s, f) for s, f, name in dev if "_diag" in name]
+    check(len(fills) == n + m + 1, f"{len(fills)} DP kernels traced")
     dur = np.array([f - s for s, f in fills])
     gaps = np.array([b[0] - a[1] for a, b in zip(fills, fills[1:])])
     d = np.arange(n + m + 1)
@@ -409,16 +622,41 @@ def profiled_run(mol, params, trace_path: Path) -> dict:
     )
 
 
+def staged_score(mol, params) -> dict:
+    """One score-only run timed on the host clock: molecules and tables
+    (host), then the tables' copy, the kernel's launches and the score's
+    copy back, closed by a device sync."""
+    clock = time.perf_counter
+    torch.cuda.synchronize()
+    t0 = clock()
+    ba, t1, t2 = port_tables(mol, params)
+    torch.cuda.synchronize()
+    t1_ = clock()
+    score = score_only(ba, t1, t2)
+    torch.cuda.synchronize()
+    return dict(tables_s=t1_ - t0, score_s=clock() - t1_, score=score)
+
+
 def phase_profile(mol, out: Path) -> None:
-    """Where the time goes in the DNA-Pol-1 runs: three staged runs and one
-    profiled run per configuration, after a warm-up run."""
+    """Where the time goes in the DNA-Pol-1 runs, band path and score-only
+    path: three staged runs and one profiled run per configuration, after
+    a warm-up run."""
     out.mkdir(parents=True, exist_ok=True)
+    n, m = len(mol[0]), len(mol[2])
     report = {}
     for name, params in PROFILED:
         run_e2e(mol, params)
         report[name] = dict(
             staged=[staged_run(mol, params) for _ in range(3)],
-            profile=profiled_run(mol, params, out / f"trace_{name}.json"))
+            profile=profiled_run(lambda: run_e2e(mol, params), n, m,
+                                 out / f"trace_{name}.json"))
+    for name, params, _want in SCORED:
+        score = lambda: score_only(*port_tables(mol, params))  # noqa: E731
+        score()
+        report[f"score_only_{name}"] = dict(
+            staged=[staged_score(mol, params) for _ in range(3)],
+            profile=profiled_run(score, n, m,
+                                 out / f"trace_score_only_{name}.json"))
     (out / "profile.json").write_text(json.dumps(report, indent=1))
     say("7 profile", out=str(out), **{
         name: dict(staged=r["staged"],
@@ -428,6 +666,13 @@ def phase_profile(mol, out: Path) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--kernels-only", action="store_true",
+        help="stop after phase 3: build the kernels, print what ptxas says "
+        "and hold each against its plain twin at small shapes (a new "
+        "kernel's first run on a card)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -454,20 +699,32 @@ def main() -> int:
 
     errs = dict.fromkeys(KERNELS, 0)
     phase_kernels(dev, errs)
+    if args.kernels_only:
+        say("stopped after phase 3 (--kernels-only)")
+        return 0
 
     G = load_golden()
     mol = dnapol_pair()
     md5 = dnapol_md5()
+    # each path's launches are counted apart: counts to 0, the path, read
     reset_counts()
     phase_goldens(G)
     full = phase_full_main(mol, md5)
-    launches = counts()
+    launches = {k: v for k, v in counts().items() if not k.startswith("score_")}
     say("5 full size", **full)
+    reset_counts()
+    full_score = phase_full_score(mol)
+    launches.update({k: v for k, v in counts().items()
+                     if k.startswith("score_")})
+    say("5 full size, score only", nvidia_smi=smi, **full_score)
 
-    times = phase_full_timing(mol, errs)
+    times, bounds = phase_full_timing(mol, errs)
     say("5 kernel times", nvidia_smi=smi,
-        ms_kernel_vs_plain={k: {"kernel_ms": v[0], "plain_ms": v[1]}
+        ms_kernel_vs_plain={k: {"kernel_ms": v[0], "plain_ms": v[1],
+                                "bound_ms": bounds[k][0],
+                                "bound_by": bounds[k][1]}
                             for k, v in times.items()})
+    say("5 big pair", nvidia_smi=smi, **phase_big_pair(dev))
 
     say("6 launches", **launches)
     for name in KERNELS:
@@ -477,7 +734,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         # no single PyTorch call computes a banded max-plus recurrence
+         # over four indices, or walks one
+         "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,356 @@
+"""The port's own host layers against the JAX package's, module by module:
+each is a copy that must behave exactly as its original on the same inputs
+(tolerance 0: ints, strings and float64 arrays compared for equality)."""
+
+import dataclasses
+import filecmp
+import inspect
+
+import numpy as np
+import pytest
+
+import bialign_tpu as J
+import bialign_tpu.config
+import bialign_tpu.data
+import bialign_tpu.io
+import bialign_tpu.models.molecule
+import bialign_tpu.ops.cases
+import bialign_tpu.ops.traceback
+import bialign_tpu.render.decode
+import bialign_tpu.scoring.fold
+import bialign_tpu.scoring.structure
+import bialign_tpu.scoring.tables
+import bialign_tpu.version
+import golden as G
+from bialign_tpu.ops import reference_dp
+from test_pallas import _rand_pair
+
+import bialign_tpu_torch as T
+import bialign_tpu_torch.config
+import bialign_tpu_torch.data
+import bialign_tpu_torch.io
+import bialign_tpu_torch.models.molecule
+import bialign_tpu_torch.ops.cases
+import bialign_tpu_torch.ops.traceback
+import bialign_tpu_torch.render.decode
+import bialign_tpu_torch.scoring.fold
+import bialign_tpu_torch.scoring.structure
+import bialign_tpu_torch.scoring.tables
+import bialign_tpu_torch.version
+
+RNA_A, RNA_B = G.TOY_RNA["seqA"], G.TOY_RNA["seqB"]
+STR_A, STR_B = G.TOY_RNA["strA"], G.TOY_RNA["strB"]
+PRO = G.TOY_PROTEIN
+
+
+def _same(a, b):
+    """Deep equality of molecule dicts, tuples, lists and arrays."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and np.array_equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def test_version():
+    assert T.__version__ == J.__version__
+    assert (T.version.COMPAT_REFERENCE == J.version.COMPAT_REFERENCE)
+
+
+# -- ops/cases.py ------------------------------------------------------------
+
+@pytest.mark.parametrize("name", [
+    "NEG_INF", "STATES", "N_STATES", "STATE_INDEX", "STATE_BOTH_MATCH",
+    "HALF_STATES", "NONAFFINE_COLS", "N_NONAFFINE_CASES"])
+def test_cases_constants(name):
+    assert getattr(T.ops.cases, name) == getattr(J.ops.cases, name)
+
+
+def test_cases_functions():
+    tc, jc = T.ops.cases, J.ops.cases
+    assert np.array_equal(tc.STATES_ARR, jc.STATES_ARR)
+    for q in range(jc.N_STATES):
+        assert list(tc.iter_affine_cases(q)) == list(jc.iter_affine_cases(q))
+    for src in jc.STATES:
+        for col in jc.NONAFFINE_COLS:
+            assert (tc.affine_score_multiplicities(src, col)
+                    == jc.affine_score_multiplicities(src, col))
+    for col in jc.NONAFFINE_COLS:
+        assert (tc.nonaffine_case_multiplicities(col)
+                == jc.nonaffine_case_multiplicities(col))
+        for S in range(4):
+            for o in [(0, 0, 0, 0), (3, 2, 3, 2), (1, 1, 0, 2), (5, 4, 8, 1),
+                      (2, 2, 2 + S, 2 - S), (4, 4, 4 - S, 4 + S + 1)]:
+                assert tc.guard_case(o, col, S) == jc.guard_case(o, col, S)
+
+
+@pytest.mark.parametrize("beta,gamma,delta", [(-150, -50, -150),
+                                              (-200, -50, -210), (-1, -2, -3)])
+def test_cases_tables_array_for_array(beta, gamma, delta):
+    ta = T.ops.cases.AffineTables(beta, gamma, delta)
+    ja = J.ops.cases.AffineTables(beta, gamma, delta)
+    for name in ("a_const", "b_src", "b_const", "c_src", "c_const",
+                 "mu1_coef", "mu2_coef", "b_mu2_coef", "c_mu1_coef"):
+        assert _same(getattr(ta, name), getattr(ja, name)), name
+    assert ta.a_const_separable() == ja.a_const_separable()
+    tn = T.ops.cases.NonAffineTables(gamma, delta)
+    jn = J.ops.cases.NonAffineTables(gamma, delta)
+    for name in ("cols", "mu1_coef", "mu2_coef", "const"):
+        assert _same(getattr(tn, name), getattr(jn, name)), name
+
+
+def test_check_int32_safe_on_both_sides_of_its_limit():
+    mu = np.zeros((101, 101), dtype=np.int32)
+    verdicts = set()
+    # the bound grows with |gap_cost|: walk it across the limit
+    for gap in (-200, -10 ** 5, -10 ** 6, -2 * 10 ** 6, -10 ** 7, -10 ** 8):
+        p = dict(gap_cost=gap, gap_opening_cost=-150, shift_cost=-150)
+        got = T.ops.cases.check_int32_safe(mu, mu, p)
+        assert got == J.ops.cases.check_int32_safe(mu, mu, p)
+        assert (T.ops.cases.int32_value_bound(mu, mu, p)
+                == J.ops.cases.int32_value_bound(mu, mu, p))
+        verdicts.add(got)
+    assert verdicts == {True, False}
+    # and the exact edge: the largest safe bound and the first unsafe one
+    limit = -(1 << 30) - np.iinfo(np.int32).min - (1 << 20)
+    per_col = 2 * (100 + 100 + 2)
+    for mod in (T.ops.cases, J.ops.cases):
+        big = np.full((101, 101), (limit - 1) // (2 * per_col), np.int64)
+        zero = dict(gap_cost=0, gap_opening_cost=0, shift_cost=0)
+        assert mod.check_int32_safe(big, big, zero)
+        assert not mod.check_int32_safe(big + 1, big, zero)
+
+
+# -- scoring, models ---------------------------------------------------------
+
+def test_structure_and_fold():
+    ts, js = T.scoring.structure, J.scoring.structure
+    for db in (STR_A, STR_B, "((..))", "....", ""):
+        assert ts.parse_dotbracket(db) == js.parse_dotbracket(db)
+    seq = "GGGAAAUCCCGCGAAAGC"
+    sbpp_t = T.scoring.fold.partition_bpp(seq)
+    sbpp_j = J.scoring.fold.partition_bpp(seq)
+    assert _same(sbpp_t, sbpp_j)
+    assert ts.mea(sbpp_t) == js.mea(sbpp_j)
+    assert _same(T.scoring.fold.predict_structure(seq),
+                 J.scoring.fold.predict_structure(seq))
+    a, b = "GC-GGAU", "G-AGGAU"
+    assert ts.consensus_sequence(a, b) == js.consensus_sequence(a, b)
+    assert (ts.highlight_sequence_identity(a, b)
+            == js.highlight_sequence_identity(a, b))
+    assert (ts.highlight_structure_identity("((-.))", "(-(.))")
+            == js.highlight_structure_identity("((-.))", "(-(.))"))
+
+
+@pytest.mark.parametrize("seq,struct,is_rna", [
+    (RNA_A, STR_A, True),
+    (RNA_B, STR_B, True),
+    (RNA_A, None, True),           # folded: ViennaRNA if present, else fold.py
+    (PRO["seqA"], PRO["strA"], False),
+], ids=["rna_fixed_A", "rna_fixed_B", "rna_folded", "protein"])
+def test_preprocess_molecule(seq, struct, is_rna):
+    got = T.models.molecule.preprocess_molecule(seq, struct, is_rna=is_rna)
+    want = J.models.molecule.preprocess_molecule(seq, struct, is_rna=is_rna)
+    assert _same(got, want)
+    if is_rna:
+        assert (T.models.molecule.expected_pairing(got)
+                == J.models.molecule.expected_pairing(want))
+
+
+def test_preprocess_molecule_errors():
+    for mod in (T.models.molecule, J.models.molecule):
+        with pytest.raises(mod.MoleculeError, match="have to be provided"):
+            mod.preprocess_molecule(PRO["seqA"], None, is_rna=False)
+        with pytest.raises(mod.MoleculeError, match="same length"):
+            mod.preprocess_molecule("ACGU", "..", is_rna=True)
+
+
+@pytest.mark.parametrize("mol,is_rna,params", [
+    (G.TOY_RNA, True, {}),
+    (G.TOY_RNA, True, dict(sequence_match_similarity=70,
+                           sequence_mismatch_similarity=-30,
+                           structure_weight=250)),
+    (PRO, False, dict(structure_weight=800)),
+    (PRO, False, dict(simmatrix="BLOSUM62", structure_weight=800)),
+    (dict(seqA="ACDEFGHIKLMNPQRSTVWY", strA="HHHHHEEEEECCCCCTTTTT",
+          seqB="YWVTSRQPNMLKIHGFEDCA", strB="HHHHHEEEEECCCCCTTTTT"), False,
+     dict(simmatrix="BLOSUM62", structure_weight=400)),
+], ids=["rna_default", "rna_mismatch", "protein_match", "protein_blosum",
+        "protein_blosum_all_residues"])
+def test_build_score_tables(mol, is_rna, params):
+    tabs = []
+    for pkg in (T, J):
+        molA = pkg.models.molecule.preprocess_molecule(
+            mol["seqA"], mol["strA"], is_rna=is_rna)
+        molB = pkg.models.molecule.preprocess_molecule(
+            mol["seqB"], mol["strB"], is_rna=is_rna)
+        tabs.append(pkg.scoring.tables.build_score_tables(
+            molA, molB, params, is_rna=is_rna))
+    (t1, t2), (j1, j2) = tabs
+    assert _same(t1, j1) and _same(t2, j2)
+    assert t1.dtype == np.int32 and t1.any() and t2.any()
+
+
+def test_build_score_tables_unknown_residue():
+    for pkg in (T, J):
+        molA = pkg.models.molecule.preprocess_molecule("AC1", "HHH",
+                                                       is_rna=False)
+        with pytest.raises(KeyError):
+            pkg.scoring.tables.build_score_tables(
+                molA, molA, dict(simmatrix="BLOSUM62"), is_rna=False)
+
+
+# -- io, data ----------------------------------------------------------------
+
+def test_read_simmatrix(tmp_path):
+    assert (T.io.read_simmatrix("BLOSUM62") == J.io.read_simmatrix("BLOSUM62"))
+    assert (T.io.read_simmatrix("BLOSUM62", scale=7)
+            == J.io.read_simmatrix("BLOSUM62", scale=7))
+    path = T.io.materialize_matrix("BLOSUM62", str(tmp_path))
+    assert T.io.read_simmatrix(path) == J.io.read_simmatrix(path)
+    assert T.io.read_simmatrix(path) == T.io.read_simmatrix("BLOSUM62")
+    assert T.io.BLOSUM62_TEXT == J.io.BLOSUM62_TEXT
+
+
+@pytest.mark.parametrize("name", J.data.EXAMPLES)
+def test_example_files_are_byte_equal_copies(name):
+    assert T.data.EXAMPLES == J.data.EXAMPLES
+    port = inspect.getfile(T.data).replace("__init__.py", name + ".gz")
+    orig = inspect.getfile(J.data).replace("__init__.py", name + ".gz")
+    assert port != orig
+    assert filecmp.cmp(port, orig, shallow=False)
+    assert T.data.example_text(name) == J.data.example_text(name)
+
+
+@pytest.mark.parametrize("name", J.data.EXAMPLES[:2])
+def test_read_molecule_from_file_on_the_ports_copies(name):
+    got = T.io.read_molecule_from_file(T.data.example_path(name), "Protein")
+    want = J.io.read_molecule_from_file(J.data.example_path(name), "Protein")
+    assert got == want
+    assert len(got[0]) == len(got[1]) > 900
+    assert T.data.read_example(name) == want
+
+
+@pytest.mark.parametrize("name", J.data.EXAMPLES[2:])
+def test_read_fasta_on_the_ports_copies(name):
+    path = T.data.example_path(name)
+    assert T.io.read_fasta(path) == J.io.read_fasta(path)
+    assert T.io.read_first_sequence(path) == J.io.read_first_sequence(path)
+    assert len(T.io.read_first_sequence(path)) > 900
+
+
+def test_structure_file_readers():
+    stride = "\n".join([
+        "CHN  toy.pdb A",
+        "SEQ  1    ACDEF                                                 5",
+        "STR       HHEEC",
+    ])
+    assert T.io.read_stride(stride) == J.io.read_stride(stride)
+    res = "    1    1 A M              0   0  100"
+    dssp = "\n".join(["header", "  #  RESIDUE AA STRUCTURE BRIDGE",
+                      res.ljust(200), res.replace(" M ", " K ").ljust(200)])
+    assert T.io.read_dssp(dssp) == J.io.read_dssp(dssp)
+
+
+# -- ops/traceback.py --------------------------------------------------------
+
+@pytest.mark.parametrize("n,m,S", [(5, 7, 1), (8, 8, 2), (7, 9, 0),
+                                   (6, 5, 3)])
+def test_host_walk_on_an_oracle_band(n, m, S):
+    rng = np.random.default_rng(17 * n + m + S)
+    mu1, mu2 = _rand_pair(rng, n, m)
+    H = reference_dp.fill_affine(mu1, mu2, S, -150, -50, -150)
+    got = T.ops.traceback.affine_traceback(H, mu1, mu2, S, -150, -50, -150)
+    want = J.ops.traceback.affine_traceback(H, mu1, mu2, S, -150, -50, -150)
+    assert _same(got, want) and got[1] is True
+    H = reference_dp.fill_nonaffine(mu1, mu2, S, -200, -250)
+    got = T.ops.traceback.nonaffine_traceback(H, mu1, mu2, S, -200, -250)
+    want = J.ops.traceback.nonaffine_traceback(H, mu1, mu2, S, -200, -250)
+    assert _same(got, want) and len(got) >= max(n, m)
+
+
+# -- render/decode.py, aligner -----------------------------------------------
+
+ALIGNED = [
+    ("rna_affine", G.TOY_RNA, G.TOY_RNA_AFFINE_PARAMS),
+    ("rna_nonaffine", G.TOY_RNA, G.TOY_RNA_NONAFFINE_PARAMS),
+    ("protein", G.TOY_PROTEIN, G.TOY_PROTEIN_PARAMS),
+]
+
+
+@pytest.fixture(scope="module", params=ALIGNED, ids=[a[0] for a in ALIGNED])
+def aligned(request):
+    """(JAX aligner, port aligner, the JAX aligner's trace) of one golden."""
+    _name, mol, params = request.param
+    ja = J.BiAligner(**mol, engine="xla", **params)
+    ja.optimize()
+    ta = T.BiAligner(**mol, engine="torch", device="cpu", **params)
+    return ja, ta, ja.traceback()
+
+
+def test_decode_constants():
+    assert T.render.decode.OUTMODES == J.render.decode.OUTMODES
+    assert T.render.decode.NL_ROW == J.render.decode.NL_ROW
+    assert T.BiAligner.outmodes == J.BiAligner.outmodes
+    assert T.aligner.PARAM_DEFAULTS == J.aligner.PARAM_DEFAULTS
+
+
+def test_decode_trace_full(aligned):
+    ja, ta, trace = aligned
+    full = ta.decode_trace_full(trace)
+    assert full == ja.decode_trace_full(trace)
+    assert full == T.render.decode.decode_trace_full(
+        trace, ja.molA, ja.molB, nameA="A", nameB="B", is_rna=ja._is_rna)
+
+
+@pytest.mark.parametrize("outmode", list(J.render.decode.OUTMODES)
+                         + ["sort", "bogus"])
+@pytest.mark.parametrize("nodescription", [False, True])
+def test_decode_trace_in_every_outmode(aligned, outmode, nodescription,
+                                       capsys):
+    ja, ta, trace = aligned
+    full = ja.decode_trace_full(trace)
+    kw = dict(outmode=outmode, nodescription=nodescription)
+    got = list(T.render.decode.decode_trace(full, **kw))
+    got_said = capsys.readouterr().out
+    want = list(J.render.decode.decode_trace(full, **kw))
+    assert got == want and got
+    assert got_said == capsys.readouterr().out
+
+
+def test_eval_trace(aligned):
+    """The verbose replay, affine and non-affine: the port's own walk and
+    band against the JAX aligner's, line for line."""
+    ja, ta, trace = aligned
+    assert ta.optimize() == ja.optimize()
+    want = list(ja.eval_trace(trace))
+    assert list(ta.eval_trace(trace)) == want
+    assert list(ta.eval_trace()) == want
+    assert want[-1].endswith(f"--> {ja.optimize()}")
+    assert (ta.mu1_at(1, 1), ta.mu2_at(2, 3)) == (ja.mu1_at(1, 1),
+                                                  ja.mu2_at(2, 3))
+
+
+# -- config.py ---------------------------------------------------------------
+
+def test_align_config():
+    tf = {f.name: f.default for f in dataclasses.fields(T.AlignConfig)}
+    jf = {f.name: f.default for f in dataclasses.fields(J.AlignConfig)}
+    assert tf.pop("engine") == "cuda" and jf.pop("engine") == "auto"
+    assert tf.pop("device") == "cuda"        # the port's own field
+    assert tf == jf
+    cfg = T.AlignConfig.from_params(dict(
+        G.TOY_RNA_AFFINE_PARAMS, engine="torch", device="cpu", unknown=1))
+    assert cfg.affine and J.AlignConfig.from_params(
+        G.TOY_RNA_AFFINE_PARAMS).affine
+    ba = cfg.aligner(**G.TOY_RNA)
+    assert isinstance(ba, T.BiAligner)
+    assert ba.optimize() == G.TOY_RNA_AFFINE_SCORE
+    for bad in (dict(type="DNA"), dict(max_shift=-1), dict(engine="pallas")):
+        with pytest.raises(ValueError):
+            T.AlignConfig(**bad)

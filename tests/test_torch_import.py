@@ -17,28 +17,68 @@ from bialign_tpu_torch.data import dnapol_pair
 ROOT = Path(__file__).resolve().parents[1]
 
 
+PORT_FILES = sorted((ROOT / "bialign_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "bialign_tpu"}
+
+
+def _port_modules():
+    pkg = ROOT / "bialign_tpu_torch"
+    for path in sorted(pkg.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
 def test_port_imports_and_runs_with_jax_blocked():
+    """Every module of the port imports, and the toy golden runs, in a
+    process where any import of jax or of the JAX package fails."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, sys
         sys.modules["jax"] = None          # any import of jax now fails
+        sys.modules["bialign_tpu"] = None  # and any of the JAX package
         sys.path.insert(0, "tests")
         import golden as G
-        import bialign_tpu_torch
-        from bialign_tpu_torch import BiAligner, _build, cli, convert, data
-        from bialign_tpu_torch.ops import band, cuda_dp, device_traceback
+        for name in sys.argv[1:]:
+            importlib.import_module(name)
+        from bialign_tpu_torch import BiAligner
         ba = BiAligner(**G.TOY_RNA, engine="torch", device="cpu",
                        **G.TOY_RNA_AFFINE_PARAMS)
         assert ba.optimize() == G.TOY_RNA_AFFINE_SCORE
         assert list(ba.decode_trace()) == G.TOY_RNA_AFFINE_DEFAULT_OUT
-        loaded = [k for k, v in sys.modules.items()
-                  if v is not None and k.split(".")[0] == "jax"]
+        loaded = [k for k, v in sys.modules.items() if v is not None
+                  and k.split(".")[0] in ("jax", "jaxlib", "bialign_tpu")]
         assert not loaded, loaded
-        print("ok")
+        print("ok", len(sys.argv) - 1)
     """)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+    modules = list(_port_modules())
+    assert "bialign_tpu_torch.ops.cuda_dp" in modules
+    assert "bialign_tpu_torch.scoring.tables" in modules
+    proc = subprocess.run([sys.executable, "-c", code, *modules], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    assert proc.stdout.strip() == f"ok {len(modules)}"
+
+
+def _imported_tops(path):
+    """Top-level names of every import statement in ``path``; a relative
+    import counts as the port's own package."""
+    tree = ast.parse(path.read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append("bialign_tpu_torch" if node.level
+                         else node.module)
+    return {name.split(".")[0] for name in names}
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_neither_jax_nor_the_jax_package(path):
+    assert not _imported_tops(path) & FORBIDDEN, sorted(_imported_tops(path))
 
 
 def test_cuda_engine_refuses_a_cpu_device():
@@ -77,13 +117,7 @@ def test_dnapol_pair_loads_through_the_port():
 
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py runs where there is no JAX: it imports neither jax nor
-    the JAX package, only bialign_tpu_torch (which reuses the JAX-free host
-    layers itself)."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    names = [a.name for node in ast.walk(tree)
-             if isinstance(node, ast.Import) for a in node.names]
-    names += [node.module for node in ast.walk(tree)
-              if isinstance(node, ast.ImportFrom)]
-    tops = {name.split(".")[0] for name in names}
+    the JAX package, only bialign_tpu_torch, which stands alone."""
+    tops = _imported_tops(ROOT / "chip_smoke.py")
     assert "jax" not in tops and "bialign_tpu" not in tops, sorted(tops)
     assert "bialign_tpu_torch" in tops
