@@ -40,6 +40,12 @@ _SIGNATURES = {
     "bialign_score_affine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_affine_ms0": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # rings, out, mu1, mu2, ns, ms, cases, B, N, M, (S,) device, stream
+    "bialign_batch_affine": [_P] * 7 + [_I] * 5 + [_P],
+    "bialign_batch_nonaffine": [_P] * 7 + [_I] * 5 + [_P],
+    "bialign_cta_affine": [_P] * 7 + [_I] * 5 + [_P],
+    "bialign_cta_nonaffine": [_P] * 7 + [_I] * 5 + [_P],
+    "bialign_cta_affine_ms0": [_P] * 7 + [_I] * 4 + [_P],
     "bialign_walk_affine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "bialign_walk_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
 }
@@ -133,13 +139,14 @@ def load() -> ctypes.CDLL:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call library function ``name`` on ``device``'s current stream.
 
-    ``args`` are tensors (passed as their data pointers) and ints, in the
-    order of the C signature; the device index and the stream are appended.
-    Raises when the function reports a CUDA error.
+    ``args`` are tensors (passed as their data pointers), None (a null
+    pointer) and ints, in the order of the C signature; the device index and
+    the stream are appended.  Raises when the function reports a CUDA error.
     """
     lib = load()
     cargs = [
-        _P(a.data_ptr()) if isinstance(a, torch.Tensor) else _I(a)
+        _P(a.data_ptr()) if isinstance(a, torch.Tensor)
+        else _P(None) if a is None else _I(a)
         for a in args
     ]
     stream = torch.cuda.current_stream(device).cuda_stream

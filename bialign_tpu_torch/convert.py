@@ -3,7 +3,8 @@
 The DP has no learned parameters: its "weights" are the dense score tables
 ``mu1``/``mu2`` built on the host (``scoring/tables.py`` of either
 package), and its state is the filled band, or in score-only mode the last
-diagonal's slab.  All cross as numpy arrays.
+diagonal's slab.  A batch's inputs are its buckets' padded stacks of
+tables.  All cross as numpy arrays.
 """
 
 from __future__ import annotations
@@ -74,3 +75,31 @@ def slab_from_jax(last, n: int, max_shift: int, affine: bool) -> torch.Tensor:
         raise ValueError(f"JAX slab {last.shape}, expected {want} + "
                          f"(>= {n + 1},)")
     return torch.from_numpy(np.array(last[0, ..., :n + 1], dtype=np.int32))
+
+
+def stacks_from_jax(mu1p, mu2p, ns, ms, device):
+    """What the JAX batched-scores path ships to its kernels for one bucket,
+    as the port's tensors on ``device``.
+
+    ``mu1p``, ``mu2p``: the zero-padded stacks ``[B, N+1, M+1]`` of
+    ``parallel.batch.stack_padded``, int32 or narrowed to int16 for the
+    transfer (``pallas_dp._narrow_if_fits``); ``ns``, ``ms``: the pairs'
+    lengths ``[B]``, batch-axis padding included.  Returns contiguous int32
+    ``(mu1p, mu2p, ns, ms)``, the arguments of
+    :func:`bialign_tpu_torch.ops.cuda_dp.affine_batch_scores`.
+    """
+    stacks = [np.asarray(a) for a in (mu1p, mu2p)]
+    lengths = [np.asarray(a) for a in (ns, ms)]
+    for name, a, ndim in (("mu1p", stacks[0], 3), ("mu2p", stacks[1], 3),
+                          ("ns", lengths[0], 1), ("ms", lengths[1], 1)):
+        if a.ndim != ndim or a.dtype not in (np.int16, np.int32):
+            raise ValueError(f"{name} must be a {ndim}-D int16 or int32 "
+                             f"array, got {a.dtype} {a.shape}")
+    B = stacks[0].shape[0]
+    if stacks[0].shape != stacks[1].shape or any(
+            a.shape != (B,) for a in lengths):
+        raise ValueError(
+            f"shapes differ: mu1p {stacks[0].shape}, mu2p {stacks[1].shape}, "
+            f"ns {lengths[0].shape}, ms {lengths[1].shape}")
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                 .to(device) for a in (*stacks, *lengths))

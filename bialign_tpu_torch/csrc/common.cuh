@@ -46,13 +46,35 @@ __device__ __forceinline__ int slab_of(int d) {
   return kRing ? (d + RING) % RING : d;
 }
 
-// mu1/mu2 are dense [n+1, m+1]; a (k, l) outside it scores 0, as in the
-// diagonal tables of the JAX engines (xla_dp._diag_mu_tables).
+// mu1/mu2 are dense tables whose rows are `ld` values apart: [n+1, m+1]
+// with ld = m+1 for one pair, or one pair's [N+1, M+1] plane of a bucket's
+// zero-padded stack with ld = M+1.  A (k, l) outside the pair's own
+// [0, n] x [0, m] scores 0, as in the diagonal tables of the JAX engines
+// (xla_dp._diag_mu_tables) and as the stack's padding reads.
 __device__ __forceinline__ int32_t mu_at(const int32_t* mu, int k, int l,
-                                         int n, int m) {
-  return (k >= 0 && k <= n && l >= 0 && l <= m)
-             ? mu[(long long)k * (m + 1) + l]
-             : 0;
+                                         int n, int m, int ld) {
+  return (k >= 0 && k <= n && l >= 0 && l <= m) ? mu[(long long)k * ld + l]
+                                                : 0;
 }
+
+// Threads of a block that walks rows lo..hi of a diagonal in strides (the
+// one-CTA-per-pair kernels) or holds one row each (the per-diagonal ones).
+constexpr int kRowBlock = 128;
+
+// Copies a packed case table into a block's shared memory; every thread of
+// the block calls it.
+__device__ __forceinline__ void load_table(int32_t* tab,
+                                           const int32_t* __restrict__ cases,
+                                           int count) {
+  for (int x = threadIdx.x; x < count; x += blockDim.x) tab[x] = cases[x];
+  __syncthreads();
+}
+
+// The kernels' launchers return 0 or the first CUDA error as an int.
+#define BIALIGN_TRY(call)                                   \
+  do {                                                      \
+    const cudaError_t err_ = (call);                        \
+    if (err_ != cudaSuccess) return static_cast<int>(err_); \
+  } while (0)
 
 }  // namespace bialign

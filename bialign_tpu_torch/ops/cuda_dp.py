@@ -1,10 +1,13 @@
-"""Single-pair band fills and band-free scores: CUDA kernel wrappers and
-their plain twins.
+"""Band fills and band-free scores of one pair, and the scores of a bucket
+of pairs: CUDA kernel wrappers and their plain twins.
 
-Counterpart of the single-pair kernels of :mod:`bialign_tpu.ops.pallas_dp`:
-K1 ``_affine_kernel`` and K2 ``_nonaffine_kernel`` in band mode and in
-score-only mode, and K3 ``_affine_ms0_kernel`` (affine, ``max_shift`` 0,
-score only).
+Counterpart of :mod:`bialign_tpu.ops.pallas_dp`: the single-pair kernels K1
+``_affine_kernel`` and K2 ``_nonaffine_kernel`` in band mode and in
+score-only mode and K3 ``_affine_ms0_kernel`` (affine, ``max_shift`` 0,
+score only); and the batched kernels in score mode, K4
+``_affine_batched_kernel``, K5 ``_nonaffine_batched_kernel``, K6
+``_packed_batched_kernel`` and K7 ``_packed_ms0_kernel``, with the routing
+of ``_route_batched``.
 
 * ``fill_affine_device`` / ``fill_nonaffine_device`` produce a
   :class:`~bialign_tpu_torch.ops.band.DeviceBand` in the layout
@@ -16,6 +19,15 @@ score only).
   carry a ring of three diagonal slabs ``[3, (9,) W, W, n+1]``, diagonal
   ``d`` in slab ``d % 3``.  ``*_last_slab`` return the slab of the last
   diagonal, from which the score is read outside the kernel.
+* ``affine_batch_scores`` / ``nonaffine_batch_scores`` return the ``[B]``
+  scores of a bucket: a zero-padded stack of tables ``[B, N+1, M+1]`` with
+  the pairs' own lengths ``ns``, ``ms``.  Two routes (:func:`batch_route`):
+  ``"grid"``, one launch per bucket diagonal over all pairs, each on its
+  own ring in device memory (``csrc/batch_affine.cu`` K4,
+  ``csrc/batch_nonaffine.cu`` K5); ``"cta"``, one launch per bucket, one
+  CTA per pair with the ring in shared memory (``csrc/cta_scores.cu`` K6;
+  affine at ``max_shift`` 0 ``csrc/cta_scores_ms0.cu`` K7), taken when the
+  ring fits one CTA's shared memory.
 * Each wrapper launches its kernel for tables on a CUDA device, and runs
   the plain twin only for tables on the CPU, where no kernel can run.  The
   user's choice of engine is made in
@@ -25,7 +37,8 @@ score only).
   :mod:`bialign_tpu.ops.xla_dp` (``_build_affine_step``,
   ``_build_nonaffine_step``): a loop over diagonals, vectorised over rows
   and shifts, on any device.  Band and score share one per-diagonal step.
-  They are the specification the kernels are held to.
+  The batch twins run the same steps with a leading batch axis, in the
+  bucket's geometry.  They are the specification the kernels are held to.
 
 Inputs are the dense score tables ``mu1``, ``mu2``: int32 ``[n+1, m+1]``
 tensors on one device (:func:`bialign_tpu_torch.convert.tables_to_torch`).
@@ -57,15 +70,24 @@ from .cases import (
 # Masked-case sentinel, the value of bialign_tpu/ops/xla_dp.py INVALID.
 INVALID = -(1 << 30) - (1 << 29)
 
-# Kernel launches per wrapper (one per fill or score), for run reports.
+# Kernel launches per wrapper (one per fill, score or bucket), for run
+# reports; "cta_scores" counts both forms of K6.
 LAUNCHES = {"fill_affine": 0, "fill_nonaffine": 0, "score_affine": 0,
-            "score_nonaffine": 0, "score_affine_ms0": 0}
+            "score_nonaffine": 0, "score_affine_ms0": 0,
+            "batch_affine": 0, "batch_nonaffine": 0, "cta_scores": 0,
+            "cta_scores_ms0": 0}
 
 RING = 3      # slabs of the score-only carry; csrc/common.cuh RING
 
 # Field order of one packed recursion case; csrc/common.cuh `Field`.
 SRC, X0, X1, X2, X3, MU1C, MU2C, CST, SRCA, SRCB, REC = range(11)
 N_AFFINE_CASES = 15
+MS0_REC = 7   # values of one live state's record; csrc/affine_ms0_diag.cuh
+
+# Shared memory one CTA can have on an H100 (227 KB of the SM's 256 KB),
+# which decides the route of a bucket.
+CTA_SHARED_LIMIT = 232448
+ROUTES = ("grid", "cta")
 
 
 def affine_case_table(beta: int, gamma: int, delta: int) -> np.ndarray:
@@ -137,30 +159,10 @@ def ms0_live_tables(beta: int, gamma: int, delta: int):
 
 def ms0_case_table(beta: int, gamma: int, delta: int) -> np.ndarray:
     """int32 ``[3, 7]``: per live target state (a, b, mu1_coef, mu2_coef,
-    const[0..2]), for ``csrc/score_affine_ms0.cu`` (``Ms0Field``)."""
+    const[0..2]), for ``csrc/affine_ms0_diag.cuh`` (``Ms0Field``)."""
     live, const, mu1c, mu2c = ms0_live_tables(beta, gamma, delta)
     return np.array([[STATES[q][0], STATES[q][1], mu1c[t], mu2c[t], *const[t]]
                      for t, q in enumerate(live)], dtype=np.int32)
-
-
-def _check_tables(mu1: torch.Tensor, mu2: torch.Tensor, max_shift: int):
-    for name, mu in (("mu1", mu1), ("mu2", mu2)):
-        if not isinstance(mu, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(mu)}")
-        if mu.dtype != torch.int32 or mu.dim() != 2 or not mu.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous 2-D int32 tensor, got "
-                f"{mu.dtype} {tuple(mu.shape)}"
-            )
-        if mu.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"{name} on unsupported device {mu.device}")
-    if mu1.shape != mu2.shape or mu1.device != mu2.device:
-        raise ValueError(
-            f"mu1 {tuple(mu1.shape)} on {mu1.device} and mu2 "
-            f"{tuple(mu2.shape)} on {mu2.device} differ"
-        )
-    if max_shift < 0:
-        raise ValueError(f"max_shift must be >= 0, got {max_shift}")
 
 
 def _require_int32_safe(mu1, mu2, gamma, delta, beta=0):
@@ -328,13 +330,15 @@ class _Geometry:
     """Index grids of a diagonal's slab ``[W, W, P]``, and per diagonal
     (:meth:`diag`) the score tables in diagonal layout, 0 outside
     [0, n] x [0, m] (xla_dp._diag_mu_tables).  Nothing here is the size of
-    a band."""
+    a band.  The tables are ``[n+1, m+1]``, or a stack ``[B, n+1, m+1]``:
+    the slabs then carry the batch axis in front (``batch``)."""
 
     def __init__(self, mu1, mu2, S: int):
-        n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
+        n, m = mu1.shape[-2] - 1, mu1.shape[-1] - 1
         dev = mu1.device
         W, P = 2 * S + 1, n + 1
         self.mu1, self.mu2 = mu1, mu2
+        self.batch = tuple(mu1.shape[:-2])
         self.n, self.m, self.S, self.W = n, m, S, W
         i = self.i = torch.arange(P, device=dev)[None, None, :]
         sk = self.sk = torch.arange(W, device=dev)[:, None, None]
@@ -346,18 +350,18 @@ class _Geometry:
         self.no_origin = torch.zeros_like(self.origin)
 
     def diag(self, d: int):
-        """(mu1_row ``[1, 1, P]``, mu2_blk ``[W, W, P]``, j_ge, l_ge, live
-        ``[1, 1, P]``) of diagonal d: ``mu1[i, d-i]``, ``mu2[k, l]``, the
-        guards' terms in j and l (the only ones that change with d), and
-        the rows with 0 <= j <= m."""
+        """(mu1_row ``[(B,) 1, 1, P]``, mu2_blk ``[(B,) W, W, P]``, j_ge,
+        l_ge, live ``[1, 1, P]``) of diagonal d: ``mu1[i, d-i]``,
+        ``mu2[k, l]``, the guards' terms in j and l (the only ones that
+        change with d), and the rows with 0 <= j <= m."""
         n, m = self.n, self.m
         j = d - self.i                                        # [1, 1, P]
         l = j + self.sl - self.S                              # [1, W, P]
         live = (j >= 0) & (j <= m)
-        mu1_row = torch.where(live, self.mu1[self.i, j.clamp(0, m)], 0)
+        mu1_row = torch.where(live, self.mu1[..., self.i, j.clamp(0, m)], 0)
         ok = self.k_ok & (l >= 0) & (l <= m)
         mu2_blk = torch.where(
-            ok, self.mu2[self.k.clamp(0, n), l.clamp(0, m)], 0)
+            ok, self.mu2[..., self.k.clamp(0, n), l.clamp(0, m)], 0)
         return mu1_row, mu2_blk, [j >= 0, j >= 1], [l >= 0, l >= 1], live
 
 
@@ -367,11 +371,11 @@ def _index(rows, dev):
 
 def _affine_step(g: _Geometry, beta, gamma, delta):
     """The affine recurrence of one diagonal: ``step(d, vm1, vm2)`` maps
-    the slabs ``[9, W, W, P]`` of diagonals d-1 and d-2 to (slab of d, its
-    live rows); band fill and score share it.  Rows of the result off the
-    live range are not meaningful, and rows of vm1/vm2 off their own live
-    ranges may hold anything: every case that would read one is guarded
-    out (xla_dp._build_affine_step)."""
+    the slabs ``[(B,) 9, W, W, P]`` of diagonals d-1 and d-2 to (slab of d,
+    its live rows); band fill, score and batch share it.  Rows of the
+    result off the live range are not meaningful, and rows of vm1/vm2 off
+    their own live ranges may hold anything: every case that would read one
+    is guarded out (xla_dp._build_affine_step)."""
     Q = N_STATES
     S, W = g.S, g.W
     i, k, sk, sl = g.i, g.k, g.sk, g.sl
@@ -404,24 +408,25 @@ def _affine_step(g: _Geometry, beta, gamma, delta):
 
     def step(d, vm1, vm2):
         mu1_row, mu2_blk, j_ge, l_ge, live = g.diag(d)
-        best = torch.empty((Q, W, W, g.n + 1), dtype=torch.int32, device=dev)
+        best = torch.empty((*g.batch, Q, W, W, g.n + 1), dtype=torch.int32,
+                           device=dev)
         for q in range(Q):
             a, b, c, e = STATES[q]
             pred = vm1 if a + b == 1 else vm2
             # group A: full column q from all 9 sources (pyx:275-279)
-            agg = (_shift(pred, c - a, e - b, a) + a_const[q]).amax(0)
+            agg = (_shift(pred, c - a, e - b, a) + a_const[q]).amax(-4)
             if tabs.mu1_coef[q]:
                 agg = agg + mu1_row
             if tabs.mu2_coef[q]:
                 agg = agg + mu2_blk
             cA = torch.where(gA[q] & j_ge[b] & l_ge[e], agg, INVALID)
             # group C: seq-only half column (a, b, 0, 0) (pyx:291-296)
-            aggC = (_shift(pred.index_select(0, c_src[q]), -a, -b, a)
-                    + c_const[q]).amax(0)
+            aggC = (_shift(pred.index_select(-4, c_src[q]), -a, -b, a)
+                    + c_const[q]).amax(-4)
             if tabs.c_mu1_coef[q]:
                 aggC = aggC + mu1_row
             cC = torch.where(gC[q] & j_ge[b], aggC, INVALID)
-            best[q] = torch.maximum(cA, cC)
+            best[..., q, :, :, :] = torch.maximum(cA, cC)
         val = torch.where(best == INVALID, NEG_INF, best)
         protect = g.origin if d == 0 else g.no_origin
         val = torch.where(protect, init, val)
@@ -433,15 +438,16 @@ def _affine_step(g: _Geometry, beta, gamma, delta):
             commit = (g.t == t) & ~protect
             for q in b_live[t]:
                 _a, _b, c, e = STATES[q]
-                aggB = (_shift(val.index_select(0, b_src[q]), c, e, 0)
-                        + b_const[q]).amax(0)
+                aggB = (_shift(val.index_select(-4, b_src[q]), c, e, 0)
+                        + b_const[q]).amax(-4)
                 if tabs.b_mu2_coef[q]:
                     aggB = aggB + mu2_blk
+                best_q, val_q = best[..., q, :, :, :], val[..., q, :, :, :]
                 bq = torch.maximum(
-                    best[q], torch.where(gB[q] & l_ge[e], aggB, INVALID))
+                    best_q, torch.where(gB[q] & l_ge[e], aggB, INVALID))
                 vq = torch.where(bq == INVALID, NEG_INF, bq)
-                best[q] = torch.where(commit, bq, best[q])
-                val[q] = torch.where(commit, vq, val[q])
+                best_q.copy_(torch.where(commit, bq, best_q))
+                val_q.copy_(torch.where(commit, vq, val_q))
         return val, live
 
     return step
@@ -449,7 +455,7 @@ def _affine_step(g: _Geometry, beta, gamma, delta):
 
 def _nonaffine_step(g: _Geometry, gamma, delta):
     """The non-affine recurrence of one diagonal, as :func:`_affine_step`
-    on slabs ``[W, W, P]`` (xla_dp._build_nonaffine_step)."""
+    on slabs ``[(B,) W, W, P]`` (xla_dp._build_nonaffine_step)."""
     W, S = g.W, g.S
     i, k, sk, sl = g.i, g.k, g.sk, g.sl
     dev = g.mu1.device
@@ -468,8 +474,8 @@ def _nonaffine_step(g: _Geometry, gamma, delta):
 
     def step(d, vm1, vm2):
         mu1_row, mu2_blk, j_ge, l_ge, live = g.diag(d)
-        best = torch.full((W, W, g.n + 1), INVALID, dtype=torch.int32,
-                          device=dev)
+        best = torch.full((*g.batch, W, W, g.n + 1), INVALID,
+                          dtype=torch.int32, device=dev)
         for (x0, x1, x2, x3), const, m1c, m2c, fixed in external:
             pred = vm1 if x0 + x1 == 1 else vm2
             contrib = _shift(pred, x2 - x0, x3 - x1, x0) + const
@@ -572,14 +578,12 @@ def nonaffine_last_slab_plain(mu1, mu2, max_shift, gamma, delta, *,
                        ring, mu1.device)
 
 
-def affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta, *, ring=None):
-    """Plain twin of the K3 kernel (pallas_dp._make_update_ms0): three live
-    states, slabs ``[3, P]``, on a ring of three."""
-    _check_tables(mu1, mu2, 0)
-    n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
+def _ms0_step(mu1, mu2, beta, gamma, delta):
+    """The affine recurrence of one diagonal at ``max_shift`` 0, as
+    :func:`_affine_step` on slabs ``[(B,) 3, P]`` of the three live states
+    (pallas_dp._make_update_ms0)."""
+    n, m = mu1.shape[-2] - 1, mu1.shape[-1] - 1
     dev = mu1.device
-    shape = (RING, 3, n + 1)
-    _check_ring(ring, shape, mu1)
     live_states, const, mu1c, mu2c = ms0_live_tables(beta, gamma, delta)
     const_t = torch.as_tensor(const, device=dev)[..., None]     # [3, 3, 1]
     i = torch.arange(n + 1, device=dev)
@@ -589,22 +593,33 @@ def affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta, *, ring=None):
     def step(d, vm1, vm2):
         j = d - i
         live = (j >= 0) & (j <= m)
-        at = (i, j.clamp(0, m))
+        at = (..., i, j.clamp(0, m))
         m1 = torch.where(live, mu1[at], 0)
         m2 = torch.where(live, mu2[at], 0)
         out = []
         for t, q in enumerate(live_states):
             a, b = STATES[q][:2]
             pred = vm1 if a + b == 1 else vm2
-            acc = (F.pad(pred, (a, -a), value=INVALID) + const_t[t]).amax(0)
+            acc = (F.pad(pred, (a, -a), value=INVALID) + const_t[t]).amax(-2)
             acc = acc + mu1c[t] * m1 + mu2c[t] * m2
             out.append(torch.where((i >= a) & (j >= b), acc, NEG_INF))
-        val = torch.stack(out)
+        val = torch.stack(out, dim=-2)
         if d == 0:
             val = torch.where(i == 0, init[:, None], val)
         return val, live
 
-    return _ring_plain(step, n, m, shape, ring, dev)
+    return step
+
+
+def affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta, *, ring=None):
+    """Plain twin of the K3 kernel (pallas_dp._make_update_ms0): three live
+    states, slabs ``[3, P]``, on a ring of three."""
+    _check_tables(mu1, mu2, 0)
+    n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
+    shape = (RING, 3, n + 1)
+    _check_ring(ring, shape, mu1)
+    return _ring_plain(_ms0_step(mu1, mu2, beta, gamma, delta), n, m, shape,
+                       ring, mu1.device)
 
 
 def affine_score_plain(mu1, mu2, max_shift, beta, gamma, delta) -> int:
@@ -626,3 +641,210 @@ def affine_ms0_score_plain(mu1, mu2, beta, gamma, delta) -> int:
     n = mu1.shape[0] - 1
     return int(affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta)[:, n]
                .max())
+
+
+# -- scores of a bucket of pairs ---------------------------------------------
+
+def _check_stacks(mu1p, mu2p, ns, ms, max_shift: int):
+    """The arguments every batch function takes: the stacks ``mu1p``,
+    ``mu2p`` ``[B, N+1, M+1]`` and the pairs' lengths ``ns``, ``ms``
+    ``[B]``, contiguous int32 tensors on one device.  The lengths' values
+    are checked where that costs no device sync, on the CPU; the kernels
+    leave a pair whose lengths lie outside the bucket untouched (its score
+    stays INVALID)."""
+    for name, t, dim in (("mu1p", mu1p, 3), ("mu2p", mu2p, 3), ("ns", ns, 1),
+                         ("ms", ms, 1)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.dtype != torch.int32 or t.dim() != dim or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous {dim}-D int32 tensor, got "
+                f"{t.dtype} {tuple(t.shape)}")
+        if t.device != mu1p.device:
+            raise ValueError(f"{name} on {t.device}, mu1p on {mu1p.device}")
+    if mu1p.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"stacks on unsupported device {mu1p.device}")
+    B, N1, M1 = mu1p.shape
+    if mu2p.shape != mu1p.shape or ns.shape != (B,) or ms.shape != (B,):
+        raise ValueError(
+            f"shapes differ: mu1p {tuple(mu1p.shape)}, mu2p "
+            f"{tuple(mu2p.shape)}, ns {tuple(ns.shape)}, ms {tuple(ms.shape)}")
+    if N1 < 1 or M1 < 1:
+        raise ValueError(f"empty tables {tuple(mu1p.shape)}")
+    if max_shift < 0:
+        raise ValueError(f"max_shift must be >= 0, got {max_shift}")
+    if mu1p.device.type == "cpu" and B and (
+            ns.min() < 0 or ns.max() > N1 - 1 or ms.min() < 0
+            or ms.max() > M1 - 1):
+        raise ValueError(
+            f"lengths outside the bucket ({N1 - 1}, {M1 - 1}): ns "
+            f"{ns.tolist()}, ms {ms.tolist()}")
+
+
+def cta_shared_bytes(N: int, max_shift: int, affine: bool) -> int:
+    """Dynamic shared memory of one CTA of the one-CTA-per-pair kernels on
+    a bucket of N+1 rows: the case table and a ring of three slabs
+    (``csrc/cta_scores.cuh`` ``cta_shared_bytes``)."""
+    W2 = (2 * max_shift + 1) ** 2
+    if affine and max_shift == 0:
+        table, cells = 3 * MS0_REC, 3                           # K7
+    elif affine:
+        table, cells = N_STATES * N_AFFINE_CASES * REC, N_STATES * W2
+    else:
+        table, cells = len(NONAFFINE_COLS) * REC, W2
+    return 4 * (table + RING * cells * (N + 1))
+
+
+def batch_route(N: int, max_shift: int, affine: bool, route=None) -> str:
+    """The route of a bucket of N+1 rows (pallas_dp._route_batched):
+    ``"cta"`` when the ring and the case table fit one CTA's shared memory,
+    else ``"grid"``.  A forced ``route`` is returned as it is, but a
+    ``"cta"`` that does not fit raises: it does not give way."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} or None, got "
+                         f"{route!r}")
+    need = cta_shared_bytes(N, max_shift, affine)
+    if route == "cta" and need > CTA_SHARED_LIMIT:
+        raise ValueError(
+            f"route='cta' needs {need} bytes of shared memory per pair for "
+            f"a bucket of {N + 1} rows at max_shift {max_shift}; one CTA "
+            f"has {CTA_SHARED_LIMIT}; use route='grid'")
+    if route is not None:
+        return route
+    return "cta" if need <= CTA_SHARED_LIMIT else "grid"
+
+
+def _batch_ring_shape(mu1p, states: tuple) -> tuple:
+    return (mu1p.shape[0], RING, *states, mu1p.shape[1])
+
+
+# bucket kernel (csrc function bialign_<name>) -> its LAUNCHES counter
+_BATCH_COUNTER = {"batch_affine": "batch_affine",
+                  "batch_nonaffine": "batch_nonaffine",
+                  "cta_affine": "cta_scores", "cta_nonaffine": "cta_scores",
+                  "cta_affine_ms0": "cta_scores_ms0"}
+
+
+def _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring, *shift):
+    """Launch bucket kernel ``name``; ``shift`` is the kernel's max_shift
+    argument, which K7 lacks.  ``ring`` (any contents) is the carry of the
+    grid kernels, allocated here if None, and what the CTA kernels start
+    their shared memory from, if given.  Returns the ``[B]`` scores."""
+    B, N, M = mu1p.shape[0], mu1p.shape[1] - 1, mu1p.shape[2] - 1
+    dev = mu1p.device
+    _check_ring(ring, ring_shape, mu1p)
+    out = torch.full((B,), INVALID, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    if ring is None and name.startswith("batch_"):
+        ring = torch.empty(ring_shape, dtype=torch.int32, device=dev)
+    cases_t = torch.from_numpy(cases).to(dev)
+    _build.launch(f"bialign_{name}", dev, ring, out, mu1p, mu2p, ns, ms,
+                  cases_t, B, N, M, *shift)
+    LAUNCHES[_BATCH_COUNTER[name]] += 1
+    return out
+
+
+def affine_batch_scores(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
+                        route=None, ring=None) -> torch.Tensor:
+    """Affine scores ``[B]`` (int32) of a bucket (pallas_dp.py
+    ``_affine_pallas_batched_dense`` with ``score_only=True``).  CUDA
+    tensors launch K4 (route ``"grid"``), K6 (``"cta"``) or, on ``"cta"``
+    at ``max_shift`` 0, K7; CPU tensors take the plain twin of the same
+    function.  ``route``: None for :func:`batch_route`'s choice, or a forced
+    one.  ``ring``: a carry to use, whatever it holds:
+    ``[B, 3, 9, W, W, N+1]``, or ``[B, 3, 3, N+1]`` where K7 runs."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    route = batch_route(mu1p.shape[1] - 1, S, True, route)
+    ms0 = route == "cta" and S == 0
+    if mu1p.device.type == "cpu":
+        if ms0:
+            return affine_ms0_batch_scores_plain(mu1p, mu2p, ns, ms, beta,
+                                                 gamma, delta, ring=ring)
+        return affine_batch_scores_plain(mu1p, mu2p, ns, ms, S, beta, gamma,
+                                         delta, ring=ring)
+    if ms0:
+        return _batch_kernel(
+            "cta_affine_ms0", ms0_case_table(beta, gamma, delta), mu1p, mu2p,
+            ns, ms, _batch_ring_shape(mu1p, (3,)), ring)
+    return _batch_kernel(
+        "batch_affine" if route == "grid" else "cta_affine",
+        affine_case_table(beta, gamma, delta), mu1p, mu2p, ns, ms,
+        _batch_ring_shape(mu1p, (N_STATES, W, W)), ring, S)
+
+
+def nonaffine_batch_scores(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
+                           route=None, ring=None) -> torch.Tensor:
+    """Non-affine scores ``[B]`` of a bucket (pallas_dp.py
+    ``_nonaffine_pallas_batched_dense`` with ``score_only=True``): K5 on
+    route ``"grid"``, K6's non-affine form on ``"cta"``; as
+    :func:`affine_batch_scores`, ``ring`` being ``[B, 3, W, W, N+1]``."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    route = batch_route(mu1p.shape[1] - 1, S, False, route)
+    if mu1p.device.type == "cpu":
+        return nonaffine_batch_scores_plain(mu1p, mu2p, ns, ms, S, gamma,
+                                            delta, ring=ring)
+    return _batch_kernel(
+        "batch_nonaffine" if route == "grid" else "cta_nonaffine",
+        nonaffine_case_table(gamma, delta), mu1p, mu2p, ns, ms,
+        _batch_ring_shape(mu1p, (W, W)), ring, S)
+
+
+def _batch_scores_plain(step, centre, mu1p, ns, ms, ring_shape, ring):
+    """Run ``step`` over the bucket's diagonals 0..N+M for all B pairs at
+    once, in the bucket's geometry (every pair as long as the bucket, its
+    tables zero beyond its own lengths), on rings of three slabs
+    ``[B, 3, ...]``; pair b's score is captured when d == n_b + m_b, at row
+    n_b, as xla_dp.affine_score_traced does under vmap.  ``centre`` maps a
+    slab to ``[B, states, P]`` at the shift position (S, S)."""
+    B, N, M = mu1p.shape[0], mu1p.shape[1] - 1, mu1p.shape[2] - 1
+    dev = mu1p.device
+    _check_ring(ring, ring_shape, mu1p)
+    if ring is None:
+        ring = torch.full(ring_shape, INVALID, dtype=torch.int32, device=dev)
+    out = torch.full((B,), INVALID, dtype=torch.int32, device=dev)
+    d_last = ns + ms
+    rows = ns.long()[:, None, None]
+    for d in range(N + M + 1 if B else 0):
+        val, live = step(d, ring[:, (d - 1) % RING], ring[:, (d - 2) % RING])
+        ring[:, d % RING] = torch.where(live, val, ring[:, d % RING])
+        mid = centre(val)
+        at_n = mid.gather(2, rows.expand(B, mid.shape[1], 1)).amax((1, 2))
+        out = torch.where(d_last == d, at_n, out)
+    return out
+
+
+def affine_batch_scores_plain(mu1p, mu2p, ns, ms, max_shift, beta, gamma,
+                              delta, *, ring=None) -> torch.Tensor:
+    """Plain twin of K4 and of K6's affine form: :func:`_affine_step` with
+    a batch axis.  ``ring``: ``[B, 3, 9, W, W, N+1]``."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    g = _Geometry(mu1p, mu2p, S)
+    return _batch_scores_plain(
+        _affine_step(g, beta, gamma, delta), lambda val: val[:, :, S, S],
+        mu1p, ns, ms, _batch_ring_shape(mu1p, (N_STATES, W, W)), ring)
+
+
+def nonaffine_batch_scores_plain(mu1p, mu2p, ns, ms, max_shift, gamma, delta,
+                                 *, ring=None) -> torch.Tensor:
+    """Plain twin of K5 and of K6's non-affine form: :func:`_nonaffine_step`
+    with a batch axis.  ``ring``: ``[B, 3, W, W, N+1]``."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    g = _Geometry(mu1p, mu2p, S)
+    return _batch_scores_plain(
+        _nonaffine_step(g, gamma, delta), lambda val: val[:, None, S, S],
+        mu1p, ns, ms, _batch_ring_shape(mu1p, (W, W)), ring)
+
+
+def affine_ms0_batch_scores_plain(mu1p, mu2p, ns, ms, beta, gamma, delta, *,
+                                  ring=None) -> torch.Tensor:
+    """Plain twin of K7: :func:`_ms0_step` with a batch axis.  ``ring``:
+    ``[B, 3, 3, N+1]``."""
+    _check_stacks(mu1p, mu2p, ns, ms, 0)
+    return _batch_scores_plain(
+        _ms0_step(mu1p, mu2p, beta, gamma, delta), lambda val: val, mu1p, ns,
+        ms, _batch_ring_shape(mu1p, (3,)), ring)

@@ -11,7 +11,10 @@ package.  Phases, one line each:
 2. build: nvcc builds csrc/*.cu into build/bialign_tpu_torch/;
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card,
    on random tables at small to medium shapes (bands, last slabs and
-   traces exact; the score-only kernels on a ring pre-filled with garbage);
+   traces exact; the score-only kernels on a ring pre-filled with garbage).
+   The bucket kernels K4-K7 on buckets of mixed lengths at max_shift 0-3,
+   B from 1 to 64, rings of garbage, both routes forced wherever the bucket
+   fits one CTA's shared memory, "grid" equal to "cta";
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -21,12 +24,22 @@ package.  Phases, one line each:
    at max_shift 0 (K3) and 2 and nonaffine_score at the CLI defaults equal
    to the band path's.  End-to-end times, kernel times against the plain
    twins', band bytes, peak memory.  Then a 4000x3990 pair of random
-   tables, affine max_shift 1: score-only against the band kernel;
-6. launch counts of the two paths, counted apart, each of which must be
+   tables, affine max_shift 1: score-only against the band kernel.
+   The batched-scores path through bialign_tpu_torch.parallel.score_batch
+   and PreparedBatch: 64 windows of 128-508 residues of the DNA-Pol-1 pair
+   (affine max_shift 1, bucket_quantum 128; K4), every score equal to the
+   single-pair affine_score; 512 copies of the 42x42 toy protein pair in
+   one 64x64 bucket (K6), all 48500, the same at max_shift 0 (K7) and at
+   the non-affine CLI defaults (K6 non-affine, K5); four copies of the whole
+   DNA-Pol-1 pair, non-affine (K5).  Pairs/s and 4-D cells/s from host
+   tables and from resident ones, cold and warm, kernel times against the
+   twins' and against the pairs one at a time, peak memory;
+6. launch counts of the three paths, counted apart, each of which must be
    > 0;
-7. profile: where the time of the DNA-Pol-1 runs goes, stage by stage on
-   the host clock and from a torch.profiler trace (device busy and idle
-   time, per-kernel times); traces and report in build/profile/.
+7. profile: where the time of the DNA-Pol-1 runs and of the two batches
+   goes, stage by stage on the host clock and from a torch.profiler trace
+   (device busy and idle time, per-kernel times); traces and report in
+   build/profile/.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work), and last the line
@@ -41,6 +54,7 @@ import ast
 import hashlib
 import importlib.util
 import json
+import random
 import subprocess
 import sys
 import time
@@ -55,6 +69,7 @@ from bialign_tpu_torch.convert import tables_to_torch
 from bialign_tpu_torch.data import dnapol_pair
 from bialign_tpu_torch.ops import cuda_dp
 from bialign_tpu_torch.ops import device_traceback as dtb
+from bialign_tpu_torch.parallel import batch as pbatch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -75,6 +90,23 @@ DNAPOL_CLI_DEFAULTS = dict(type="Protein")         # non-affine, max_shift 2
 MS0_SHAPES = [(7, 9), (1, 1), (0, 3), (5, 0), (20, 13)]   # (n, m) for K3
 BIG_PAIR = (4000, 3990, 1)              # README: a synthetic protein pair
 
+# Buckets of phase 3: (N, M, B, the max_shifts to run).  Lengths are mixed
+# inside each bucket (mixed_lengths); the last has 150-300 rows.
+BUCKETS = [(8, 8, 1, (0, 1, 2, 3)), (8, 8, 7, (0, 1, 2, 3)),
+           (24, 40, 16, (1, 2)), (64, 64, 64, (0, 1, 2)),
+           (200, 257, 5, (0, 1))]
+# The two batches of phase 5 (bench.py:92-100, :338, :488): the toy protein
+# pair and windows of the DNA-Pol-1 pair, both with DNAPOL_FULL's costs.
+TOY = dict(seqA="RAKLPLKEKKLTATANYHPGIRYIMTGYSAKYIYSSTYARFR",
+           seqB="KAKLPLKEKKLTRTANYHPGIRYIMTGYSAKRIYSSTYAYFR",
+           strA="CHHHHHHHHHHHHHCCCCTCEEEEEEECCTCEEEEEEEECCC",
+           strB="HHHHHHHHHHHHCCCCCCTCEEEEEEECCCCCEEEEEEEECC")
+TOY_SCORE = 48500
+TOY_PAIRS = 512
+REALISTIC_PAIRS, REALISTIC_LO, REALISTIC_HI = 64, 128, 508
+REALISTIC_QUANTUM = 128
+FULL_COPIES = 4                          # the non-affine bucket of K5
+
 # Peaks of one H100 SXM for the kernels' bounds: device memory 3.35 TB/s;
 # int32 on the CUDA cores 132 SMs x 64 lanes x 1.98 GHz (boost) = 16.7e12
 # operations a second.  These kernels have no tensor-core form.
@@ -93,10 +125,27 @@ KERNELS = {
                         "bialign_tpu/ops/pallas_dp.py:414"),
     "score_affine_ms0": ("bialign_tpu_torch/csrc/score_affine_ms0.cu",
                          "bialign_tpu/ops/pallas_dp.py:741"),
+    "batch_affine": ("bialign_tpu_torch/csrc/batch_affine.cu",
+                     "bialign_tpu/ops/pallas_dp.py:1004"),
+    "batch_nonaffine": ("bialign_tpu_torch/csrc/batch_nonaffine.cu",
+                        "bialign_tpu/ops/pallas_dp.py:1402"),
+    "cta_scores": ("bialign_tpu_torch/csrc/cta_scores.cu",
+                   "bialign_tpu/ops/pallas_dp.py:1102"),
+    "cta_scores_ms0": ("bialign_tpu_torch/csrc/cta_scores_ms0.cu",
+                       "bialign_tpu/ops/pallas_dp.py:1157"),
     "walk_affine": ("bialign_tpu_torch/csrc/walk.cu",
                     "bialign_tpu/ops/device_traceback.py:85"),
     "walk_nonaffine": ("bialign_tpu_torch/csrc/walk.cu",
                        "bialign_tpu/ops/device_traceback.py:304"),
+}
+
+# the kernels of each counted path
+PATHS = {
+    "band": ("fill_affine", "fill_nonaffine", "walk_affine",
+             "walk_nonaffine"),
+    "score_only": ("score_affine", "score_nonaffine", "score_affine_ms0"),
+    "batch": ("batch_affine", "batch_nonaffine", "cta_scores",
+              "cta_scores_ms0"),
 }
 
 
@@ -117,6 +166,11 @@ def reset_counts() -> None:
     for table in (cuda_dp.LAUNCHES, dtb.LAUNCHES):
         for key in table:
             table[key] = 0
+
+
+def path_counts(path: str) -> dict:
+    """The launch counts of one path's kernels, as they stand."""
+    return {name: counts()[name] for name in PATHS[path]}
 
 
 def load_golden():
@@ -197,6 +251,21 @@ def dp_bound(n, m, S, cases: int, states: int, band: bool):
     slab = states * W2 * (n + 1) * 4
     nbytes = 2 * cells * 4 + (n + m + 1 if band else 1) * slab
     return bound(nbytes, cells * W2 * states * cases * 2)
+
+
+def batch_bound(lengths, S, cases: int, states: int):
+    """Bound of a bucket's or a batch's scores: as dp_bound in score mode,
+    summed over the pairs' genuine cells (each pair's own tables read once,
+    one score written); ``lengths`` are the pairs' (n, m)."""
+    cells = sum((n + 1) * (m + 1) for n, m in lengths)
+    W2 = (2 * S + 1) ** 2
+    return bound(2 * cells * 4 + 4 * len(lengths),
+                 cells * W2 * states * cases * 2)
+
+
+def cells_4d(lengths, S) -> int:
+    """4-D DP cells of a batch: lattice cells x shift positions."""
+    return sum((n + 1) * (m + 1) for n, m in lengths) * (2 * S + 1) ** 2
 
 
 def walk_bound(steps: int, cases: int):
@@ -286,9 +355,93 @@ def phase_kernels(dev, errs: dict) -> None:
         errs["score_affine_ms0"] = max(errs["score_affine_ms0"], e)
         check(cuda_dp.affine_score(t1, t2, 0, beta, gamma, delta)
               == int(k1[:, 0, 0, n].max()), f"score_affine_ms0 score {n, m}")
+    buckets = phase_batch_kernels(dev, errs)
     torch.cuda.synchronize()
     say("3 kernels", shapes=SHAPES, ms0_shapes=MS0_SHAPES, bands_equal=True,
-        last_slabs_equal=True, traces_equal=True, max_abs_err=errs)
+        last_slabs_equal=True, traces_equal=True,
+        buckets_n_m_b_shift_form_routes=buckets, bucket_scores_equal=True,
+        max_abs_err=errs)
+
+
+def mixed_lengths(rng, N, M, B):
+    """(n, m) of B pairs of one (N, M) bucket: an empty first sequence, an
+    empty second one, the bucket's own size and a pair far shorter than it
+    first, then lengths at random."""
+    fixed = [(0, M), (N, 0), (N, M), (1, 1)]
+    rest = [(int(rng.integers(0, N + 1)), int(rng.integers(0, M + 1)))
+            for _ in range(max(B - len(fixed), 0))]
+    return (fixed + rest)[-B:]
+
+
+def bucket_stacks(rng, N, M, lengths, dev):
+    """A bucket's stacks and lengths on the card, from random tables."""
+    tables = [rand_tables(rng, n, m) for n, m in lengths]
+    stacks = (pbatch.stack_padded([t[0] for t in tables], N, M),
+              pbatch.stack_padded([t[1] for t in tables], N, M),
+              np.asarray([n for n, _m in lengths], dtype=np.int32),
+              np.asarray([m for _n, m in lengths], dtype=np.int32))
+    return tuple(torch.from_numpy(a).to(dev) for a in stacks)
+
+
+def score_err(a, b) -> int:
+    check(a.shape == b.shape, f"score shapes {a.shape} {b.shape}")
+    return int((a.long() - b.long()).abs().max())
+
+
+def phase_batch_kernels(dev, errs: dict) -> list:
+    """K4-K7 against their plain twins on buckets of mixed lengths, on
+    rings of garbage, both routes forced on every bucket that fits one
+    CTA's shared memory."""
+    beta, gamma, delta = AFFINE_PARAMS
+    g2, d2 = NONAFFINE_PARAMS
+    ran = []
+    for N, M, B, shifts in BUCKETS:
+        for S in shifts:
+            rng = np.random.default_rng(SEED + 1000 * N + 10 * B + S)
+            W = 2 * S + 1
+            stacks = bucket_stacks(rng, N, M, mixed_lengths(rng, N, M, B),
+                                   dev)
+            forms = (
+                ("affine", cuda_dp.affine_batch_scores,
+                 cuda_dp.affine_batch_scores_plain, (beta, gamma, delta),
+                 (9, W, W), "batch_affine"),
+                ("nonaffine", cuda_dp.nonaffine_batch_scores,
+                 cuda_dp.nonaffine_batch_scores_plain, (g2, d2), (W, W),
+                 "batch_nonaffine"),
+            )
+            for form, kern, plain, params, cells, grid_name in forms:
+                want = plain(*stacks, S, *params)
+                got = kern(*stacks, S, *params, route="grid",
+                           ring=garbage_ring(rng, (B, 3, *cells, N + 1), dev))
+                e = score_err(got, want)
+                check(e == 0, f"{grid_name} {N, M, B, S}: max |err| {e}")
+                errs[grid_name] = max(errs[grid_name], e)
+                routes = ["grid"]
+                affine = form == "affine"
+                if (cuda_dp.cta_shared_bytes(N, S, affine)
+                        <= cuda_dp.CTA_SHARED_LIMIT):
+                    routes.append("cta")
+                    ms0 = affine and S == 0                     # K7
+                    name = "cta_scores_ms0" if ms0 else "cta_scores"
+                    cells = (3,) if ms0 else cells
+                    for ring in (garbage_ring(rng, (B, 3, *cells, N + 1),
+                                              dev), None):
+                        cta = kern(*stacks, S, *params, route="cta",
+                                   ring=ring)
+                        e = max(score_err(cta, want), score_err(cta, got))
+                        check(e == 0, f"{name} {form} {N, M, B, S}: "
+                              f"max |err| {e}")
+                        errs[name] = max(errs[name], e)
+                    if ms0:
+                        twin = cuda_dp.affine_ms0_batch_scores_plain(
+                            *stacks, beta, gamma, delta)
+                        check(score_err(cta, twin) == 0,
+                              f"cta_scores_ms0 against its twin {N, M, B}")
+                check(cuda_dp.batch_route(N, S, affine) == routes[-1],
+                      f"route of {N, S, form}")
+                ran.append([N, M, B, S, form, routes])
+    torch.cuda.synchronize()
+    return ran
 
 
 def phase_goldens(G) -> None:
@@ -457,6 +610,213 @@ def phase_big_pair(dev) -> dict:
     return dict(n=n, m=m, max_shift=S, **found)
 
 
+def host_tables(mol, params):
+    """(mu1, mu2, (n, m)) of one pair through the port's host layers."""
+    ba = BiAligner(mol["seqA"], mol["seqB"], mol["strA"], mol["strB"],
+                   **params)
+    return ba.mu1, ba.mu2, (len(mol["seqA"]), len(mol["seqB"]))
+
+
+def realistic_windows(mol, seed):
+    """64 windows of 128-508 residues of the DNA-Pol-1 pair, the second
+    within 4 residues of the first (bench.py _realistic_batched_fn and
+    _mixed_corpus)."""
+    seqA, strA, seqB, strB = mol
+    rng = random.Random(seed)
+    out = []
+    for _ in range(REALISTIC_PAIRS):
+        la = rng.randint(REALISTIC_LO, REALISTIC_HI)
+        lb = la + rng.randint(-4, 4)
+        a0 = rng.randint(0, len(seqA) - la)
+        b0 = rng.randint(0, len(seqB) - lb)
+        out.append(dict(seqA=seqA[a0:a0 + la], seqB=seqB[b0:b0 + lb],
+                        strA=strA[a0:a0 + la], strB=strB[b0:b0 + lb]))
+    return out
+
+
+def timed(fn):
+    """(seconds on the host clock with the device drained, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def batch_rates(tables, lengths, S, params, affine, quantum) -> tuple:
+    """score_batch (tables on the host) and PreparedBatch.scores() (tables
+    resident), cold then three times warm; returns (scores, report)."""
+    kw = dict(affine=affine, bucket_quantum=quantum)
+    torch.cuda.reset_peak_memory_stats()
+    cold, scores = timed(lambda: pbatch.score_batch(tables, S, params, **kw))
+    warm = [timed(lambda: pbatch.score_batch(tables, S, params, **kw))[0]
+            for _ in range(3)]
+    build, prep = timed(lambda: pbatch.PreparedBatch(tables, S, params, **kw))
+    first, resident = timed(prep.scores)
+    again = [timed(prep.scores)[0] for _ in range(3)]
+    check((scores == resident).all(), "PreparedBatch differs from score_batch")
+    check((pbatch.score_batch(prep, S, params, **kw) == scores).all(),
+          "score_batch(PreparedBatch) differs")
+    B, cells = len(tables), cells_4d(lengths, S)
+    return scores, dict(
+        pairs=B, cells_4d=cells, buckets=len(prep._buckets),
+        score_batch_cold_s=cold, score_batch_warm_s=warm,
+        score_batch_pairs_per_s=B / min(warm),
+        score_batch_cells_per_s=cells / min(warm),
+        prepared_build_s=build, prepared_first_s=first,
+        prepared_warm_s=again, prepared_pairs_per_s=B / min(again),
+        prepared_cells_per_s=cells / min(again),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def phase_batch_main(mol) -> tuple[dict, dict]:
+    """The batched-scores path through score_batch and PreparedBatch
+    (counted launches); returns (report, the batches for the timing)."""
+    costs = (DNAPOL_FULL["gap_opening_cost"], DNAPOL_FULL["gap_cost"],
+             DNAPOL_FULL["shift_cost"])
+    found, batches = {}, {}
+
+    # realistic: K4
+    pairs = [host_tables(w, DNAPOL_FULL) for w in realistic_windows(mol, SEED)]
+    tables = [p[:2] for p in pairs]
+    lengths = [p[2] for p in pairs]
+    scores, report = batch_rates(tables, lengths, 1, costs, True,
+                                 REALISTIC_QUANTUM)
+    check(scores.dtype == np.int64 and scores.shape == (REALISTIC_PAIRS,),
+          f"realistic scores {scores.dtype} {scores.shape}")
+    t0 = time.perf_counter()
+    singly = [cuda_dp.affine_score(*tables_to_torch(mu1, mu2, "cuda"), 1,
+                                   *costs) for mu1, mu2 in tables]
+    report["one_at_a_time_affine_score_s"] = time.perf_counter() - t0
+    check(scores.tolist() == singly,
+          f"realistic batch {scores.tolist()} != affine_score {singly}")
+    report.update(lengths=lengths, scores_equal_affine_score=True)
+    found["realistic"] = report
+    batches["realistic"] = (tables, lengths, 1, costs, True,
+                            REALISTIC_QUANTUM)
+
+    # toy b512: K6 (affine), K7 (max_shift 0), K6 non-affine and K5
+    mu1, mu2, nm = host_tables(TOY, DNAPOL_FULL)
+    tables, lengths = [(mu1, mu2)] * TOY_PAIRS, [nm] * TOY_PAIRS
+    scores, report = batch_rates(tables, lengths, 1, costs, True, 64)
+    check((scores == TOY_SCORE).all() and scores.shape == (TOY_PAIRS,),
+          f"toy b512 scores {np.unique(scores)}")
+    found["toy_b512"] = dict(report, all_scores=TOY_SCORE)
+    batches["toy_b512"] = (tables, lengths, 1, costs, True, 64)
+
+    t1, t2 = tables_to_torch(mu1, mu2, "cuda")
+    want0 = cuda_dp.affine_score(t1, t2, 0, *costs)
+    scores, report = batch_rates(tables, lengths, 0, costs, True, 64)
+    check((scores == want0).all(), f"toy b512 ms0 {np.unique(scores)}")
+    found["toy_b512_ms0"] = dict(report, all_scores=want0)
+    batches["toy_b512_ms0"] = (tables, lengths, 0, costs, True, 64)
+
+    ba = BiAligner(**TOY, **DNAPOL_CLI_DEFAULTS)        # non-affine
+    check(not ba._affine, "the CLI defaults are non-affine")
+    S, na = ba.max_shift, (ba.gamma, ba.delta)
+    tables = [(ba.mu1, ba.mu2)] * TOY_PAIRS
+    t1, t2 = tables_to_torch(ba.mu1, ba.mu2, "cuda")
+    want_na = cuda_dp.nonaffine_score(t1, t2, S, *na)
+    scores, report = batch_rates(tables, lengths, S, na, False, 64)
+    check((scores == want_na).all(),
+          f"toy b512 non-affine {np.unique(scores)}")
+    found["toy_b512_nonaffine"] = dict(report, all_scores=want_na)
+    batches["toy_b512_nonaffine"] = (tables, lengths, S, na, False, 64)
+
+    # the whole DNA-Pol-1 pair, non-affine, four copies: a bucket of 1025
+    # rows, beyond one CTA's shared memory, so K5
+    seqA, strA, seqB, strB = mol
+    full = dict(seqA=seqA, seqB=seqB, strA=strA, strB=strB)
+    mu1, mu2, nm = host_tables(full, DNAPOL_CLI_DEFAULTS)
+    tables, lengths = [(mu1, mu2)] * FULL_COPIES, [nm] * FULL_COPIES
+    want = cuda_dp.nonaffine_score(*tables_to_torch(mu1, mu2, "cuda"), S, *na)
+    scores, report = batch_rates(tables, lengths, S, na, False,
+                                 REALISTIC_QUANTUM)
+    check((scores == want).all(), f"DNA-Pol non-affine {scores} != {want}")
+    found["dnapol_nonaffine_x4"] = dict(report, all_scores=want)
+    batches["dnapol_nonaffine_x4"] = (tables, lengths, S, na, False,
+                                      REALISTIC_QUANTUM)
+    return found, batches
+
+
+# kernel of the kernels line -> (batch of phase_batch_main, cases, states)
+BATCH_TIMED = {"batch_affine": ("realistic", 15, 9),
+               "cta_scores": ("toy_b512", 15, 9),
+               "cta_scores_ms0": ("toy_b512_ms0", 3, 3),
+               "batch_nonaffine": ("dnapol_nonaffine_x4", 13, 1)}
+
+
+def phase_batch_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
+    """The bucket kernels against their plain twins on the batches of the
+    main path (not counted): PreparedBatch.dispatch() with the tables
+    resident, CUDA events around all its buckets; the twins through
+    engine="torch" on the card.  Returns (times, bounds, more)."""
+    times, bounds, more = {}, {}, {}
+    for name, (batch, cases, states) in BATCH_TIMED.items():
+        tables, lengths, S, params, affine, quantum = batches[batch]
+        kw = dict(affine=affine, bucket_quantum=quantum)
+        prep = pbatch.PreparedBatch(tables, S, params, **kw)
+        before = counts()[name]
+        prep.scores()                                         # warm-up
+        per_call = counts()[name] - before
+        check(per_call == len(prep._buckets),
+              f"{batch} ran {per_call} launches of {name}")
+        ms_k, pending = cuda_ms(prep.dispatch, reps=5)
+        twin = pbatch.PreparedBatch(tables, S, params, engine="torch", **kw)
+        ms_p, plain = cuda_ms(twin.dispatch, reps=1)
+        e = int(np.abs(pending.get() - plain.get()).max())
+        check(e == 0, f"{name} on {batch}: max |err| {e} against the twin")
+        errs[name] = max(errs[name], e)
+        times[name] = (ms_k, ms_p)
+        bounds[name] = batch_bound(lengths, S, cases, states)
+        diagonals = sum(st[0].shape[1] + st[0].shape[2] - 1
+                        for _idx, st in prep._buckets)
+        more[name] = dict(
+            batch=batch, wrapper_calls_per_run=per_call,
+            kernel_launches_per_run=(diagonals if name.startswith("batch_")
+                                     else per_call))
+
+    # the other kernel on the same bucket, route forced: K4 and K5 on the
+    # toy buckets, in turns with the CTA kernels
+    for batch, grid_name in (("toy_b512", "batch_affine"),
+                             ("toy_b512_nonaffine", "batch_nonaffine")):
+        tables, lengths, S, params, affine, quantum = batches[batch]
+        (_idx, stacks), = pbatch._device_buckets(tables, quantum,
+                                                 torch.device("cuda"))
+        kern = (cuda_dp.affine_batch_scores if affine
+                else cuda_dp.nonaffine_batch_scores)
+        runs = {r: (lambda r=r: kern(*stacks, S, *params, route=r))
+                for r in ("cta", "grid")}
+        found = {r: [] for r in runs}
+        runs["cta"](), runs["grid"]()                         # warm-up
+        for route in ("cta", "grid", "grid", "cta"):
+            ms, got = cuda_ms(runs[route], reps=3)
+            found[route].append(ms)
+            check(bool((got == got[0]).all()), f"{batch} route {route}")
+        check(torch.equal(runs["cta"](), runs["grid"]()),
+              f"{batch}: grid != cta")
+        more[f"{batch}_routes_ms"] = found
+
+    # K6 alone on 1 pair, then one, three and four CTAs per SM's worth of
+    # pairs: a CTA's microseconds per diagonal with the carry in shared
+    # memory, and how the pairs of a bucket share the card
+    tables, lengths, S, params, _affine, quantum = batches["toy_b512"]
+    (_idx, stacks), = pbatch._device_buckets(tables, quantum,
+                                             torch.device("cuda"))
+    diagonals = sum(lengths[0]) + 1
+    scaling = {}
+    for B in (1, 132, 396, 512):
+        part = tuple(t[:B].contiguous() for t in stacks)
+        run = lambda: cuda_dp.affine_batch_scores(  # noqa: E731
+            *part, S, *params, route="cta")
+        run()
+        ms, got = cuda_ms(run, reps=5)
+        check(bool((got == TOY_SCORE).all()), f"K6 on {B} toy pairs")
+        scaling[B] = dict(ms=ms, us_per_diagonal=ms * 1e3 / diagonals)
+    more["cta_scores_pairs_ms"] = scaling
+    return times, bounds, more
+
+
 def phase_full_timing(mol, errs: dict) -> tuple[dict, dict]:
     """Kernels against plain twins at the DNA-Pol-1 shapes (not counted);
     returns (times, bounds) by kernel name."""
@@ -572,13 +932,12 @@ def kernel_name(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0][:80].strip()
 
 
-def profiled_run(run, n: int, m: int, trace_path: Path) -> dict:
-    """One end-to-end ``run()`` of an n x m pair under torch.profiler.
-    From the exported trace: the device's busy time (the union of its
+def traced(run, trace_path: Path) -> tuple:
+    """One ``run()`` under torch.profiler.  From the exported trace:
+    (summary, device events): the device's busy time (the union of its
     kernel, memcpy and memset intervals) and idle share inside the run's
-    window, each kernel's count and time, and for the DP kernels (one per
-    diagonal d, in order) the gaps between them and their mean time by
-    live rows on the diagonal."""
+    window and each kernel's count and time; the events as sorted
+    (start, end, name) in microseconds."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("e2e"):
@@ -603,22 +962,78 @@ def profiled_run(run, n: int, m: int, trace_path: Path) -> dict:
         k = kernels.setdefault(name, {"count": 0, "total_us": 0.0})
         k["count"] += 1
         k["total_us"] += f - s
-    fills = [(s, f) for s, f, name in dev if "_diag" in name]
+    summary = dict(window_us=w1 - w0, device_busy_us=busy,
+                   device_idle_share=1 - busy / (w1 - w0), kernels=kernels)
+    return summary, dev
+
+
+def dp_kernel_stats(dev, marks) -> tuple:
+    """(durations, gaps between consecutive ones) in microseconds of the
+    traced kernels whose name holds one of ``marks``, in order."""
+    spans = [(s, f) for s, f, name in dev if any(k in name for k in marks)]
+    dur = np.array([f - s for s, f in spans])
+    gaps = np.array([b[0] - a[1] for a, b in zip(spans, spans[1:])])
+    return spans, dur, gaps
+
+
+def profiled_run(run, n: int, m: int, trace_path: Path) -> dict:
+    """One end-to-end ``run()`` of an n x m pair under torch.profiler: the
+    summary of :func:`traced`, and for the DP kernels (one per diagonal d,
+    in order) the gaps between them and their mean time by live rows on the
+    diagonal."""
+    summary, dev = traced(run, trace_path)
+    fills, dur, gaps = dp_kernel_stats(dev, ("_diag",))
     check(len(fills) == n + m + 1, f"{len(fills)} DP kernels traced")
-    dur = np.array([f - s for s, f in fills])
-    gaps = np.array([b[0] - a[1] for a, b in zip(fills, fills[1:])])
     d = np.arange(n + m + 1)
     rows = np.minimum(n, d) - np.maximum(0, d - m) + 1
     return dict(
-        window_us=w1 - w0, device_busy_us=busy,
-        device_idle_share=1 - busy / (w1 - w0),
+        summary,
         fill=dict(kernels=len(fills), mean_us=dur.mean(),
                   mean_gap_us=gaps.mean(),
                   busy_share_of_fill_span=dur.sum()
                   / (fills[-1][1] - fills[0][0]),
                   mean_us_rows_le_128=dur[rows <= 128].mean(),
                   mean_us_rows_ge_800=dur[rows >= 800].mean()),
-        kernels=kernels,
+    )
+
+
+def staged_batch(tables, S, params, affine, quantum) -> dict:
+    """One batch timed stage by stage on the host clock: buckets, stacks
+    and their copy to the card (closed by a device sync), the queueing of
+    every bucket's kernels (not waited for), the wait for them, and the
+    scores' one copy back."""
+    clock = time.perf_counter
+    torch.cuda.synchronize()
+    t = [clock()]
+    prep = pbatch.PreparedBatch(tables, S, params, affine=affine,
+                                bucket_quantum=quantum)
+    torch.cuda.synchronize()
+    t.append(clock())
+    pending = prep.dispatch()
+    t.append(clock())
+    torch.cuda.synchronize()
+    t.append(clock())
+    pending.get()
+    t.append(clock())
+    stages = ("pack_and_upload_s", "queue_kernels_s", "wait_kernels_s",
+              "fetch_scores_s")
+    return dict(zip(stages, np.diff(t).tolist()))
+
+
+def profiled_batch(run, trace_path: Path) -> dict:
+    """One batch ``run()`` under torch.profiler: the summary of
+    :func:`traced` and the bucket kernels' count, mean time and gaps."""
+    summary, dev = traced(run, trace_path)
+    spans, dur, gaps = dp_kernel_stats(dev, ("batch_diag", "cta_scores"))
+    check(len(spans) > 0, "no bucket kernel traced")
+    return dict(
+        summary,
+        bucket_kernels=dict(
+            kernels=len(spans), mean_us=dur.mean(), max_us=dur.max(),
+            total_us=dur.sum(),
+            mean_gap_us=gaps.mean() if len(gaps) else 0.0,
+            busy_share_of_their_span=dur.sum()
+            / (spans[-1][1] - spans[0][0])),
     )
 
 
@@ -637,10 +1052,11 @@ def staged_score(mol, params) -> dict:
     return dict(tables_s=t1_ - t0, score_s=clock() - t1_, score=score)
 
 
-def phase_profile(mol, out: Path) -> None:
+def phase_profile(mol, batches, out: Path) -> None:
     """Where the time goes in the DNA-Pol-1 runs, band path and score-only
-    path: three staged runs and one profiled run per configuration, after
-    a warm-up run."""
+    path, and in the two batches of the batched-scores path (from host
+    tables and from resident ones): staged runs and one profiled run per
+    configuration, after a warm-up run."""
     out.mkdir(parents=True, exist_ok=True)
     n, m = len(mol[0]), len(mol[2])
     report = {}
@@ -657,11 +1073,24 @@ def phase_profile(mol, out: Path) -> None:
             staged=[staged_score(mol, params) for _ in range(3)],
             profile=profiled_run(score, n, m,
                                  out / f"trace_score_only_{name}.json"))
+    for name in ("realistic", "toy_b512"):
+        tables, _lengths, S, params, affine, quantum = batches[name]
+        kw = dict(affine=affine, bucket_quantum=quantum)
+        prep = pbatch.PreparedBatch(tables, S, params, **kw)
+        prep.scores()
+        report[f"batch_{name}"] = dict(
+            staged=[staged_batch(tables, S, params, affine, quantum)
+                    for _ in range(3)],
+            profile=profiled_batch(
+                lambda: pbatch.score_batch(tables, S, params, **kw),
+                out / f"trace_batch_{name}.json"),
+            profile_prepared=profiled_batch(
+                prep.scores, out / f"trace_batch_{name}_prepared.json"))
     (out / "profile.json").write_text(json.dumps(report, indent=1))
     say("7 profile", out=str(out), **{
-        name: dict(staged=r["staged"],
-                   **{k: v for k, v in r["profile"].items()
-                      if k != "kernels"})
+        name: {key: (val if key == "staged" else
+                     {k: v for k, v in val.items() if k != "kernels"})
+               for key, val in r.items()}
         for name, r in report.items()})
 
 
@@ -710,26 +1139,33 @@ def main() -> int:
     reset_counts()
     phase_goldens(G)
     full = phase_full_main(mol, md5)
-    launches = {k: v for k, v in counts().items() if not k.startswith("score_")}
+    launches = path_counts("band")
     say("5 full size", **full)
     reset_counts()
     full_score = phase_full_score(mol)
-    launches.update({k: v for k, v in counts().items()
-                     if k.startswith("score_")})
+    launches.update(path_counts("score_only"))
     say("5 full size, score only", nvidia_smi=smi, **full_score)
+    reset_counts()
+    full_batch, batches = phase_batch_main(mol)
+    launches.update(path_counts("batch"))
+    say("5 full size, batched scores", nvidia_smi=smi, **full_batch)
 
     times, bounds = phase_full_timing(mol, errs)
+    batch_times, batch_bounds, more = phase_batch_timing(batches, errs)
+    times.update(batch_times)
+    bounds.update(batch_bounds)
     say("5 kernel times", nvidia_smi=smi,
         ms_kernel_vs_plain={k: {"kernel_ms": v[0], "plain_ms": v[1],
                                 "bound_ms": bounds[k][0],
                                 "bound_by": bounds[k][1]}
-                            for k, v in times.items()})
+                            for k, v in times.items()},
+        batch_kernels=more)
     say("5 big pair", nvidia_smi=smi, **phase_big_pair(dev))
 
     say("6 launches", **launches)
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} not launched by the path")
-    phase_profile(mol, ROOT / "build" / "profile")
+    phase_profile(mol, batches, ROOT / "build" / "profile")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -737,7 +1173,7 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes a banded max-plus recurrence
-         # over four indices, or walks one
+         # over four indices, for one pair or a bucket, or walks one
          "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]}))

@@ -16,6 +16,7 @@ import bialign_tpu.io
 import bialign_tpu.models.molecule
 import bialign_tpu.ops.cases
 import bialign_tpu.ops.traceback
+import bialign_tpu.parallel.batch
 import bialign_tpu.render.decode
 import bialign_tpu.scoring.fold
 import bialign_tpu.scoring.structure
@@ -32,6 +33,7 @@ import bialign_tpu_torch.io
 import bialign_tpu_torch.models.molecule
 import bialign_tpu_torch.ops.cases
 import bialign_tpu_torch.ops.traceback
+import bialign_tpu_torch.parallel.batch
 import bialign_tpu_torch.render.decode
 import bialign_tpu_torch.scoring.fold
 import bialign_tpu_torch.scoring.structure
@@ -354,3 +356,70 @@ def test_align_config():
     for bad in (dict(type="DNA"), dict(max_shift=-1), dict(engine="pallas")):
         with pytest.raises(ValueError):
             T.AlignConfig(**bad)
+
+
+# -- parallel/batch.py: the numpy part of the batched-scores path -----------
+
+JB, TB = J.parallel.batch, T.parallel.batch
+BATCH_SIZES = [(5, 7), (8, 8), (3, 12), (12, 3), (1, 1), (6, 6), (9, 4),
+               (7, 7), (0, 3), (16, 17)]
+
+
+def _batch_tables(seed=42, sizes=BATCH_SIZES):
+    rng = np.random.default_rng(seed)
+    return [_rand_pair(rng, n, m) for n, m in sizes]
+
+
+@pytest.mark.parametrize("x", [0, 1, 7, 8, 9, 64, 65, 508])
+@pytest.mark.parametrize("q", [1, 8, 64, 128])
+def test_batch_quantize(x, q):
+    assert TB.quantize(x, q) == JB.quantize(x, q)
+
+
+@pytest.mark.parametrize("n,m,N,M", [(5, 7, 8, 8), (8, 8, 8, 8),
+                                     (0, 3, 8, 16), (1, 1, 64, 64)])
+def test_batch_pad_table(n, m, N, M):
+    mu1, _mu2 = _rand_pair(np.random.default_rng(n + m), n, m)
+    assert _same(TB.pad_table(mu1, N, M), JB.pad_table(mu1, N, M))
+
+
+@pytest.mark.parametrize("quantum", [8, 16, 64])
+def test_batch_make_buckets_dense(quantum):
+    tables = _batch_tables()
+    want = JB.make_buckets_dense(tables, quantum)
+    got = TB.make_buckets_dense(tables, quantum)
+    assert list(got) == list(want)            # same keys, same order
+    for key in want:
+        assert _same(dataclasses.asdict(got[key]),
+                     dataclasses.asdict(want[key]))
+
+
+@pytest.mark.parametrize("sizes,pad_count", [
+    (BATCH_SIZES[:4], 0), (BATCH_SIZES[:4], 3),
+    ([(6, 6)] * 5, 0), ([(6, 6)] * 5, 2),   # the single-shape fast path
+    ([(0, 3)], 0),
+])
+def test_batch_stack_padded(sizes, pad_count):
+    raws = [mu1 for mu1, _mu2 in _batch_tables(7, sizes)]
+    want = JB.stack_padded(raws, 16, 24, pad_count)
+    got = TB.stack_padded(raws, 16, 24, pad_count)
+    assert got.shape == (len(sizes) + pad_count, 17, 25)
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("affine,params,safe", [
+    (True, (-150, -50, -150), True),
+    (False, (-200, -250), True),
+    (True, (-20_000_000, -2_000_000, -2_000_000), False),
+    (False, (-2_000_000, -20_000_000), False),
+])
+def test_batch_int32_guard(affine, params, safe):
+    tables = _batch_tables()[:3]
+    if not safe:        # as tests/test_batch.py:301-307
+        tables.append((np.full((9, 9), 2_000_000, dtype=np.int32),) * 2)
+    for guard in (JB._require_int32_safe, TB._require_int32_safe):
+        if safe:
+            guard(tables, params, affine)
+        else:
+            with pytest.raises(ValueError, match="int32"):
+                guard(tables, params, affine)
