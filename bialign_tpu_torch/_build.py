@@ -40,9 +40,12 @@ _SIGNATURES = {
     "bialign_score_affine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_affine_ms0": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # rings, out, mu1, mu2, ns, ms, cases, B, N, M, (S,) device, stream
-    "bialign_batch_affine": [_P] * 7 + [_I] * 5 + [_P],
-    "bialign_batch_nonaffine": [_P] * 7 + [_I] * 5 + [_P],
+    # rings, out, mu1, mu2, ns, ms, cases, B, N, M, (S,) (lanes, T0,)
+    # (d_max,) device, stream
+    "bialign_batch_affine": [_P] * 7 + [_I] * 6 + [_P],
+    "bialign_batch_nonaffine": [_P] * 7 + [_I] * 6 + [_P],
+    "bialign_conveyor_affine": [_P] * 7 + [_I] * 8 + [_P],
+    "bialign_conveyor_nonaffine": [_P] * 7 + [_I] * 8 + [_P],
     "bialign_cta_affine": [_P] * 7 + [_I] * 5 + [_P],
     "bialign_cta_nonaffine": [_P] * 7 + [_I] * 5 + [_P],
     "bialign_cta_affine_ms0": [_P] * 7 + [_I] * 4 + [_P],

@@ -4,7 +4,8 @@
 //   csrc/fill_affine.cu (K1, band mode) and csrc/score_affine.cu (K1,
 //   score-only mode) through the per-diagonal kernel `affine_diag` below;
 //   csrc/batch_affine.cu (K4, score mode) through csrc/batch_diag.cuh;
-//   csrc/cta_scores.cu (K6, affine form) through csrc/cta_scores.cuh.
+//   csrc/cta_scores.cu (K6, affine form) through csrc/cta_scores.cuh;
+//   csrc/conveyor_scores.cu (K8, affine form) through csrc/conveyor.cuh.
 //
 // Replaces bialign_tpu/ops/pallas_dp.py:_affine_kernel with its slab
 // update _make_update (launched by _affine_pallas).  Same recurrence, same

@@ -15,12 +15,14 @@
 
 // Scores of B >= 1 pairs into out [B], over rings [B, 3, 9, W, W, N+1] (any
 // contents), from the stacks mu1, mu2 [B, N+1, M+1] and the lengths ns, ms
-// [B].  Returns 0, or the first launch error as a cudaError_t value.
+// [B]; diagonals 0..d_max run.  Returns 0, or the first launch error as a
+// cudaError_t value.
 extern "C" int bialign_batch_affine(int32_t* rings, int32_t* out,
                                     const int32_t* mu1, const int32_t* mu2,
                                     const int32_t* ns, const int32_t* ms,
                                     const int32_t* cases, int B, int N, int M,
-                                    int S, int device, void* stream) {
+                                    int S, int d_max, int device,
+                                    void* stream) {
   return bialign::run_batch_diagonals<bialign::Affine>(
-      rings, out, mu1, mu2, ns, ms, cases, B, N, M, S, device, stream);
+      rings, out, mu1, mu2, ns, ms, cases, B, N, M, S, d_max, device, stream);
 }

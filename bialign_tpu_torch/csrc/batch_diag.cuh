@@ -6,7 +6,8 @@
 //
 // A bucket is a zero-padded stack of dense tables [B, N+1, M+1] with each
 // pair's own lengths n_b <= N, m_b <= M in device memory.  Diagonal d of
-// the bucket (0 <= d <= N+M) is one launch over (row blocks x B) blocks:
+// the bucket (0 <= d <= d_max, the largest n_b + m_b as far as the host
+// knows it, at most N+M) is one launch over (row blocks x B) blocks:
 // block x belongs to pair x / row_blocks.  The carry is the single-pair
 // score kernels' ring of three slabs, one ring per pair:
 // [B, 3, cells, N+1] in device memory, any contents.  A thread works only
@@ -71,16 +72,16 @@ __global__ void batch_diag(int32_t* rings, int32_t* out,
     out[b] = Rec::score(ring + slab_of<true>(d) * slab, P, S, n);
 }
 
-// Runs the bucket's diagonals 0..N+M on `stream`, one launch each, B >= 1.
+// Runs the bucket's diagonals 0..d_max on `stream`, one launch each, B >= 1.
 // Returns 0, or the first launch error as a cudaError_t value.
 template <class Rec>
 int run_batch_diagonals(int32_t* rings, int32_t* out, const int32_t* mu1,
                         const int32_t* mu2, const int32_t* ns,
                         const int32_t* ms, const int32_t* cases, int B, int N,
-                        int M, int S, int device, void* stream) {
+                        int M, int S, int d_max, int device, void* stream) {
   BIALIGN_TRY(cudaSetDevice(device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int d = 0; d <= N + M; ++d) {
+  for (int d = 0; d <= std::min(d_max, N + M); ++d) {
     const int lo = std::max(0, d - M);
     const int hi = std::min(N, d);
     const int row_blocks = (hi - lo + kRowBlock) / kRowBlock;

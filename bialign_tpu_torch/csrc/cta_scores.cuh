@@ -20,9 +20,10 @@
 // 2, 129 rows at max_shift 1.  Three slabs, as everywhere: diagonal d
 // writes slab d % 3 while its neighbours still read d-1 and d-2.
 //
-// `rings`, if not null, is [B, 3, cells, N+1] in device memory: the CTA
-// copies its pair's ring into shared memory first.  The result does not
-// depend on it (stale rows are never read); the checks pass garbage to
+// `rings` is a hook for the checks and null on every path of
+// parallel/batch.py.  If not null it is [B, 3, cells, N+1] in device memory:
+// the CTA copies its pair's ring into shared memory first.  The result does
+// not depend on it (stale rows are never read); the checks pass garbage to
 // prove that.  Without it the slabs start as whatever shared memory held.
 //
 // Not carried over from the TPU kernels: eight pairs per vector register,

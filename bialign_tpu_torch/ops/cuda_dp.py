@@ -6,8 +6,8 @@ Counterpart of :mod:`bialign_tpu.ops.pallas_dp`: the single-pair kernels K1
 score-only mode and K3 ``_affine_ms0_kernel`` (affine, ``max_shift`` 0,
 score only); and the batched kernels in score mode, K4
 ``_affine_batched_kernel``, K5 ``_nonaffine_batched_kernel``, K6
-``_packed_batched_kernel`` and K7 ``_packed_ms0_kernel``, with the routing
-of ``_route_batched``.
+``_packed_batched_kernel``, K7 ``_packed_ms0_kernel`` and K8
+``_conveyor_kernel``, with the routing of ``_route_batched``.
 
 * ``fill_affine_device`` / ``fill_nonaffine_device`` produce a
   :class:`~bialign_tpu_torch.ops.band.DeviceBand` in the layout
@@ -21,13 +21,16 @@ of ``_route_batched``.
   diagonal, from which the score is read outside the kernel.
 * ``affine_batch_scores`` / ``nonaffine_batch_scores`` return the ``[B]``
   scores of a bucket: a zero-padded stack of tables ``[B, N+1, M+1]`` with
-  the pairs' own lengths ``ns``, ``ms``.  Two routes (:func:`batch_route`):
-  ``"grid"``, one launch per bucket diagonal over all pairs, each on its
-  own ring in device memory (``csrc/batch_affine.cu`` K4,
-  ``csrc/batch_nonaffine.cu`` K5); ``"cta"``, one launch per bucket, one
-  CTA per pair with the ring in shared memory (``csrc/cta_scores.cu`` K6;
-  affine at ``max_shift`` 0 ``csrc/cta_scores_ms0.cu`` K7), taken when the
-  ring fits one CTA's shared memory.
+  the pairs' own lengths ``ns``, ``ms``.  Three routes
+  (:func:`batch_route`): ``"cta"``, one launch per bucket, one CTA per pair
+  with the ring in shared memory (``csrc/cta_scores.cu`` K6; affine at
+  ``max_shift`` 0 ``csrc/cta_scores_ms0.cu`` K7), taken when the ring fits
+  one CTA's shared memory; ``"conveyor"``, for the other buckets of two
+  pairs or more: the pairs stream through a few rings in device memory
+  (``lanes``), one behind the other, one launch per step
+  (``csrc/conveyor_scores.cu`` K8); ``"grid"``, one launch per bucket
+  diagonal over all pairs, each on its own ring in device memory
+  (``csrc/batch_affine.cu`` K4, ``csrc/batch_nonaffine.cu`` K5).
 * Each wrapper launches its kernel for tables on a CUDA device, and runs
   the plain twin only for tables on the CPU, where no kernel can run.  The
   user's choice of engine is made in
@@ -38,7 +41,8 @@ of ``_route_batched``.
   ``_build_nonaffine_step``): a loop over diagonals, vectorised over rows
   and shifts, on any device.  Band and score share one per-diagonal step.
   The batch twins run the same steps with a leading batch axis, in the
-  bucket's geometry.  They are the specification the kernels are held to.
+  bucket's geometry, and the conveyor twins with a per-row diagonal index,
+  in the conveyor's.  They are the specification the kernels are held to.
 
 Inputs are the dense score tables ``mu1``, ``mu2``: int32 ``[n+1, m+1]``
 tensors on one device (:func:`bialign_tpu_torch.convert.tables_to_torch`).
@@ -48,6 +52,8 @@ themselves.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -71,11 +77,11 @@ from .cases import (
 INVALID = -(1 << 30) - (1 << 29)
 
 # Kernel launches per wrapper (one per fill, score or bucket), for run
-# reports; "cta_scores" counts both forms of K6.
+# reports; "cta_scores" counts both forms of K6, "conveyor_scores" of K8.
 LAUNCHES = {"fill_affine": 0, "fill_nonaffine": 0, "score_affine": 0,
             "score_nonaffine": 0, "score_affine_ms0": 0,
             "batch_affine": 0, "batch_nonaffine": 0, "cta_scores": 0,
-            "cta_scores_ms0": 0}
+            "cta_scores_ms0": 0, "conveyor_scores": 0}
 
 RING = 3      # slabs of the score-only carry; csrc/common.cuh RING
 
@@ -87,7 +93,11 @@ MS0_REC = 7   # values of one live state's record; csrc/affine_ms0_diag.cuh
 # Shared memory one CTA can have on an H100 (227 KB of the SM's 256 KB),
 # which decides the route of a bucket.
 CTA_SHARED_LIMIT = 232448
-ROUTES = ("grid", "cta")
+ROUTES = ("grid", "cta", "conveyor")
+# Threads the card holds at once (132 SMs of 2048): a conveyor gets as many
+# lanes as fill it once, so that a step's launch is one wave.
+CARD_THREADS = 132 * 2048
+ROW_BLOCK = 128   # threads of a block of the per-step kernels; kRowBlock
 
 
 def affine_case_table(beta: int, gamma: int, delta: int) -> np.ndarray:
@@ -351,9 +361,10 @@ class _Geometry:
 
     def diag(self, d: int):
         """(mu1_row ``[(B,) 1, 1, P]``, mu2_blk ``[(B,) W, W, P]``, j_ge,
-        l_ge, live ``[1, 1, P]``) of diagonal d: ``mu1[i, d-i]``,
-        ``mu2[k, l]``, the guards' terms in j and l (the only ones that
-        change with d), and the rows with 0 <= j <= m."""
+        l_ge, live ``[1, 1, P]``, protect ``[W, W, P]``) of diagonal d:
+        ``mu1[i, d-i]``, ``mu2[k, l]``, the guards' terms in j and l (the
+        only ones that change with d), the rows with 0 <= j <= m, and the
+        origin cell, which keeps its initial values."""
         n, m = self.n, self.m
         j = d - self.i                                        # [1, 1, P]
         l = j + self.sl - self.S                              # [1, W, P]
@@ -362,7 +373,56 @@ class _Geometry:
         ok = self.k_ok & (l >= 0) & (l <= m)
         mu2_blk = torch.where(
             ok, self.mu2[..., self.k.clamp(0, n), l.clamp(0, m)], 0)
-        return mu1_row, mu2_blk, [j >= 0, j >= 1], [l >= 0, l >= 1], live
+        protect = self.origin if d == 0 else self.no_origin
+        return (mu1_row, mu2_blk, [j >= 0, j >= 1], [l >= 0, l >= 1], live,
+                protect)
+
+
+class _ConveyorGeometry(_Geometry):
+    """A bucket's geometry on the conveyor (pallas_dp._conveyor_tables):
+    ``lanes`` slabs ``[lanes, (9,) W, W, N+1]``; through lane x stream the
+    pairs x, x + lanes, ... one behind the other, ``T0`` steps apart.
+    :meth:`diag` takes the global step t: row i then serves stripe
+    (t - i) // T0 of its lane at column j = (t - i) % T0, on that pair's own
+    diagonal i + j."""
+
+    def __init__(self, mu1p, mu2p, ns, ms, S: int, lanes: int, T0: int):
+        super().__init__(mu1p, mu2p, S)
+        self.pairs = mu1p.shape[0]
+        self.batch = (lanes,)
+        self.lanes, self.T0 = lanes, T0
+        self.ns, self.ms = ns.long(), ms.long()
+        self.lane = torch.arange(lanes, device=mu1p.device)[:, None, None,
+                                                            None]
+        self.i4 = self.i[None]                                # [1, 1, 1, P]
+
+    def stripes(self, t: int):
+        """(pair ``[lanes, 1, 1, P]`` clamped to the bucket, j
+        ``[1, 1, 1, P]``, live ``[lanes, 1, 1, P]``) of step t: the pair each
+        row serves, its column, and whether (i, j) is a cell of that pair."""
+        tr = t - self.i4
+        b = self.lane + torch.div(tr, self.T0, rounding_mode="floor") \
+            * self.lanes
+        j = tr % self.T0
+        inside = (tr >= 0) & (b < self.pairs)
+        b = b.clamp(0, self.pairs - 1)
+        live = inside & (self.i4 <= self.ns[b]) & (j <= self.ms[b])
+        return b, j, live
+
+    def diag(self, t: int):
+        """As :meth:`_Geometry.diag` at step t, every row on its own pair's
+        tables: mu1_row ``[lanes, 1, 1, P]``, mu2_blk ``[lanes, W, W, P]``,
+        live ``[lanes, 1, 1, P]``, protect ``[1, W, W, P]``."""
+        n, m = self.n, self.m
+        b, j, live = self.stripes(t)
+        l = j + self.sl - self.S                              # [1, 1, W, P]
+        mu1_row = torch.where(live, self.mu1[b, self.i4, j.clamp(0, m)], 0)
+        ok = self.k_ok & (l >= 0) & (l <= m)
+        mu2_blk = torch.where(
+            ok, self.mu2[b, self.k.clamp(0, n), l.clamp(0, m)], 0)
+        protect = self.origin & (j == 0)
+        return (mu1_row, mu2_blk, [j >= 0, j >= 1], [l >= 0, l >= 1], live,
+                protect)
 
 
 def _index(rows, dev):
@@ -407,7 +467,7 @@ def _affine_step(g: _Geometry, beta, gamma, delta):
     init[STATE_BOTH_MATCH] = 0
 
     def step(d, vm1, vm2):
-        mu1_row, mu2_blk, j_ge, l_ge, live = g.diag(d)
+        mu1_row, mu2_blk, j_ge, l_ge, live, protect = g.diag(d)
         best = torch.empty((*g.batch, Q, W, W, g.n + 1), dtype=torch.int32,
                            device=dev)
         for q in range(Q):
@@ -428,7 +488,6 @@ def _affine_step(g: _Geometry, beta, gamma, delta):
             cC = torch.where(gC[q] & j_ge[b], aggC, INVALID)
             best[..., q, :, :, :] = torch.maximum(cA, cC)
         val = torch.where(best == INVALID, NEG_INF, best)
-        protect = g.origin if d == 0 else g.no_origin
         val = torch.where(protect, init, val)
 
         # group B: str-only half columns (0, 0, c, e) within the diagonal;
@@ -473,7 +532,7 @@ def _nonaffine_step(g: _Geometry, gamma, delta):
             internal.append(case + ((k >= x2) & (sk >= x2) & (sl >= x3),))
 
     def step(d, vm1, vm2):
-        mu1_row, mu2_blk, j_ge, l_ge, live = g.diag(d)
+        mu1_row, mu2_blk, j_ge, l_ge, live, protect = g.diag(d)
         best = torch.full((*g.batch, W, W, g.n + 1), INVALID,
                           dtype=torch.int32, device=dev)
         for (x0, x1, x2, x3), const, m1c, m2c, fixed in external:
@@ -486,7 +545,6 @@ def _nonaffine_step(g: _Geometry, gamma, delta):
             ok = fixed & j_ge[x1] & l_ge[x3]
             best = torch.maximum(best, torch.where(ok, contrib, INVALID))
         val = torch.where(best == INVALID, NEG_INF, best)
-        protect = g.origin if d == 0 else g.no_origin
         val = torch.where(protect, 0, val)
 
         # the 4 str-only columns, within the diagonal in ascending t
@@ -695,11 +753,14 @@ def cta_shared_bytes(N: int, max_shift: int, affine: bool) -> int:
     return 4 * (table + RING * cells * (N + 1))
 
 
-def batch_route(N: int, max_shift: int, affine: bool, route=None) -> str:
-    """The route of a bucket of N+1 rows (pallas_dp._route_batched):
-    ``"cta"`` when the ring and the case table fit one CTA's shared memory,
-    else ``"grid"``.  A forced ``route`` is returned as it is, but a
-    ``"cta"`` that does not fit raises: it does not give way."""
+def batch_route(N: int, max_shift: int, affine: bool, route=None, *,
+                B: int) -> str:
+    """The route of a bucket of B pairs and N+1 rows
+    (pallas_dp._route_batched): ``"cta"`` when the ring and the case table
+    fit one CTA's shared memory; else ``"conveyor"`` for two pairs or more
+    (pallas_dp._use_conveyor), ``"grid"`` for one.  A forced ``route`` is
+    returned as it is, but a ``"cta"`` that does not fit raises: it does
+    not give way."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES} or None, got "
                          f"{route!r}")
@@ -708,88 +769,169 @@ def batch_route(N: int, max_shift: int, affine: bool, route=None) -> str:
         raise ValueError(
             f"route='cta' needs {need} bytes of shared memory per pair for "
             f"a bucket of {N + 1} rows at max_shift {max_shift}; one CTA "
-            f"has {CTA_SHARED_LIMIT}; use route='grid'")
+            f"has {CTA_SHARED_LIMIT}; use route='grid' or 'conveyor'")
     if route is not None:
         return route
-    return "cta" if need <= CTA_SHARED_LIMIT else "grid"
+    if need <= CTA_SHARED_LIMIT:
+        return "cta"
+    return "conveyor" if B >= 2 else "grid"
 
 
-def _batch_ring_shape(mu1p, states: tuple) -> tuple:
-    return (mu1p.shape[0], RING, *states, mu1p.shape[1])
+def conveyor_T0(M: int) -> int:
+    """Steps between two pairs of one conveyor lane
+    (pallas_dp._conveyor_T0).  At step t row i of a lane serves stripe
+    (t - i) // T0 at column (t - i) % T0, so T0 > M gives every row one
+    owner.  A pair on its diagonal d reads rows >= d - M - 2 (its live rows
+    of d-1 and d-2) and the pair behind it has by then written rows
+    <= d - T0 only; with T0 = M + 3 the two never meet, whichever slab of
+    the ring each is on."""
+    return M + 3
+
+
+def conveyor_lanes(B: int, N: int) -> int:
+    """Lanes of a bucket's conveyor: as many as fill the card's threads
+    once with N+1 rows each, at most one per pair.  More pairs than that
+    stream through the lanes one behind the other, so the rings' memory
+    and a step's launch stop growing with the bucket."""
+    row_blocks = (N + ROW_BLOCK) // ROW_BLOCK
+    return max(1, min(B, CARD_THREADS // (row_blocks * ROW_BLOCK)))
+
+
+def _batch_ring_shape(mu1p, states: tuple, lanes=None) -> tuple:
+    return (mu1p.shape[0] if lanes is None else lanes, RING, *states,
+            mu1p.shape[1])
 
 
 # bucket kernel (csrc function bialign_<name>) -> its LAUNCHES counter
 _BATCH_COUNTER = {"batch_affine": "batch_affine",
                   "batch_nonaffine": "batch_nonaffine",
                   "cta_affine": "cta_scores", "cta_nonaffine": "cta_scores",
-                  "cta_affine_ms0": "cta_scores_ms0"}
+                  "cta_affine_ms0": "cta_scores_ms0",
+                  "conveyor_affine": "conveyor_scores",
+                  "conveyor_nonaffine": "conveyor_scores"}
+
+_CASE_TABLES = {"affine": affine_case_table, "nonaffine": nonaffine_case_table,
+                "ms0": ms0_case_table}
 
 
-def _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring, *shift):
-    """Launch bucket kernel ``name``; ``shift`` is the kernel's max_shift
-    argument, which K7 lacks.  ``ring`` (any contents) is the carry of the
-    grid kernels, allocated here if None, and what the CTA kernels start
-    their shared memory from, if given.  Returns the ``[B]`` scores."""
+@functools.lru_cache(maxsize=64)
+def _device_cases(kind: str, params: tuple, dev: torch.device):
+    """The packed case table of ``params`` on ``dev``, copied there once."""
+    return torch.from_numpy(_CASE_TABLES[kind](*params)).to(dev)
+
+
+def _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring, d_max,
+                  *more):
+    """Launch bucket kernel ``name``; ``more`` are the kernel's arguments
+    after M: max_shift (which K7 lacks), then the conveyor's lanes and T0.
+    ``ring`` (any contents) is the carry of the grid and conveyor kernels,
+    allocated here if None, and what the CTA kernels start their shared
+    memory from, if given.  ``d_max``: the largest n_b + m_b, or None for
+    the bucket's N + M.  Returns the ``[B]`` scores."""
     B, N, M = mu1p.shape[0], mu1p.shape[1] - 1, mu1p.shape[2] - 1
     dev = mu1p.device
     _check_ring(ring, ring_shape, mu1p)
     out = torch.full((B,), INVALID, dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    if ring is None and name.startswith("batch_"):
+    if ring is None and not name.startswith("cta_"):
         ring = torch.empty(ring_shape, dtype=torch.int32, device=dev)
-    cases_t = torch.from_numpy(cases).to(dev)
+    if name.startswith("cta_"):
+        extent = ()                   # a CTA loops to its own pair's n + m
+    else:
+        extent = (N + M if d_max is None else min(int(d_max), N + M),)
     _build.launch(f"bialign_{name}", dev, ring, out, mu1p, mu2p, ns, ms,
-                  cases_t, B, N, M, *shift)
+                  cases, B, N, M, *more, *extent)
     LAUNCHES[_BATCH_COUNTER[name]] += 1
     return out
 
 
+def _conveyor_plan(mu1p, route: str, lanes) -> tuple:
+    """(lanes, T0) of a bucket on the conveyor, () on another route."""
+    B, N, M = mu1p.shape[0], mu1p.shape[1] - 1, mu1p.shape[2] - 1
+    if route != "conveyor":
+        if lanes is not None:
+            raise ValueError(f"lanes= is the conveyor's, route is {route!r}")
+        return ()
+    if lanes is None:
+        lanes = conveyor_lanes(B, N)
+    if not 1 <= lanes <= max(B, 1):
+        raise ValueError(f"lanes must be in 1..{max(B, 1)}, got {lanes}")
+    return lanes, conveyor_T0(M)
+
+
 def affine_batch_scores(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
-                        route=None, ring=None) -> torch.Tensor:
+                        route=None, ring=None, lanes=None,
+                        d_max=None) -> torch.Tensor:
     """Affine scores ``[B]`` (int32) of a bucket (pallas_dp.py
     ``_affine_pallas_batched_dense`` with ``score_only=True``).  CUDA
-    tensors launch K4 (route ``"grid"``), K6 (``"cta"``) or, on ``"cta"``
-    at ``max_shift`` 0, K7; CPU tensors take the plain twin of the same
-    function.  ``route``: None for :func:`batch_route`'s choice, or a forced
-    one.  ``ring``: a carry to use, whatever it holds:
-    ``[B, 3, 9, W, W, N+1]``, or ``[B, 3, 3, N+1]`` where K7 runs."""
+    tensors launch K4 (route ``"grid"``), K8 (``"conveyor"``), K6
+    (``"cta"``) or, on ``"cta"`` at ``max_shift`` 0, K7; CPU tensors take
+    the plain twin of the same route.  ``route``: None for
+    :func:`batch_route`'s choice, or a forced one.  ``ring``: a carry to
+    use, whatever it holds: ``[B, 3, 9, W, W, N+1]``, ``[B, 3, 3, N+1]``
+    where K7 runs, ``[lanes, 3, 9, W, W, N+1]`` on the conveyor.  ``lanes``:
+    the conveyor's, None for :func:`conveyor_lanes`.  ``d_max``: the largest
+    n_b + m_b of the bucket, where the caller knows it on the host; it saves
+    the launches of diagonals no pair has (default: the bucket's N + M).
+
+    On a CUDA device the lengths' values are not checked (that would wait
+    for the device): a pair whose n_b, m_b lie outside the bucket, or beyond
+    ``d_max``, comes back as INVALID."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
-    route = batch_route(mu1p.shape[1] - 1, S, True, route)
+    route = batch_route(mu1p.shape[1] - 1, S, True, route, B=mu1p.shape[0])
+    plan = _conveyor_plan(mu1p, route, lanes)
     ms0 = route == "cta" and S == 0
+    states = (3,) if ms0 else (N_STATES, W, W)
+    ring_shape = _batch_ring_shape(mu1p, states, *plan[:1])
+    params = (beta, gamma, delta)
     if mu1p.device.type == "cpu":
         if ms0:
-            return affine_ms0_batch_scores_plain(mu1p, mu2p, ns, ms, beta,
-                                                 gamma, delta, ring=ring)
-        return affine_batch_scores_plain(mu1p, mu2p, ns, ms, S, beta, gamma,
-                                         delta, ring=ring)
+            return affine_ms0_batch_scores_plain(mu1p, mu2p, ns, ms, *params,
+                                                 ring=ring)
+        if plan:
+            return affine_conveyor_scores_plain(mu1p, mu2p, ns, ms, S,
+                                                *params, lanes=plan[0],
+                                                ring=ring)
+        return affine_batch_scores_plain(mu1p, mu2p, ns, ms, S, *params,
+                                         ring=ring)
     if ms0:
         return _batch_kernel(
-            "cta_affine_ms0", ms0_case_table(beta, gamma, delta), mu1p, mu2p,
-            ns, ms, _batch_ring_shape(mu1p, (3,)), ring)
+            "cta_affine_ms0", _device_cases("ms0", params, mu1p.device), mu1p,
+            mu2p, ns, ms, ring_shape, ring, d_max)
+    name = {"grid": "batch_affine", "cta": "cta_affine",
+            "conveyor": "conveyor_affine"}[route]
     return _batch_kernel(
-        "batch_affine" if route == "grid" else "cta_affine",
-        affine_case_table(beta, gamma, delta), mu1p, mu2p, ns, ms,
-        _batch_ring_shape(mu1p, (N_STATES, W, W)), ring, S)
+        name, _device_cases("affine", params, mu1p.device), mu1p, mu2p, ns,
+        ms, ring_shape, ring, d_max, S, *plan)
 
 
 def nonaffine_batch_scores(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
-                           route=None, ring=None) -> torch.Tensor:
+                           route=None, ring=None, lanes=None,
+                           d_max=None) -> torch.Tensor:
     """Non-affine scores ``[B]`` of a bucket (pallas_dp.py
     ``_nonaffine_pallas_batched_dense`` with ``score_only=True``): K5 on
-    route ``"grid"``, K6's non-affine form on ``"cta"``; as
-    :func:`affine_batch_scores`, ``ring`` being ``[B, 3, W, W, N+1]``."""
+    route ``"grid"``, K8's non-affine form on ``"conveyor"``, K6's on
+    ``"cta"``; as :func:`affine_batch_scores`, ``ring`` being
+    ``[B, 3, W, W, N+1]``, or ``[lanes, 3, W, W, N+1]`` on the conveyor."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
-    route = batch_route(mu1p.shape[1] - 1, S, False, route)
+    route = batch_route(mu1p.shape[1] - 1, S, False, route, B=mu1p.shape[0])
+    plan = _conveyor_plan(mu1p, route, lanes)
+    ring_shape = _batch_ring_shape(mu1p, (W, W), *plan[:1])
     if mu1p.device.type == "cpu":
+        if plan:
+            return nonaffine_conveyor_scores_plain(mu1p, mu2p, ns, ms, S,
+                                                   gamma, delta,
+                                                   lanes=plan[0], ring=ring)
         return nonaffine_batch_scores_plain(mu1p, mu2p, ns, ms, S, gamma,
                                             delta, ring=ring)
+    name = {"grid": "batch_nonaffine", "cta": "cta_nonaffine",
+            "conveyor": "conveyor_nonaffine"}[route]
     return _batch_kernel(
-        "batch_nonaffine" if route == "grid" else "cta_nonaffine",
-        nonaffine_case_table(gamma, delta), mu1p, mu2p, ns, ms,
-        _batch_ring_shape(mu1p, (W, W)), ring, S)
+        name, _device_cases("nonaffine", (gamma, delta), mu1p.device), mu1p,
+        mu2p, ns, ms, ring_shape, ring, d_max, S, *plan)
 
 
 def _batch_scores_plain(step, centre, mu1p, ns, ms, ring_shape, ring):
@@ -848,3 +990,56 @@ def affine_ms0_batch_scores_plain(mu1p, mu2p, ns, ms, beta, gamma, delta, *,
     return _batch_scores_plain(
         _ms0_step(mu1p, mu2p, beta, gamma, delta), lambda val: val, mu1p, ns,
         ms, _batch_ring_shape(mu1p, (3,)), ring)
+
+
+def _conveyor_scores_plain(step, centre, g: _ConveyorGeometry, ring_shape,
+                           ring):
+    """Run ``step`` over the conveyor's steps on one ring of three slabs
+    per lane ``[lanes, 3, ...]``: step t reads slabs (t-1) % 3 and
+    (t-2) % 3 and writes the live rows of slab t % 3; a pair's score is
+    captured on the step its row n_b stands at column m_b.  ``centre`` as
+    in :func:`_batch_scores_plain`."""
+    B, dev = g.pairs, g.mu1.device
+    _check_ring(ring, ring_shape, g.mu1)
+    if ring is None:
+        ring = torch.full(ring_shape, INVALID, dtype=torch.int32, device=dev)
+    out = torch.full((B,), INVALID, dtype=torch.int32, device=dev)
+    per_lane = -(-B // g.lanes)
+    for t in range((per_lane - 1) * g.T0 + g.n + g.m + 1 if B else 0):
+        val, live = step(t, ring[:, (t - 1) % RING], ring[:, (t - 2) % RING])
+        rows = live.reshape(g.lanes, *[1] * (val.dim() - 2), g.n + 1)
+        ring[:, t % RING] = torch.where(rows, val, ring[:, t % RING])
+        b, j, live = g.stripes(t)
+        last = (live & (g.i4 == g.ns[b]) & (j == g.ms[b]))[:, 0, 0]
+        out[b[:, 0, 0][last]] = centre(val).amax(1)[last]
+    return out
+
+
+def affine_conveyor_scores_plain(mu1p, mu2p, ns, ms, max_shift, beta, gamma,
+                                 delta, *, lanes=None,
+                                 ring=None) -> torch.Tensor:
+    """Plain twin of K8's affine form: :func:`_affine_step` with a lane
+    axis and a diagonal index per row.  ``ring``:
+    ``[lanes, 3, 9, W, W, N+1]``."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    lanes, T0 = _conveyor_plan(mu1p, "conveyor", lanes)
+    g = _ConveyorGeometry(mu1p, mu2p, ns, ms, S, lanes, T0)
+    return _conveyor_scores_plain(
+        _affine_step(g, beta, gamma, delta), lambda val: val[:, :, S, S], g,
+        _batch_ring_shape(mu1p, (N_STATES, W, W), lanes), ring)
+
+
+def nonaffine_conveyor_scores_plain(mu1p, mu2p, ns, ms, max_shift, gamma,
+                                    delta, *, lanes=None,
+                                    ring=None) -> torch.Tensor:
+    """Plain twin of K8's non-affine form: :func:`_nonaffine_step` with a
+    lane axis and a diagonal index per row.  ``ring``:
+    ``[lanes, 3, W, W, N+1]``."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    lanes, T0 = _conveyor_plan(mu1p, "conveyor", lanes)
+    g = _ConveyorGeometry(mu1p, mu2p, ns, ms, S, lanes, T0)
+    return _conveyor_scores_plain(
+        _nonaffine_step(g, gamma, delta), lambda val: val[:, None, S, S], g,
+        _batch_ring_shape(mu1p, (W, W), lanes), ring)

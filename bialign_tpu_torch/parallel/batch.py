@@ -163,26 +163,28 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _device_buckets(tables, bucket_quantum: int, device: torch.device):
-    """[(indices, (mu1p, mu2p, ns, ms) on ``device``)] per bucket."""
+    """[(indices, (mu1p, mu2p, ns, ms) on ``device``, d_max)] per bucket;
+    d_max is the bucket's largest n + m, its last diagonal."""
     out = []
     for (N, M), b in make_buckets_dense(tables, bucket_quantum).items():
         stacks = (stack_padded(b.mu1d, N, M), stack_padded(b.mu2d, N, M),
                   np.asarray(b.n, dtype=np.int32),
                   np.asarray(b.m, dtype=np.int32))
-        out.append((b.indices, tuple(_to_device(x, device) for x in stacks)))
+        out.append((b.indices, tuple(_to_device(x, device) for x in stacks),
+                    max(n + m for n, m in zip(b.n, b.m))))
     return out
 
 
-def _bucket_scores(stacks, max_shift: int, params, affine: bool,
+def _bucket_scores(stacks, d_max: int, max_shift: int, params, affine: bool,
                    engine: str) -> torch.Tensor:
     """Queue one bucket's scores on its device; ``[B]`` int32, not waited
     for."""
-    if affine:
-        fn = (cuda_dp.affine_batch_scores if engine == "cuda"
-              else cuda_dp.affine_batch_scores_plain)
-    else:
-        fn = (cuda_dp.nonaffine_batch_scores if engine == "cuda"
-              else cuda_dp.nonaffine_batch_scores_plain)
+    if engine == "cuda":
+        fn = (cuda_dp.affine_batch_scores if affine
+              else cuda_dp.nonaffine_batch_scores)
+        return fn(*stacks, max_shift, *params, d_max=d_max)
+    fn = (cuda_dp.affine_batch_scores_plain if affine
+          else cuda_dp.nonaffine_batch_scores_plain)
     return fn(*stacks, max_shift, *params)
 
 
@@ -231,9 +233,10 @@ def dispatch_score_batch(tables, max_shift: int, params, *, affine: bool,
     tables = list(tables)
     _require_int32_safe(tables, params, affine)
     parts = [
-        (indices, _bucket_scores(stacks, max_shift, tuple(params), affine,
-                                 engine))
-        for indices, stacks in _device_buckets(tables, bucket_quantum, device)
+        (indices, _bucket_scores(stacks, d_max, max_shift, tuple(params),
+                                 affine, engine))
+        for indices, stacks, d_max in _device_buckets(tables, bucket_quantum,
+                                                      device)
     ]
     return PendingScores(len(tables), parts)
 
@@ -331,9 +334,9 @@ class PreparedBatch:
     def dispatch(self) -> PendingScores:
         """Queue every bucket's kernels; nothing is copied or waited for."""
         parts = [
-            (indices, _bucket_scores(stacks, self.max_shift, self.params,
-                                     self.affine, self.engine))
-            for indices, stacks in self._buckets
+            (indices, _bucket_scores(stacks, d_max, self.max_shift,
+                                     self.params, self.affine, self.engine))
+            for indices, stacks, d_max in self._buckets
         ]
         return PendingScores(self.n_pairs, parts)
 

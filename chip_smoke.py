@@ -12,9 +12,10 @@ package.  Phases, one line each:
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card,
    on random tables at small to medium shapes (bands, last slabs and
    traces exact; the score-only kernels on a ring pre-filled with garbage).
-   The bucket kernels K4-K7 on buckets of mixed lengths at max_shift 0-3,
-   B from 1 to 64, rings of garbage, both routes forced wherever the bucket
-   fits one CTA's shared memory, "grid" equal to "cta";
+   The bucket kernels K4-K8 on buckets of mixed lengths at max_shift 0-3,
+   B from 1 to 64, rings of garbage, every route forced ("cta" wherever the
+   bucket fits one CTA's shared memory, the conveyor on one lane, on a few
+   and on one per pair), all equal;
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -27,13 +28,17 @@ package.  Phases, one line each:
    tables, affine max_shift 1: score-only against the band kernel.
    The batched-scores path through bialign_tpu_torch.parallel.score_batch
    and PreparedBatch: 64 windows of 128-508 residues of the DNA-Pol-1 pair
-   (affine max_shift 1, bucket_quantum 128; K4), every score equal to the
-   single-pair affine_score; 512 copies of the 42x42 toy protein pair in
-   one 64x64 bucket (K6), all 48500, the same at max_shift 0 (K7) and at
-   the non-affine CLI defaults (K6 non-affine, K5); four copies of the whole
-   DNA-Pol-1 pair, non-affine (K5).  Pairs/s and 4-D cells/s from host
+   (affine max_shift 1, bucket_quantum 128; buckets beyond one CTA's shared
+   memory, so the conveyor K8), every score equal to the single-pair
+   affine_score; 512 copies of the 42x42 toy protein pair in one 64x64
+   bucket (K6), all 48500, the same at max_shift 0 (K7) and at the
+   non-affine CLI defaults (K6 non-affine); four copies of the whole
+   DNA-Pol-1 pair, non-affine (K8 non-affine); and that pair as a batch of
+   one, affine (K4, 761500) and non-affine (K5).  Pairs/s and 4-D cells/s
+   from host
    tables and from resident ones, cold and warm, kernel times against the
-   twins' and against the pairs one at a time, peak memory;
+   twins' and against the pairs one at a time, the routes and the
+   conveyor's lanes against each other, peak memory;
 6. launch counts of the three paths, counted apart, each of which must be
    > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
@@ -94,7 +99,10 @@ BIG_PAIR = (4000, 3990, 1)              # README: a synthetic protein pair
 # inside each bucket (mixed_lengths); the last has 150-300 rows.
 BUCKETS = [(8, 8, 1, (0, 1, 2, 3)), (8, 8, 7, (0, 1, 2, 3)),
            (24, 40, 16, (1, 2)), (64, 64, 64, (0, 1, 2)),
-           (200, 257, 5, (0, 1))]
+           (200, 257, 5, (0, 1, 2))]
+# The conveyor's own twin walks every step in Python: it runs where the
+# steps are at most this many.
+CONVEYOR_TWIN_STEPS = 400
 # The two batches of phase 5 (bench.py:92-100, :338, :488): the toy protein
 # pair and windows of the DNA-Pol-1 pair, both with DNAPOL_FULL's costs.
 TOY = dict(seqA="RAKLPLKEKKLTATANYHPGIRYIMTGYSAKYIYSSTYARFR",
@@ -105,7 +113,7 @@ TOY_SCORE = 48500
 TOY_PAIRS = 512
 REALISTIC_PAIRS, REALISTIC_LO, REALISTIC_HI = 64, 128, 508
 REALISTIC_QUANTUM = 128
-FULL_COPIES = 4                          # the non-affine bucket of K5
+FULL_COPIES = 4                          # the non-affine bucket of K8
 
 # Peaks of one H100 SXM for the kernels' bounds: device memory 3.35 TB/s;
 # int32 on the CUDA cores 132 SMs x 64 lanes x 1.98 GHz (boost) = 16.7e12
@@ -133,6 +141,8 @@ KERNELS = {
                    "bialign_tpu/ops/pallas_dp.py:1102"),
     "cta_scores_ms0": ("bialign_tpu_torch/csrc/cta_scores_ms0.cu",
                        "bialign_tpu/ops/pallas_dp.py:1157"),
+    "conveyor_scores": ("bialign_tpu_torch/csrc/conveyor_scores.cu",
+                        "bialign_tpu/ops/pallas_dp.py:1593"),
     "walk_affine": ("bialign_tpu_torch/csrc/walk.cu",
                     "bialign_tpu/ops/device_traceback.py:85"),
     "walk_nonaffine": ("bialign_tpu_torch/csrc/walk.cu",
@@ -145,7 +155,7 @@ PATHS = {
              "walk_nonaffine"),
     "score_only": ("score_affine", "score_nonaffine", "score_affine_ms0"),
     "batch": ("batch_affine", "batch_nonaffine", "cta_scores",
-              "cta_scores_ms0"),
+              "cta_scores_ms0", "conveyor_scores"),
 }
 
 
@@ -359,7 +369,7 @@ def phase_kernels(dev, errs: dict) -> None:
     torch.cuda.synchronize()
     say("3 kernels", shapes=SHAPES, ms0_shapes=MS0_SHAPES, bands_equal=True,
         last_slabs_equal=True, traces_equal=True,
-        buckets_n_m_b_shift_form_routes=buckets, bucket_scores_equal=True,
+        buckets_n_m_b_shift_form_routes_own=buckets, bucket_scores_equal=True,
         max_abs_err=errs)
 
 
@@ -388,10 +398,16 @@ def score_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+def conveyor_steps(B, M, lanes, d_max) -> int:
+    """Launches of one bucket on the conveyor (csrc/conveyor.cuh)."""
+    return (-(-B // lanes) - 1) * cuda_dp.conveyor_T0(M) + d_max + 1
+
+
 def phase_batch_kernels(dev, errs: dict) -> list:
-    """K4-K7 against their plain twins on buckets of mixed lengths, on
-    rings of garbage, both routes forced on every bucket that fits one
-    CTA's shared memory."""
+    """K4-K8 against their plain twins on buckets of mixed lengths, on
+    rings of garbage, every route forced: "cta" on every bucket that fits
+    one CTA's shared memory, the conveyor on one lane, a few and one per
+    pair."""
     beta, gamma, delta = AFFINE_PARAMS
     g2, d2 = NONAFFINE_PARAMS
     ran = []
@@ -403,13 +419,16 @@ def phase_batch_kernels(dev, errs: dict) -> list:
                                    dev)
             forms = (
                 ("affine", cuda_dp.affine_batch_scores,
-                 cuda_dp.affine_batch_scores_plain, (beta, gamma, delta),
+                 cuda_dp.affine_batch_scores_plain,
+                 cuda_dp.affine_conveyor_scores_plain, (beta, gamma, delta),
                  (9, W, W), "batch_affine"),
                 ("nonaffine", cuda_dp.nonaffine_batch_scores,
-                 cuda_dp.nonaffine_batch_scores_plain, (g2, d2), (W, W),
+                 cuda_dp.nonaffine_batch_scores_plain,
+                 cuda_dp.nonaffine_conveyor_scores_plain, (g2, d2), (W, W),
                  "batch_nonaffine"),
             )
-            for form, kern, plain, params, cells, grid_name in forms:
+            for form, kern, plain, conveyor_plain, params, cells, \
+                    grid_name in forms:
                 want = plain(*stacks, S, *params)
                 got = kern(*stacks, S, *params, route="grid",
                            ring=garbage_ring(rng, (B, 3, *cells, N + 1), dev))
@@ -418,8 +437,25 @@ def phase_batch_kernels(dev, errs: dict) -> list:
                 errs[grid_name] = max(errs[grid_name], e)
                 routes = ["grid"]
                 affine = form == "affine"
-                if (cuda_dp.cta_shared_bytes(N, S, affine)
-                        <= cuda_dp.CTA_SHARED_LIMIT):
+
+                for lanes in sorted({1, min(3, B), B}):
+                    routes.append(f"conveyor/{lanes}")
+                    belt = kern(*stacks, S, *params, route="conveyor",
+                                lanes=lanes, ring=garbage_ring(
+                                    rng, (lanes, 3, *cells, N + 1), dev))
+                    e = score_err(belt, want)
+                    if conveyor_steps(B, M, lanes, N + M) \
+                            <= CONVEYOR_TWIN_STEPS:
+                        e = max(e, score_err(belt, conveyor_plain(
+                            *stacks, S, *params, lanes=lanes)))
+                        routes[-1] += "+twin"
+                    check(e == 0, f"conveyor_scores {form} {N, M, B, S} on "
+                          f"{lanes} lanes: max |err| {e}")
+                    errs["conveyor_scores"] = max(errs["conveyor_scores"], e)
+
+                fits = (cuda_dp.cta_shared_bytes(N, S, affine)
+                        <= cuda_dp.CTA_SHARED_LIMIT)
+                if fits:
                     routes.append("cta")
                     ms0 = affine and S == 0                     # K7
                     name = "cta_scores_ms0" if ms0 else "cta_scores"
@@ -437,9 +473,12 @@ def phase_batch_kernels(dev, errs: dict) -> list:
                             *stacks, beta, gamma, delta)
                         check(score_err(cta, twin) == 0,
                               f"cta_scores_ms0 against its twin {N, M, B}")
-                check(cuda_dp.batch_route(N, S, affine) == routes[-1],
-                      f"route of {N, S, form}")
-                ran.append([N, M, B, S, form, routes])
+                own = ("cta" if fits else "conveyor" if B >= 2 else "grid")
+                check(cuda_dp.batch_route(N, S, affine, B=B) == own,
+                      f"route of {N, S, B, form}")
+                check(score_err(kern(*stacks, S, *params), want) == 0,
+                      f"{form} {N, M, B, S} on its own route {own}")
+                ran.append([N, M, B, S, form, routes, own])
     torch.cuda.synchronize()
     return ran
 
@@ -676,7 +715,7 @@ def phase_batch_main(mol) -> tuple[dict, dict]:
              DNAPOL_FULL["shift_cost"])
     found, batches = {}, {}
 
-    # realistic: K4
+    # realistic: buckets of 129-513 rows and 17-28 pairs, so K8
     pairs = [host_tables(w, DNAPOL_FULL) for w in realistic_windows(mol, SEED)]
     tables = [p[:2] for p in pairs]
     lengths = [p[2] for p in pairs]
@@ -695,7 +734,7 @@ def phase_batch_main(mol) -> tuple[dict, dict]:
     batches["realistic"] = (tables, lengths, 1, costs, True,
                             REALISTIC_QUANTUM)
 
-    # toy b512: K6 (affine), K7 (max_shift 0), K6 non-affine and K5
+    # toy b512: K6 (affine), K7 (max_shift 0), K6 non-affine
     mu1, mu2, nm = host_tables(TOY, DNAPOL_FULL)
     tables, lengths = [(mu1, mu2)] * TOY_PAIRS, [nm] * TOY_PAIRS
     scores, report = batch_rates(tables, lengths, 1, costs, True, 64)
@@ -724,7 +763,8 @@ def phase_batch_main(mol) -> tuple[dict, dict]:
     batches["toy_b512_nonaffine"] = (tables, lengths, S, na, False, 64)
 
     # the whole DNA-Pol-1 pair, non-affine, four copies: a bucket of 1025
-    # rows, beyond one CTA's shared memory, so K5
+    # rows, beyond one CTA's shared memory, so K8 in its non-affine form;
+    # and a batch of that one pair, which K5 takes
     seqA, strA, seqB, strB = mol
     full = dict(seqA=seqA, seqB=seqB, strA=strA, strB=strB)
     mu1, mu2, nm = host_tables(full, DNAPOL_CLI_DEFAULTS)
@@ -736,73 +776,138 @@ def phase_batch_main(mol) -> tuple[dict, dict]:
     found["dnapol_nonaffine_x4"] = dict(report, all_scores=want)
     batches["dnapol_nonaffine_x4"] = (tables, lengths, S, na, False,
                                       REALISTIC_QUANTUM)
+    scores, report = batch_rates(tables[:1], lengths[:1], S, na, False,
+                                 REALISTIC_QUANTUM)
+    check(scores.tolist() == [want], f"DNA-Pol non-affine {scores} != {want}")
+    found["dnapol_nonaffine_x1"] = dict(report, all_scores=want)
+
+    # the same pair, affine, as a batch of one: K4, and the golden score
+    mu1, mu2, nm = host_tables(full, DNAPOL_FULL)
+    scores, report = batch_rates([(mu1, mu2)], [nm], 1, costs, True,
+                                 REALISTIC_QUANTUM)
+    check(scores.tolist() == [761500], f"DNA-Pol affine batch of one {scores}")
+    found["dnapol_affine_x1"] = dict(report, all_scores=761500)
     return found, batches
 
 
-# kernel of the kernels line -> (batch of phase_batch_main, cases, states)
-BATCH_TIMED = {"batch_affine": ("realistic", 15, 9),
-               "cta_scores": ("toy_b512", 15, 9),
-               "cta_scores_ms0": ("toy_b512_ms0", 3, 3),
-               "batch_nonaffine": ("dnapol_nonaffine_x4", 13, 1)}
+# kernel of the kernels line -> (batch of phase_batch_main, the route to
+# force or None for the path's own, cases, states)
+BATCH_TIMED = {"conveyor_scores": ("realistic", None, 15, 9),
+               "batch_affine": ("realistic", "grid", 15, 9),
+               "cta_scores": ("toy_b512", None, 15, 9),
+               "cta_scores_ms0": ("toy_b512_ms0", None, 3, 3),
+               "batch_nonaffine": ("dnapol_nonaffine_x4", "grid", 13, 1)}
+# the second form of a kernel on the main path's shape, held to its twin and
+# timed like the first: name in the report -> (kernel, batch, cases, states)
+BATCH_TIMED_FORMS = {
+    "cta_scores_nonaffine": ("cta_scores", "toy_b512_nonaffine", 13, 1),
+    "conveyor_scores_nonaffine": ("conveyor_scores", "dnapol_nonaffine_x4",
+                                  13, 1)}
+
+
+def routed(batch, route=None, lanes_of=None):
+    """(dispatch, buckets) of one batch of phase_batch_main with its tables
+    resident: ``dispatch()`` queues every bucket on ``route`` (None: the
+    path's own), the conveyor on ``lanes_of(B)`` lanes (None: its own), and
+    returns the PendingScores."""
+    tables, _lengths, S, params, affine, quantum = batch
+    buckets = pbatch._device_buckets(tables, quantum, torch.device("cuda"))
+    kern = (cuda_dp.affine_batch_scores if affine
+            else cuda_dp.nonaffine_batch_scores)
+
+    def dispatch():
+        return pbatch.PendingScores(len(tables), [
+            (idx, kern(*st, S, *params, route=route, d_max=d_max,
+                       lanes=lanes_of and lanes_of(st[0].shape[0])))
+            for idx, st, d_max in buckets])
+    return dispatch, buckets
 
 
 def phase_batch_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
     """The bucket kernels against their plain twins on the batches of the
-    main path (not counted): PreparedBatch.dispatch() with the tables
-    resident, CUDA events around all its buckets; the twins through
+    main path (not counted): every bucket's launches with the tables
+    resident, CUDA events around all of them; the twins through
     engine="torch" on the card.  Returns (times, bounds, more)."""
-    times, bounds, more = {}, {}, {}
-    for name, (batch, cases, states) in BATCH_TIMED.items():
+    times, bounds, more, twins = {}, {}, {}, {}
+    timed = {name: (name, *spec) for name, spec in BATCH_TIMED.items()}
+    timed.update({k: (v[0], v[1], None, *v[2:])
+                  for k, v in BATCH_TIMED_FORMS.items()})
+    for label, (name, batch, route, cases, states) in timed.items():
         tables, lengths, S, params, affine, quantum = batches[batch]
-        kw = dict(affine=affine, bucket_quantum=quantum)
-        prep = pbatch.PreparedBatch(tables, S, params, **kw)
+        dispatch, buckets = routed(batches[batch], route)
         before = counts()[name]
-        prep.scores()                                         # warm-up
+        dispatch()                                            # warm-up
         per_call = counts()[name] - before
-        check(per_call == len(prep._buckets),
+        check(per_call == len(buckets),
               f"{batch} ran {per_call} launches of {name}")
-        ms_k, pending = cuda_ms(prep.dispatch, reps=5)
-        twin = pbatch.PreparedBatch(tables, S, params, engine="torch", **kw)
-        ms_p, plain = cuda_ms(twin.dispatch, reps=1)
-        e = int(np.abs(pending.get() - plain.get()).max())
-        check(e == 0, f"{name} on {batch}: max |err| {e} against the twin")
+        ms_k, pending = cuda_ms(dispatch, reps=5)
+        if batch not in twins:
+            twin = pbatch.PreparedBatch(tables, S, params, engine="torch",
+                                        affine=affine, bucket_quantum=quantum)
+            ms_p, plain = cuda_ms(twin.dispatch, reps=1)
+            twins[batch] = (ms_p, plain.get())
+        ms_p, plain = twins[batch]
+        e = int(np.abs(pending.get() - plain).max())
+        check(e == 0, f"{label} on {batch}: max |err| {e} against the twin")
         errs[name] = max(errs[name], e)
-        times[name] = (ms_k, ms_p)
-        bounds[name] = batch_bound(lengths, S, cases, states)
-        diagonals = sum(st[0].shape[1] + st[0].shape[2] - 1
-                        for _idx, st in prep._buckets)
-        more[name] = dict(
-            batch=batch, wrapper_calls_per_run=per_call,
-            kernel_launches_per_run=(diagonals if name.startswith("batch_")
-                                     else per_call))
+        launches = {
+            "batch": sum(d_max + 1 for _i, _st, d_max in buckets),
+            "conve": sum(conveyor_steps(
+                st[0].shape[0], st[0].shape[2] - 1,
+                cuda_dp.conveyor_lanes(st[0].shape[0], st[0].shape[1] - 1),
+                d_max) for _i, st, d_max in buckets),
+            "cta_s": per_call}[name[:5]]
+        found = dict(batch=batch, wrapper_calls_per_run=per_call,
+                     kernel_launches_per_run=launches)
+        if label == name:
+            times[name] = (ms_k, ms_p)
+            bounds[name] = batch_bound(lengths, S, cases, states)
+            more[name] = found
+        else:
+            b_ms, b_by = batch_bound(lengths, S, cases, states)
+            more[label] = dict(found, kernel_ms=ms_k, plain_ms=ms_p,
+                               bound_ms=b_ms, bound_by=b_by, max_abs_err=e)
 
-    # the other kernel on the same bucket, route forced: K4 and K5 on the
-    # toy buckets, in turns with the CTA kernels
-    for batch, grid_name in (("toy_b512", "batch_affine"),
-                             ("toy_b512_nonaffine", "batch_nonaffine")):
-        tables, lengths, S, params, affine, quantum = batches[batch]
-        (_idx, stacks), = pbatch._device_buckets(tables, quantum,
-                                                 torch.device("cuda"))
-        kern = (cuda_dp.affine_batch_scores if affine
-                else cuda_dp.nonaffine_batch_scores)
-        runs = {r: (lambda r=r: kern(*stacks, S, *params, route=r))
-                for r in ("cta", "grid")}
-        found = {r: [] for r in runs}
-        runs["cta"](), runs["grid"]()                         # warm-up
-        for route in ("cta", "grid", "grid", "cta"):
-            ms, got = cuda_ms(runs[route], reps=3)
+    # the routes against each other on the same buckets, in turns
+    for batch, routes in (("toy_b512", ("cta", "grid", "conveyor")),
+                          ("toy_b512_nonaffine", ("cta", "grid", "conveyor")),
+                          ("realistic", ("conveyor", "grid")),
+                          ("dnapol_nonaffine_x4", ("conveyor", "grid"))):
+        runs = {r: routed(batches[batch], r)[0] for r in routes}
+        found = {r: [] for r in routes}
+        want = runs[routes[0]]().get()                        # warm-up
+        for route in (*routes, *reversed(routes)):
+            runs[route]()
+            ms, pending = cuda_ms(runs[route], reps=3)
             found[route].append(ms)
-            check(bool((got == got[0]).all()), f"{batch} route {route}")
-        check(torch.equal(runs["cta"](), runs["grid"]()),
-              f"{batch}: grid != cta")
+            check((pending.get() == want).all(),
+                  f"{batch}: {route} != {routes[0]}")
         more[f"{batch}_routes_ms"] = found
+
+    # the conveyor's lanes on the realistic buckets: a lane per pair (its
+    # own choice there), then half, a quarter and one lane for the bucket
+    want = routed(batches["realistic"])[0]().get()
+    lanes_ms = {}
+    for share in (1, 2, 4, None):
+        lanes_of = (lambda B: 1) if share is None else \
+            (lambda B, share=share: -(-B // share))
+        run, buckets = routed(batches["realistic"], "conveyor", lanes_of)
+        run()
+        ms, pending = cuda_ms(run, reps=1)
+        check((pending.get() == want).all(), f"conveyor on 1/{share} lanes")
+        lanes_ms["1" if share is None else f"B/{share}"] = dict(
+            ms=ms, lanes=[lanes_of(st[0].shape[0]) for _i, st, _d in buckets],
+            launches=sum(conveyor_steps(
+                st[0].shape[0], st[0].shape[2] - 1, lanes_of(st[0].shape[0]),
+                d_max) for _i, st, d_max in buckets))
+    more["conveyor_lanes_realistic"] = lanes_ms
 
     # K6 alone on 1 pair, then one, three and four CTAs per SM's worth of
     # pairs: a CTA's microseconds per diagonal with the carry in shared
     # memory, and how the pairs of a bucket share the card
     tables, lengths, S, params, _affine, quantum = batches["toy_b512"]
-    (_idx, stacks), = pbatch._device_buckets(tables, quantum,
-                                             torch.device("cuda"))
+    (_idx, stacks, _d_max), = pbatch._device_buckets(tables, quantum,
+                                                     torch.device("cuda"))
     diagonals = sum(lengths[0]) + 1
     scaling = {}
     for B in (1, 132, 396, 512):
@@ -1024,7 +1129,8 @@ def profiled_batch(run, trace_path: Path) -> dict:
     """One batch ``run()`` under torch.profiler: the summary of
     :func:`traced` and the bucket kernels' count, mean time and gaps."""
     summary, dev = traced(run, trace_path)
-    spans, dur, gaps = dp_kernel_stats(dev, ("batch_diag", "cta_scores"))
+    spans, dur, gaps = dp_kernel_stats(dev, ("batch_diag", "cta_scores",
+                                            "conveyor_step"))
     check(len(spans) > 0, "no bucket kernel traced")
     return dict(
         summary,

@@ -1,8 +1,9 @@
 """The port's batched-scores path (plain twins on the CPU) against the JAX
 package: ``parallel.batch.score_batch`` with ``engine="pallas"`` (K4-K7 in
 interpret mode, as tests/test_batch.py runs them) and ``engine="xla"`` (the
-vmapped scan), the batched Pallas entry points on the same stacks, and the
-numpy oracle.  Scores are int32 DP values, compared for equality."""
+vmapped scan), the batched Pallas entry points on the same stacks, the
+conveyor K8 as tests/test_conveyor.py runs it, and the numpy oracle.  Scores
+are int32 DP values, compared for equality."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,9 @@ import jax.numpy as jnp
 from bialign_tpu.ops import pallas_dp
 from bialign_tpu.parallel import batch as JB
 from test_batch import SIZES, _oracle_scores, _rand_pair
+from test_conveyor import _conveyor_scores as jax_conveyor_scores
+from test_conveyor import _oracle as conveyor_oracle
+from test_conveyor import _rand_pair as conveyor_pair
 
 from bialign_tpu_torch.convert import stacks_from_jax, tables_to_torch
 from bialign_tpu_torch.ops import cuda_dp
@@ -261,6 +265,20 @@ def test_dispatch_returns_pending_scores():
     assert (pending.get() == _oracle(pairs, 2, False)).all()
 
 
+def test_buckets_carry_their_last_diagonal():
+    """Each device bucket knows its largest n + m on the host, which bounds
+    the kernels' launches; a wrapper on CPU tensors takes it and gives the
+    twin's scores."""
+    pairs = _pairs()
+    buckets = TB._device_buckets(pairs, 8, torch.device("cpu"))
+    assert len(buckets) == 3
+    for indices, stacks, d_max in buckets:
+        assert d_max == int((stacks[2] + stacks[3]).max())
+        assert d_max == max(sum(pairs[i][0].shape) - 2 for i in indices)
+        got = cuda_dp.affine_batch_scores(*stacks, 1, *AFFINE, d_max=d_max)
+        assert (got == _twin("affine", stacks, 1)).all()
+
+
 def test_int32_guard_raises_value_error():
     """tests/test_batch.py:301-316: unsafe magnitudes raise, not wrap."""
     mu = np.full((9, 9), 2_000_000, dtype=np.int32)
@@ -306,25 +324,129 @@ def test_defaults_are_the_cuda_engine_on_the_card(monkeypatch):
 @pytest.mark.parametrize("N,S,affine,nbytes,route", [
     (64, 1, True, 5400 + 63180, "cta"),
     (64, 2, True, 5400 + 175500, "cta"),
-    (64, 3, True, 5400 + 343980, "grid"),
+    (64, 3, True, 5400 + 343980, "conveyor"),
     (127, 1, True, 5400 + 124416, "cta"),
-    (127, 2, True, 5400 + 345600, "grid"),
-    (512, 1, True, 5400 + 498636, "grid"),
+    (127, 2, True, 5400 + 345600, "conveyor"),
+    (512, 1, True, 5400 + 498636, "conveyor"),
     (512, 0, True, 84 + 18468, "cta"),          # K7: three live states
     (512, 2, False, 520 + 153900, "cta"),
-    (1024, 2, False, 520 + 307500, "grid"),
+    (1024, 2, False, 520 + 307500, "conveyor"),
 ])
 def test_route_follows_shared_memory(N, S, affine, nbytes, route):
     """The route rule: the case table and three slabs of N+1 rows against
-    the 227 KB of one CTA."""
+    the 227 KB of one CTA; beyond it the conveyor for two pairs or more,
+    the per-diagonal kernel for one."""
     assert cuda_dp.cta_shared_bytes(N, S, affine) == nbytes
-    assert cuda_dp.batch_route(N, S, affine) == route
-    assert cuda_dp.batch_route(N, S, affine, "grid") == "grid"
+    assert cuda_dp.batch_route(N, S, affine, B=17) == route
+    assert cuda_dp.batch_route(N, S, affine, B=2) == route
+    assert cuda_dp.batch_route(N, S, affine, B=1) == \
+        ("cta" if route == "cta" else "grid")
+    for forced in ("grid", "conveyor"):
+        assert cuda_dp.batch_route(N, S, affine, forced, B=1) == forced
     if route == "cta":
-        assert cuda_dp.batch_route(N, S, affine, "cta") == "cta"
+        assert cuda_dp.batch_route(N, S, affine, "cta", B=17) == "cta"
     else:
         with pytest.raises(ValueError, match="shared memory"):
-            cuda_dp.batch_route(N, S, affine, "cta")
+            cuda_dp.batch_route(N, S, affine, "cta", B=17)
+
+
+@pytest.mark.parametrize("B,N,lanes", [(1, 512, 1), (28, 512, 28),
+                                       (2048, 512, 422), (2048, 1024, 234),
+                                       (5000, 192, 1056)])
+def test_conveyor_lanes_fill_the_card_once(B, N, lanes):
+    assert cuda_dp.conveyor_lanes(B, N) == lanes
+    assert cuda_dp.conveyor_T0(N) == N + 3
+
+
+def _conveyor_twin(kind, stacks, S, lanes, ring=None):
+    if kind == "affine":
+        return cuda_dp.affine_conveyor_scores_plain(*stacks, S, *AFFINE,
+                                                    lanes=lanes, ring=ring)
+    return cuda_dp.nonaffine_conveyor_scores_plain(*stacks, S, *NONAFFINE,
+                                                   lanes=lanes, ring=ring)
+
+
+@pytest.mark.parametrize("kind,S", [("affine", 0), ("affine", 1),
+                                    ("affine", 2), ("nonaffine", 0),
+                                    ("nonaffine", 1), ("nonaffine", 2)])
+def test_conveyor_twin_on_garbage_rings_matches_per_pair_twin(kind, S):
+    """The conveyor's geometry against each pair alone: one lane for all
+    eight pairs, lanes with several pairs and an uneven last round, and a
+    lane per pair; neither the pair ahead, the pair behind nor the rings'
+    contents change a score."""
+    pairs = _pairs(3 + S, MIXED)
+    stacks = _stacks(pairs, 8, 8)
+    want = [_pair_plain(kind, mu1, mu2, S) for mu1, mu2 in pairs]
+    for lanes in (1, 3, 8):
+        ring = _garbage(S + lanes, _ring_shape(kind, lanes, S, 9))
+        assert _conveyor_twin(kind, stacks, S, lanes, ring).tolist() == want
+    assert _conveyor_twin(kind, stacks, S, 2).tolist() == want
+    assert _conveyor_twin(kind, stacks, S, None).tolist() == want
+
+
+@pytest.mark.parametrize("kind,S,seed,count,hi", [
+    ("affine", 0, 10, 5, 20), ("affine", 1, 11, 5, 20),
+    ("affine", 2, 12, 5, 20), ("nonaffine", 1, 21, 4, 18),
+    ("nonaffine", 2, 22, 4, 18)])
+def test_conveyor_matches_pallas_conveyor_and_oracle(kind, S, seed, count, hi):
+    """The ragged buckets of tests/test_conveyor.py:65-80 through the JAX
+    conveyor (K8 in interpret mode), the oracle, the port's conveyor twin on
+    one and on two lanes, and the wrapper with the route forced."""
+    affine = kind == "affine"
+    params = AFFINE if affine else NONAFFINE
+    rng = np.random.default_rng(seed)
+    pairs = [conveyor_pair(rng, rng.integers(6, hi), rng.integers(6, hi))
+             for _ in range(count)]
+    want = conveyor_oracle(pairs, S, params, affine)
+    assert (jax_conveyor_scores(pairs, S, params, affine) == want).all()
+    stacks = _stacks(pairs, 24, 24)
+    for lanes in (1, 2):
+        assert (_conveyor_twin(kind, stacks, S, lanes).numpy() == want).all()
+    wrapper = (cuda_dp.affine_batch_scores if affine
+               else cuda_dp.nonaffine_batch_scores)
+    got = wrapper(*stacks, S, *params, route="conveyor", lanes=2,
+                  ring=_garbage(seed, _ring_shape(kind, 2, S, 25)))
+    assert got.dtype == torch.int32 and (got.numpy() == want).all()
+    assert (got == _twin(kind, stacks, S)).all()
+
+
+def test_conveyor_equal_rows_far_apart_columns():
+    """The bucket of test_conveyor_capture_collision_regression: two pairs
+    of equal n whose m differ by almost the bucket's M, one behind the other
+    on one lane."""
+    rng = np.random.default_rng(40)
+    pairs = [conveyor_pair(rng, 150, 64), conveyor_pair(rng, 150, 3)]
+    want = [_pair_plain("affine", mu1, mu2, 1) for mu1, mu2 in pairs]
+    stacks = _stacks(pairs, 152, 64)
+    assert _conveyor_twin("affine", stacks, 1, 1).tolist() == want
+
+
+def test_wrapper_takes_the_conveyor_beyond_shared_memory():
+    """A (64, 8) bucket at max_shift 3 does not fit one CTA: with no route
+    forced the wrapper takes the conveyor for its three pairs and the
+    per-diagonal form for one pair."""
+    pairs = _pairs(5, [(64, 3), (9, 8), (40, 5)])
+    stacks = _stacks(pairs, 64, 8)
+    want = [_pair_plain("affine", mu1, mu2, 3) for mu1, mu2 in pairs]
+    assert cuda_dp.batch_route(64, 3, True, B=3) == "conveyor"
+    ring = _garbage(8, _ring_shape("affine", 3, 3, 65))
+    assert cuda_dp.affine_batch_scores(*stacks, 3, *AFFINE,
+                                       ring=ring).tolist() == want
+    with pytest.raises(ValueError, match="ring"):        # a ring per lane
+        cuda_dp.affine_batch_scores(*stacks, 3, *AFFINE, lanes=2, ring=ring)
+    one = tuple(t[:1].contiguous() for t in stacks)
+    assert cuda_dp.affine_batch_scores(*one, 3, *AFFINE).tolist() == want[:1]
+
+
+def test_conveyor_lanes_are_checked():
+    stacks = _stacks(_pairs(1, [(3, 4), (5, 5)]), 8, 8)
+    for lanes in (0, 3):
+        with pytest.raises(ValueError, match="lanes"):
+            cuda_dp.affine_batch_scores(*stacks, 1, *AFFINE, route="conveyor",
+                                        lanes=lanes)
+    with pytest.raises(ValueError, match="lanes"):
+        cuda_dp.nonaffine_batch_scores(*stacks, 1, *NONAFFINE, route="grid",
+                                       lanes=1)
 
 
 def test_forced_cta_beyond_shared_memory_raises():
