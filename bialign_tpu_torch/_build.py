@@ -44,6 +44,9 @@ _SIGNATURES = {
     # (d_max,) device, stream
     "bialign_batch_affine": [_P] * 7 + [_I] * 6 + [_P],
     "bialign_batch_nonaffine": [_P] * 7 + [_I] * 6 + [_P],
+    # bands in place of rings: the same arguments
+    "bialign_batch_fill_affine": [_P] * 7 + [_I] * 6 + [_P],
+    "bialign_batch_fill_nonaffine": [_P] * 7 + [_I] * 6 + [_P],
     "bialign_conveyor_affine": [_P] * 7 + [_I] * 8 + [_P],
     "bialign_conveyor_nonaffine": [_P] * 7 + [_I] * 8 + [_P],
     "bialign_cta_affine": [_P] * 7 + [_I] * 5 + [_P],
@@ -51,6 +54,9 @@ _SIGNATURES = {
     "bialign_cta_affine_ms0": [_P] * 7 + [_I] * 4 + [_P],
     "bialign_walk_affine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "bialign_walk_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    # bands, mu1, mu2, cases, ns, ms, B, N, M, D, S, out, lmax, device, stream
+    "bialign_walk_affine_batch": [_P] * 6 + [_I] * 5 + [_P, _I, _I, _P],
+    "bialign_walk_nonaffine_batch": [_P] * 6 + [_I] * 5 + [_P, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -4,7 +4,8 @@ The DP has no learned parameters: its "weights" are the dense score tables
 ``mu1``/``mu2`` built on the host (``scoring/tables.py`` of either
 package), and its state is the filled band, or in score-only mode the last
 diagonal's slab.  A batch's inputs are its buckets' padded stacks of
-tables.  All cross as numpy arrays.
+tables, or of residue and structure codes; the state of a batch of
+alignments is the chunk band of its pairs.  All cross as numpy arrays.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.band import DeviceBand
+from .ops.band import DeviceBand, DeviceBatchBand
 from .ops.cases import N_STATES
 
 _I32 = np.iinfo(np.int32)
@@ -103,3 +104,63 @@ def stacks_from_jax(mu1p, mu2p, ns, ms, device):
             f"ns {lengths[0].shape}, ms {lengths[1].shape}")
     return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
                  .to(device) for a in (*stacks, *lengths))
+
+
+def batch_band_from_jax(ys_folded, ns, ms, N: int, max_shift: int,
+                        affine: bool) -> DeviceBatchBand:
+    """The chunk band of the JAX batched fills in band mode, as a port
+    chunk band on the CPU.
+
+    ``ys_folded`` is the output of ``pallas_dp._affine_pallas_batched_dense``
+    / ``_nonaffine_pallas_batched_dense`` with ``score_only=False``: the
+    folded layout ``[B, D_pad, (9 *) W * W * SUB, 128]`` whose second-last
+    axis runs over ((q,) sk, sl, i // 128) and whose last is i % 128.  It is
+    unfolded and cropped to the port's ``[B, D_pad, (9,) W, W, N+1]``; all
+    D_pad diagonals stay.  ``ns``, ``ms``: the pairs' lengths ``[B]``.
+    Cells that are not genuine keep the JAX kernel's values, which nothing
+    reads.
+    """
+    ys = np.asarray(ys_folded)
+    W = 2 * max_shift + 1
+    states = (N_STATES,) if affine else ()
+    cells = int(np.prod(states + (W, W)))
+    if ys.ndim != 4 or ys.shape[2] % cells or ys.shape[2] // cells \
+            * ys.shape[3] < N + 1:
+        raise ValueError(f"JAX chunk band {ys.shape} does not fold "
+                         f"{states + (W, W)} cells over >= {N + 1} rows")
+    B, D = ys.shape[:2]
+    ys = ys.reshape(B, D, *states, W, W, -1)[..., :N + 1]
+    lengths = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+               for a in (ns, ms)]
+    if any(t.shape != (B,) for t in lengths):
+        raise ValueError(f"ns {tuple(lengths[0].shape)}, ms "
+                         f"{tuple(lengths[1].shape)} for a band of {B} pairs")
+    return DeviceBatchBand(
+        ys=torch.from_numpy(np.ascontiguousarray(ys, np.int32)),
+        ns=lengths[0], ms=lengths[1], max_shift=max_shift, affine=affine)
+
+
+def code_stacks_from_jax(ca, cb, sa, sb, ns, ms, B: int, N: int, device):
+    """What the JAX codes path ships to the device for one bucket
+    (``parallel.batch._code_buckets``), as the port's tensors on ``device``.
+
+    ``ca``, ``sa``: uint8 ``[Bp, Ppad]`` with the rows padded to the TPU's
+    lane width and the batch axis to a multiple of PACK; ``cb``, ``sb``:
+    ``[Bp, M+1]``; ``ns``, ``ms``: ``[Bp]``.  Both paddings are stripped:
+    returns ``(ca [B, N+1], cb [B, M+1], sa, sb, ns [B], ms)``, the
+    arguments of :func:`bialign_tpu_torch.ops.cuda_dp.mu_planes_from_codes`
+    after the table.
+    """
+    arrays = [np.asarray(a) for a in (ca, cb, sa, sb, ns, ms)]
+    for name, a in zip(("ca", "cb", "sa", "sb"), arrays):
+        if a.ndim != 2 or a.dtype != np.uint8 or a.shape[0] < B:
+            raise ValueError(f"{name} must be a uint8 [>= {B}, width] "
+                             f"array, got {a.dtype} {a.shape}")
+    if arrays[0].shape[1] < N + 1 or arrays[2].shape[1] < N + 1:
+        raise ValueError(f"ca {arrays[0].shape}, sa {arrays[2].shape} hold "
+                         f"fewer than {N + 1} rows")
+    ca, cb, sa, sb = (a[:B] for a in arrays[:4])
+    out = [ca[:, :N + 1], cb, sa[:, :N + 1], sb]
+    out += [np.asarray(a[:B], dtype=np.int32) for a in arrays[4:]]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in out)

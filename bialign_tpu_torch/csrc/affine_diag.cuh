@@ -3,7 +3,7 @@
 // band, score and batch cannot drift apart:
 //   csrc/fill_affine.cu (K1, band mode) and csrc/score_affine.cu (K1,
 //   score-only mode) through the per-diagonal kernel `affine_diag` below;
-//   csrc/batch_affine.cu (K4, score mode) through csrc/batch_diag.cuh;
+//   csrc/batch_affine.cu (K4, both modes) through csrc/batch_diag.cuh;
 //   csrc/cta_scores.cu (K6, affine form) through csrc/cta_scores.cuh;
 //   csrc/conveyor_scores.cu (K8, affine form) through csrc/conveyor.cuh.
 //

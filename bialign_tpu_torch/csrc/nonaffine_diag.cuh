@@ -3,7 +3,7 @@
 // instantiates:
 //   csrc/fill_nonaffine.cu (K2, band mode) and csrc/score_nonaffine.cu (K2,
 //   score-only mode) through the per-diagonal kernel `nonaffine_diag` below;
-//   csrc/batch_nonaffine.cu (K5, score mode) through csrc/batch_diag.cuh;
+//   csrc/batch_nonaffine.cu (K5, both modes) through csrc/batch_diag.cuh;
 //   csrc/cta_scores.cu (K6, non-affine form) through csrc/cta_scores.cuh;
 //   csrc/conveyor_scores.cu (K8, non-affine form) through csrc/conveyor.cuh.
 //

@@ -1,13 +1,14 @@
-"""Band fills and band-free scores of one pair, and the scores of a bucket
-of pairs: CUDA kernel wrappers and their plain twins.
+"""Band fills and band-free scores of one pair, and the scores or the bands
+of a bucket of pairs: CUDA kernel wrappers and their plain twins.
 
 Counterpart of :mod:`bialign_tpu.ops.pallas_dp`: the single-pair kernels K1
 ``_affine_kernel`` and K2 ``_nonaffine_kernel`` in band mode and in
 score-only mode and K3 ``_affine_ms0_kernel`` (affine, ``max_shift`` 0,
-score only); and the batched kernels in score mode, K4
-``_affine_batched_kernel``, K5 ``_nonaffine_batched_kernel``, K6
-``_packed_batched_kernel``, K7 ``_packed_ms0_kernel`` and K8
-``_conveyor_kernel``, with the routing of ``_route_batched``.
+score only); the batched kernels K4 ``_affine_batched_kernel`` and K5
+``_nonaffine_batched_kernel`` in score mode and in band mode, and in score
+mode K6 ``_packed_batched_kernel``, K7 ``_packed_ms0_kernel`` and K8
+``_conveyor_kernel``, with the routing of ``_route_batched``; and
+``_mu_planes_from_codes``, the tables of a bucket built on the device.
 
 * ``fill_affine_device`` / ``fill_nonaffine_device`` produce a
   :class:`~bialign_tpu_torch.ops.band.DeviceBand` in the layout
@@ -31,6 +32,14 @@ score only); and the batched kernels in score mode, K4
   (``csrc/conveyor_scores.cu`` K8); ``"grid"``, one launch per bucket
   diagonal over all pairs, each on its own ring in device memory
   (``csrc/batch_affine.cu`` K4, ``csrc/batch_nonaffine.cu`` K5).
+* ``affine_batch_bands`` / ``nonaffine_batch_bands`` return the bands of a
+  bucket's pairs, a :class:`~bialign_tpu_torch.ops.band.DeviceBatchBand`
+  ``[B, D, (9,) W, W, N+1]``, with the scores: K4 and K5 in band mode, the
+  per-diagonal kernels writing every diagonal into the pair's band, which
+  the batched walks of :mod:`~bialign_tpu_torch.ops.device_traceback` read.
+* :func:`mu_planes_from_codes` builds a bucket's stacks from the pairs'
+  residue and structure codes and a 256 x 256 table, by exact int32
+  indexing.
 * Each wrapper launches its kernel for tables on a CUDA device, and runs
   the plain twin only for tables on the CPU, where no kernel can run.  The
   user's choice of engine is made in
@@ -60,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .band import DeviceBand
+from .band import INVALID, DeviceBand, DeviceBatchBand
 from .cases import (
     NEG_INF,
     N_STATES,
@@ -73,15 +82,14 @@ from .cases import (
     iter_affine_cases,
 )
 
-# Masked-case sentinel, the value of bialign_tpu/ops/xla_dp.py INVALID.
-INVALID = -(1 << 30) - (1 << 29)
-
 # Kernel launches per wrapper (one per fill, score or bucket), for run
-# reports; "cta_scores" counts both forms of K6, "conveyor_scores" of K8.
+# reports; "cta_scores" counts both forms of K6, "conveyor_scores" of K8,
+# "batch_fill_*" K4 and K5 in band mode.
 LAUNCHES = {"fill_affine": 0, "fill_nonaffine": 0, "score_affine": 0,
             "score_nonaffine": 0, "score_affine_ms0": 0,
             "batch_affine": 0, "batch_nonaffine": 0, "cta_scores": 0,
-            "cta_scores_ms0": 0, "conveyor_scores": 0}
+            "cta_scores_ms0": 0, "conveyor_scores": 0,
+            "batch_fill_affine": 0, "batch_fill_nonaffine": 0}
 
 RING = 3      # slabs of the score-only carry; csrc/common.cuh RING
 
@@ -195,13 +203,13 @@ def _ring_shape(mu1, S: int, states: tuple) -> tuple:
     return (RING, *states, W, W, mu1.shape[0])
 
 
-def _check_ring(ring, shape, mu1):
+def _check_ring(ring, shape, mu1, what="ring"):
     if ring is None:
         return
     if (tuple(ring.shape) != shape or ring.dtype != torch.int32
             or ring.device != mu1.device or not ring.is_contiguous()):
         raise ValueError(
-            f"ring must be a contiguous int32 tensor {shape} on "
+            f"{what} must be a contiguous int32 tensor {shape} on "
             f"{mu1.device}, got {ring.dtype} {tuple(ring.shape)} on "
             f"{ring.device}"
         )
@@ -805,6 +813,8 @@ def _batch_ring_shape(mu1p, states: tuple, lanes=None) -> tuple:
 # bucket kernel (csrc function bialign_<name>) -> its LAUNCHES counter
 _BATCH_COUNTER = {"batch_affine": "batch_affine",
                   "batch_nonaffine": "batch_nonaffine",
+                  "batch_fill_affine": "batch_fill_affine",
+                  "batch_fill_nonaffine": "batch_fill_nonaffine",
                   "cta_affine": "cta_scores", "cta_nonaffine": "cta_scores",
                   "cta_affine_ms0": "cta_scores_ms0",
                   "conveyor_affine": "conveyor_scores",
@@ -825,9 +835,10 @@ def _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring, d_max,
     """Launch bucket kernel ``name``; ``more`` are the kernel's arguments
     after M: max_shift (which K7 lacks), then the conveyor's lanes and T0.
     ``ring`` (any contents) is the carry of the grid and conveyor kernels,
-    allocated here if None, and what the CTA kernels start their shared
-    memory from, if given.  ``d_max``: the largest n_b + m_b, or None for
-    the bucket's N + M.  Returns the ``[B]`` scores."""
+    or the chunk band of the band-mode kernels, allocated here if None, and
+    what the CTA kernels start their shared memory from, if given.
+    ``d_max``: the largest n_b + m_b, or None for the bucket's N + M.
+    Returns the ``[B]`` scores."""
     B, N, M = mu1p.shape[0], mu1p.shape[1] - 1, mu1p.shape[2] - 1
     dev = mu1p.device
     _check_ring(ring, ring_shape, mu1p)
@@ -1043,3 +1054,155 @@ def nonaffine_conveyor_scores_plain(mu1p, mu2p, ns, ms, max_shift, gamma,
     return _conveyor_scores_plain(
         _nonaffine_step(g, gamma, delta), lambda val: val[:, None, S, S], g,
         _batch_ring_shape(mu1p, (W, W), lanes), ring)
+
+
+# -- bands of a bucket of pairs ----------------------------------------------
+
+def _batch_band_shape(mu1p, states: tuple, d_max) -> tuple:
+    """``[B, D, *states, N+1]``: D the diagonals 0..d_max (the largest
+    n_b + m_b where the caller knows it), at most the bucket's N + M + 1."""
+    B, N, M = mu1p.shape[0], mu1p.shape[1] - 1, mu1p.shape[2] - 1
+    last = N + M if d_max is None else min(int(d_max), N + M)
+    return (B, last + 1, *states, N + 1)
+
+
+def _bands_kernel(name, cases, mu1p, mu2p, ns, ms, shape, band, d_max, S,
+                  affine):
+    _check_ring(band, shape, mu1p, "band")
+    if band is None:
+        band = torch.empty(shape, dtype=torch.int32, device=mu1p.device)
+    scores = _batch_kernel(name, cases, mu1p, mu2p, ns, ms, shape, band,
+                           d_max, S)
+    return DeviceBatchBand(ys=band, ns=ns, ms=ms, max_shift=S,
+                           affine=affine), scores
+
+
+def affine_batch_bands(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
+                       d_max=None, band=None):
+    """Affine bands and scores of a bucket (pallas_dp.py
+    ``_affine_pallas_batched_dense`` with ``score_only=False``): K4 in band
+    mode for CUDA tensors, the plain twin for CPU tensors.  Returns
+    ``(DeviceBatchBand [B, D, 9, W, W, N+1], scores [B])``; D and ``d_max``
+    as in :func:`_batch_band_shape`: a pair with n_b + m_b > ``d_max`` gets
+    neither its last diagonals nor a score (INVALID).  ``band``: the memory
+    to fill, whatever it holds (default: fresh, uninitialised); only the
+    pairs' genuine cells are written, and nothing else is read."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    if mu1p.device.type == "cpu":
+        return affine_batch_bands_plain(mu1p, mu2p, ns, ms, S, beta, gamma,
+                                        delta, d_max=d_max, band=band)
+    return _bands_kernel(
+        "batch_fill_affine",
+        _device_cases("affine", (beta, gamma, delta), mu1p.device), mu1p,
+        mu2p, ns, ms, _batch_band_shape(mu1p, (N_STATES, W, W), d_max), band,
+        d_max, S, True)
+
+
+def nonaffine_batch_bands(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
+                          d_max=None, band=None):
+    """Non-affine bands ``[B, D, W, W, N+1]`` and scores of a bucket
+    (pallas_dp.py ``_nonaffine_pallas_batched_dense`` with
+    ``score_only=False``): K5 in band mode; as :func:`affine_batch_bands`."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    if mu1p.device.type == "cpu":
+        return nonaffine_batch_bands_plain(mu1p, mu2p, ns, ms, S, gamma,
+                                           delta, d_max=d_max, band=band)
+    return _bands_kernel(
+        "batch_fill_nonaffine",
+        _device_cases("nonaffine", (gamma, delta), mu1p.device), mu1p, mu2p,
+        ns, ms, _batch_band_shape(mu1p, (W, W), d_max), band, d_max, S, False)
+
+
+def _batch_bands_plain(step, centre, mu1p, ns, ms, S, shape, band, affine):
+    """Run ``step`` over the chunk band's diagonals for all B pairs at once,
+    in the bucket's geometry, as the band-mode kernels do: diagonal d reads
+    slabs d-1 and d-2 of the band itself and writes the pairs' genuine cells
+    of slab d, every other cell keeping what it held (INVALID in a band
+    made here).  The scores are captured as in :func:`_batch_scores_plain`.
+    """
+    B, dev = shape[0], mu1p.device
+    _check_ring(band, shape, mu1p, "band")
+    if band is None:
+        band = torch.full(shape, INVALID, dtype=torch.int32, device=dev)
+    bband = DeviceBatchBand(ys=band, ns=ns, ms=ms, max_shift=S, affine=affine)
+    genuine = bband.genuine()
+    out = torch.full((B,), INVALID, dtype=torch.int32, device=dev)
+    blank = torch.full((B, *shape[2:]), INVALID, dtype=torch.int32,
+                       device=dev)
+    d_last = ns + ms
+    rows = ns.long()[:, None, None]
+    for d in range(shape[1] if B else 0):
+        val, _live = step(d, band[:, d - 1] if d >= 1 else blank,
+                          band[:, d - 2] if d >= 2 else blank)
+        band[:, d] = torch.where(genuine[:, d], val, band[:, d])
+        mid = centre(val)
+        at_n = mid.gather(2, rows.expand(B, mid.shape[1], 1)).amax((1, 2))
+        out = torch.where(d_last == d, at_n, out)
+    return bband, out
+
+
+def affine_batch_bands_plain(mu1p, mu2p, ns, ms, max_shift, beta, gamma,
+                             delta, *, d_max=None, band=None):
+    """Plain twin of K4 in band mode: :func:`_affine_step` with a batch
+    axis, the chunk band as its carry."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    g = _Geometry(mu1p, mu2p, S)
+    return _batch_bands_plain(
+        _affine_step(g, beta, gamma, delta), lambda val: val[:, :, S, S],
+        mu1p, ns, ms, S, _batch_band_shape(mu1p, (N_STATES, W, W), d_max),
+        band, True)
+
+
+def nonaffine_batch_bands_plain(mu1p, mu2p, ns, ms, max_shift, gamma, delta,
+                                *, d_max=None, band=None):
+    """Plain twin of K5 in band mode: :func:`_nonaffine_step` with a batch
+    axis, the chunk band as its carry."""
+    _check_stacks(mu1p, mu2p, ns, ms, max_shift)
+    S, W = max_shift, 2 * max_shift + 1
+    g = _Geometry(mu1p, mu2p, S)
+    return _batch_bands_plain(
+        _nonaffine_step(g, gamma, delta), lambda val: val[:, None, S, S],
+        mu1p, ns, ms, S, _batch_band_shape(mu1p, (W, W), d_max), band, False)
+
+
+# -- a bucket's tables from codes --------------------------------------------
+
+def mu_planes_from_codes(lut, ca, cb, sa, sb, ns, ms, sw: int):
+    """The stacks ``(mu1p, mu2p)`` int32 ``[B, N+1, M+1]`` of a bucket from
+    its pairs' codes (pallas_dp.py ``_mu_planes_from_codes``), on the codes'
+    device: ``mu1p[b, i, j] = lut[ca[b, i], cb[b, j]]`` and ``mu2p[b, i, j]
+    = sw`` where ``sa[b, i] == sb[b, j]``, both inside ``1 <= i <= n_b``,
+    ``1 <= j <= m_b`` and 0 elsewhere: the host tables of
+    :func:`~bialign_tpu_torch.scoring.tables.build_score_tables` for a
+    protein pair.  ``lut``: int32 ``[256, 256]``; ``ca``, ``sa``: integer
+    codes ``[B, N+1]`` (uint8 as :func:`~bialign_tpu_torch.parallel.batch.
+    encode_pair` makes them), ``cb``, ``sb``: ``[B, M+1]``; ``ns``, ``ms``:
+    int32 ``[B]``.  The table is applied by indexing, exact for every int32
+    value (the JAX package contracts one-hot float32 matrices and so
+    refuses entries of 2^24 and more).  Plain tensor code on any device, as
+    the original is XLA outside any kernel."""
+    if (lut.dtype != torch.int32 or tuple(lut.shape) != (256, 256)):
+        raise ValueError(f"lut must be int32 [256, 256], got {lut.dtype} "
+                         f"{tuple(lut.shape)}")
+    B = ca.shape[0]
+    for name, t, like in (("cb", cb, cb), ("sa", sa, ca), ("sb", sb, cb)):
+        if t.dim() != 2 or t.shape != like.shape or t.shape[0] != B:
+            raise ValueError(f"{name} {tuple(t.shape)} does not fit ca "
+                             f"{tuple(ca.shape)}, cb {tuple(cb.shape)}")
+    dev = ca.device
+    if any(t.device != dev for t in (lut, cb, sa, sb, ns, ms)):
+        raise ValueError(f"lut, codes and lengths must lie on one device, "
+                         f"ca is on {dev}")
+    i = torch.arange(ca.shape[1], device=dev)[None, :, None]
+    j = torch.arange(cb.shape[1], device=dev)[None, None, :]
+    inside = ((i >= 1) & (i <= ns[:, None, None])
+              & (j >= 1) & (j <= ms[:, None, None]))
+    # a uint8 index tensor would be read as a mask: index with int64
+    mu1 = lut[ca.long()[:, :, None], cb.long()[:, None, :]]
+    mu1 = torch.where(inside, mu1, 0)
+    same = sa[:, :, None] == sb[:, None, :]
+    mu2 = (inside & same).to(torch.int32) * int(sw)
+    return mu1.contiguous(), mu2.contiguous()

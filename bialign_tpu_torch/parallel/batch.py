@@ -1,9 +1,9 @@
-"""Batched bi-alignment scoring.
+"""Batched bi-alignment scores and alignments.
 
-Counterpart of the tables-input scores path of
-:mod:`bialign_tpu.parallel.batch`: data parallelism over independent pairs.
+Counterpart of :mod:`bialign_tpu.parallel.batch`: data parallelism over
+independent pairs, from score tables or from residue and structure codes.
 
-Pipeline:
+Scores, from tables:
   1. pairs are bucketed by padded length (multiples of ``bucket_quantum``);
   2. each bucket's dense int32 score tables are zero-padded to the bucket
      shape and stacked ``[B, N+1, M+1]`` on the host, and copied to the
@@ -14,10 +14,22 @@ Pipeline:
      so padding never changes scores (tests/test_torch_batch.py);
   4. the scores of all buckets come back in one copy, in input order.
 
+Alignments (:func:`align_batch`): each bucket is cut into chunks whose band
+fits a memory budget (:func:`_auto_chunk`); per chunk the band-emitting fill
+(``affine_batch_bands`` / ``nonaffine_batch_bands``) and the walk of every
+pair (:mod:`bialign_tpu_torch.ops.device_traceback`) are queued on the
+device, and only the walks' outputs, O(n+m) codes a pair, are kept: no band
+crosses to the host.  All chunks come back in one copy and are decoded on
+the host.
+
+From codes (``dispatch_score_batch_codes``, ``dispatch_align_batch_codes``;
+protein scoring only): each pair ships its four code vectors, about n + m
+bytes each, and the tables are built on the device from a 256 x 256 table
+(:func:`bialign_tpu_torch.ops.cuda_dp.mu_planes_from_codes`).
+
 ``engine="cuda"`` runs the CUDA kernels and needs a CUDA device;
 ``engine="torch"`` runs their plain PyTorch twins on any device.  Neither
-gives way to the other.  Not ported yet: a device mesh (``mesh=``), the
-batched alignments and the codes-input path.
+gives way to the other.  Not ported yet: a device mesh (``mesh=``).
 """
 
 from __future__ import annotations
@@ -28,8 +40,17 @@ import numpy as np
 import torch
 
 from ..ops import cuda_dp
+from ..ops import device_traceback as dtb
+from ..ops.cases import N_STATES
 
 ENGINES = ("cuda", "torch")
+
+# Device memory one chunk's band may take, in bytes: a fifth of the 80 GB of
+# an NVIDIA H100 80GB HBM3.  Every chunk of a bucket pays the bucket's whole
+# sequence of launches again, so a chunk should be as large as memory
+# allows: with this budget a bucket of 28 pairs of 512 x 512 at max_shift 1
+# (affine, 4.8 GB) is one chunk, and a 4000 x 4000 pair (10.4 GB) fits.
+BAND_BUDGET = 16 << 30
 
 
 def quantize(x: int, q: int) -> int:
@@ -162,17 +183,24 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _last_diagonal(b: Bucket, rows: slice = slice(None)) -> int:
+    """The largest n + m of a bucket's pairs ``rows``."""
+    return max(n + m for n, m in zip(b.n[rows], b.m[rows]))
+
+
+def _upload_tables(b: Bucket, device: torch.device) -> tuple:
+    """(mu1p, mu2p, ns, ms) of a bucket of tables on ``device``."""
+    stacks = (stack_padded(b.mu1d, b.N, b.M), stack_padded(b.mu2d, b.N, b.M),
+              np.asarray(b.n, dtype=np.int32),
+              np.asarray(b.m, dtype=np.int32))
+    return tuple(_to_device(x, device) for x in stacks)
+
+
 def _device_buckets(tables, bucket_quantum: int, device: torch.device):
     """[(indices, (mu1p, mu2p, ns, ms) on ``device``, d_max)] per bucket;
     d_max is the bucket's largest n + m, its last diagonal."""
-    out = []
-    for (N, M), b in make_buckets_dense(tables, bucket_quantum).items():
-        stacks = (stack_padded(b.mu1d, N, M), stack_padded(b.mu2d, N, M),
-                  np.asarray(b.n, dtype=np.int32),
-                  np.asarray(b.m, dtype=np.int32))
-        out.append((b.indices, tuple(_to_device(x, device) for x in stacks),
-                    max(n + m for n, m in zip(b.n, b.m))))
-    return out
+    return [(b.indices, _upload_tables(b, device), _last_diagonal(b))
+            for b in make_buckets_dense(tables, bucket_quantum).values()]
 
 
 def _bucket_scores(stacks, d_max: int, max_shift: int, params, affine: bool,
@@ -267,6 +295,334 @@ def score_batch(tables, max_shift: int, params, *, affine: bool, mesh=None,
         tables, max_shift, params, affine=affine, mesh=mesh,
         bucket_quantum=bucket_quantum, engine=engine, device=device,
     ).get()
+
+
+# -- batched alignments -------------------------------------------------------
+#
+# One fill and one walk per chunk of a bucket, both on the device: the host
+# receives per-pair trace codes (O(n+m) ints each), never a band.
+
+def _fill_walk(stacks, d_max: int, max_shift: int, params, affine: bool,
+               engine: str) -> torch.Tensor:
+    """Queue one chunk's band-emitting fill and the walk of each of its
+    pairs; the walks' output ``[B, 3 + Lmax]``, not waited for.  The band
+    is dropped here: the walk is queued behind the fill on the same stream,
+    and the caching allocator hands the block to the next chunk in stream
+    order."""
+    mu1p, mu2p = stacks[:2]
+    if engine == "cuda":
+        fill = (cuda_dp.affine_batch_bands if affine
+                else cuda_dp.nonaffine_batch_bands)
+        walk = dtb.affine_walk_batch if affine else dtb.nonaffine_walk_batch
+    else:
+        fill = (cuda_dp.affine_batch_bands_plain if affine
+                else cuda_dp.nonaffine_batch_bands_plain)
+        walk = (dtb.affine_walk_batch_plain if affine
+                else dtb.nonaffine_walk_batch_plain)
+    bband, _scores = fill(*stacks, max_shift, *params, d_max=d_max)
+    return walk(bband, *params, mu1p, mu2p)
+
+
+class PendingAlignments:
+    """Dispatched-but-unharvested fill-and-walk chunks (the alignments twin
+    of :class:`PendingScores`); :meth:`get` waits, decodes the walks' codes
+    on the host and assembles (scores, traces, complete)."""
+
+    def __init__(self, n_pairs: int, parts):
+        self._n = n_pairs
+        self._parts = parts          # [(indices, affine, device_walks)]
+
+    @property
+    def n_dispatches(self) -> int:
+        """Fill-and-walk dispatches issued (one per chunk of a bucket)."""
+        return len(self._parts)
+
+    def get(self):
+        scores = np.zeros(self._n, dtype=np.int64)
+        traces: list = [None] * self._n
+        complete = [True] * self._n
+        if not self._parts:
+            return scores, traces, complete
+        # one copy back for all chunks (see PendingScores.get)
+        flat = torch.cat([dev.reshape(-1) for _, _, dev in self._parts]) \
+            .cpu().numpy()
+        at = 0
+        for idxs, affine, dev in self._parts:
+            walks = dtb.unpack_walks(
+                flat[at:at + dev.numel()].reshape(dev.shape))
+            at += dev.numel()
+            for idx, (codes, done, score) in zip(idxs, walks):
+                traces[idx] = dtb.decode_codes(codes)
+                scores[idx] = score
+                # a non-affine walk has no such flag: it always completes
+                if affine:
+                    complete[idx] = done == 1
+        return scores, traces, complete
+
+
+def _auto_chunk(N: int, M: int, max_shift: int, affine: bool,
+                budget: int | None = None) -> int:
+    """Pairs per fill-and-walk dispatch, sized so that one chunk's band
+    ``[B, N+M+1, (9,) W, W, N+1]`` int32 stays under ``budget`` bytes
+    (default :data:`BAND_BUDGET`), at least one pair.  A launch takes the
+    same time whatever the number of pairs under it, so every further chunk
+    of a bucket costs the bucket's whole sequence of launches again: chunks
+    should be as large as the band memory allows."""
+    if budget is None:
+        budget = BAND_BUDGET
+    W2 = (2 * max_shift + 1) ** 2
+    per_pair = (N + M + 1) * (N_STATES if affine else 1) * W2 * (N + 1) * 4
+    return max(1, min(1024, budget // per_pair))
+
+
+def _dispatch_chunks(buckets, upload, planes, max_shift, params, affine,
+                     chunk, engine) -> list:
+    """Queue the fill and walk of every chunk of every bucket.  ``buckets``:
+    {(N, M): Bucket}; ``upload(bucket)`` puts a bucket's inputs on the
+    device once; ``planes(inputs, rows)`` gives the stacks (mu1p, mu2p, ns,
+    ms) of the chunk ``rows`` of them."""
+    parts = []
+    for (N, M), b in buckets.items():
+        bchunk = (_auto_chunk(N, M, max_shift, affine) if chunk is None
+                  else chunk)
+        inputs = upload(b)
+        for lo in range(0, len(b.indices), bchunk):
+            rows = slice(lo, lo + bchunk)
+            dev = _fill_walk(planes(inputs, rows), _last_diagonal(b, rows),
+                             max_shift, params, affine, engine)
+            parts.append((b.indices[rows], affine, dev))
+    return parts
+
+
+def dispatch_align_batch(tables, max_shift: int, params, *, affine: bool,
+                         mesh=None, bucket_quantum: int = 64,
+                         chunk: int | None = None, engine: str = "cuda",
+                         device="cuda") -> PendingAlignments:
+    """Pack and LAUNCH every chunk's fill and walk without blocking (same
+    arguments as :func:`align_batch`); chunks queue on the device in
+    dispatch order, so peak band memory stays one chunk's worth while the
+    caller overlaps host packing of the next batch.  ``chunk=None`` sizes
+    chunks per bucket from the band-memory budget (:func:`_auto_chunk`)."""
+    device = _resolve(engine, device, mesh)
+    tables = list(tables)
+    _require_int32_safe(tables, params, affine)
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    parts = _dispatch_chunks(
+        make_buckets_dense(tables, bucket_quantum),
+        lambda b: _upload_tables(b, device),
+        lambda stacks, rows: tuple(t[rows] for t in stacks),
+        max_shift, tuple(params), affine, chunk, engine)
+    return PendingAlignments(len(tables), parts)
+
+
+def align_batch(tables, max_shift: int, params, *, affine: bool, mesh=None,
+                bucket_quantum: int = 64, chunk: int | None = None,
+                engine: str = "cuda", device="cuda"):
+    """Traces + scores for a batch of pairs, in input order.
+
+    Returns ``(scores, traces, complete)``: int64 scores, per-pair forward
+    trace lists (the (a, b, c, d) tuples of
+    :meth:`bialign_tpu_torch.BiAligner.traceback`, with the reference's
+    tie-breaks between co-optimal paths), and per-pair completeness flags
+    (False = the reference's incomplete-traceback warning case; non-affine
+    walks always complete).
+
+    ``chunk`` caps the pairs per dispatch: a chunk's band lives in device
+    memory (B * D * 9 * W^2 * (N+1) int32), so chunking bounds peak memory.
+    ``engine``, ``device`` as in :func:`score_batch`; ``mesh`` is not
+    ported.
+    """
+    return dispatch_align_batch(
+        tables, max_shift, params, affine=affine, mesh=mesh,
+        bucket_quantum=bucket_quantum, chunk=chunk, engine=engine,
+        device=device,
+    ).get()
+
+
+# -- codes-input serving path (tables built on the device) ---------------------
+#
+# The tables-input paths ship O(n*m) ints per pair to the device; the raw
+# inputs are O(n) bytes.  Here each pair ships its code vectors, one
+# 256 x 256 table stays on the device, and the mu tables are built there
+# (ops/cuda_dp.mu_planes_from_codes).  Protein scoring only: RNA mu2 keeps
+# host float64 (scoring/tables.py).
+
+def encode_pair(seqA: str, seqB: str, strA: str, strB: str):
+    """1-based uint8 code vectors (index 0 unused = 0) for the device-table
+    scoring path.  A residue outside latin-1 has no code and raises
+    ``KeyError``, as a residue outside the similarity matrix does on the
+    tables path."""
+    def enc(s):
+        a = np.zeros(len(s) + 1, dtype=np.uint8)
+        try:
+            a[1:] = np.frombuffer(s.encode("latin-1"), dtype=np.uint8)
+        except UnicodeEncodeError as e:
+            raise KeyError(s[e.start]) from None
+        return a
+
+    return enc(seqA), enc(seqB), enc(strA), enc(strB)
+
+
+def match_mismatch_lut(match: int, mismatch: int) -> np.ndarray:
+    """256x256 LUT equivalent of the match/mismatch mu1 (tables.py
+    sequence_similarity_table without a simmatrix)."""
+    lut = np.full((256, 256), int(mismatch), dtype=np.int32)
+    np.fill_diagonal(lut, int(match))
+    return lut
+
+
+def _lut_peak(lut) -> int:
+    """Largest magnitude in ``lut``.  For a table on the device it is read
+    once (one wait for the device) and kept on the tensor, so that later
+    dispatches with the same table do not wait."""
+    if not isinstance(lut, torch.Tensor):
+        return int(np.abs(np.asarray(lut)).max())
+    kept = getattr(lut, "_bialign_peak", None)
+    if kept is None or kept[0] != lut._version:
+        kept = (lut._version, int(lut.abs().max()))
+        lut._bialign_peak = kept
+    return kept[1]
+
+
+def _require_int32_safe_codes(lut, sw, buckets, params, affine):
+    """Codes-path twin of :func:`_require_int32_safe`: the mu magnitude
+    bound comes from the LUT and structure weight instead of per-pair
+    tables.  (The table is applied by indexing, so its entries need only
+    pass this bound: there is no 2^24 limit as in the JAX package.)"""
+    amax = max(_lut_peak(lut), abs(int(sw)))
+    if affine:
+        beta, gamma, delta = params
+    else:
+        beta = 0
+        gamma, delta = params
+    per_col = (2 * abs(int(gamma)) + 2 * abs(int(beta))
+               + 2 * abs(int(delta)) + 2 * amax)
+    worst = max((N + M for (N, M) in buckets), default=0)
+    bound = 2 * (worst + 2) * per_col
+    if not ((-(1 << 30)) - bound > np.iinfo(np.int32).min + (1 << 20)):
+        raise ValueError(
+            "scoring parameters/LUT exceed the certified int32 range "
+            f"(value drift bound {bound}); the batched engines have no "
+            "int64 path, and the single-pair int64 engine is not ported "
+            "yet (ROADMAP.md Queue 1 P2)"
+        )
+
+
+def _code_buckets(pairs, bucket_quantum: int):
+    """Bucket (ca, cb, sa, sb) code-vector pairs by quantized shape:
+    {(N, M): Bucket} whose ``mu1d`` holds the bucket's four zero-padded
+    uint8 stacks (ca, cb, sa, sb), ca/sa ``[B, N+1]`` and cb/sb
+    ``[B, M+1]``.  No row or batch padding beyond the bucket's own."""
+    buckets: dict = {}
+    for idx, (ca, cb, sa, sb) in enumerate(pairs):
+        n = len(ca) - 1
+        m = len(cb) - 1
+        if len(sa) != n + 1 or len(sb) != m + 1:
+            raise ValueError(f"pair {idx}: sequence codes of lengths "
+                             f"({n}, {m}), structure codes of "
+                             f"({len(sa) - 1}, {len(sb) - 1})")
+        N = quantize(n, bucket_quantum)
+        M = quantize(m, bucket_quantum)
+        b = buckets.setdefault((N, M), Bucket(N, M))
+        b.indices.append(idx)
+        b.mu2d.append((ca, cb, sa, sb))
+        b.n.append(n)
+        b.m.append(m)
+    for (N, M), b in buckets.items():
+        B = len(b.indices)
+        stacks = [np.zeros((B, width), dtype=np.uint8)
+                  for width in (N + 1, M + 1, N + 1, M + 1)]
+        for pos, codes in enumerate(b.mu2d):
+            for stack, vec in zip(stacks, codes):
+                stack[pos, : len(vec)] = vec
+        b.mu1d, b.mu2d = stacks, []
+    return buckets
+
+
+def _upload_codes(b: Bucket, device: torch.device) -> tuple:
+    """(ca, cb, sa, sb, ns, ms) of a bucket of codes on ``device``."""
+    arrays = (*b.mu1d, np.asarray(b.n, dtype=np.int32),
+              np.asarray(b.m, dtype=np.int32))
+    return tuple(_to_device(x, device) for x in arrays)
+
+
+def _device_lut(lut, device: torch.device) -> torch.Tensor:
+    """The 256 x 256 table on ``device``: a tensor there is used as it is
+    (no copy), a host array goes up."""
+    if isinstance(lut, torch.Tensor):
+        if lut.device != device and (lut.device.type != device.type
+                                     or device.index is not None):
+            raise ValueError(f"lut lies on {lut.device}, the batch runs on "
+                             f"{device}")
+        return lut
+    host = np.asarray(lut)
+    if host.shape != (256, 256) or not np.issubdtype(host.dtype, np.integer):
+        raise ValueError(f"lut must be an integer [256, 256] array, got "
+                         f"{host.dtype} {host.shape}")
+    return _to_device(np.ascontiguousarray(host, dtype=np.int32), device)
+
+
+def _codes_setup(pairs, max_shift, params, affine, lut, structure_weight,
+                 mesh, bucket_quantum, engine, device):
+    """What both codes dispatchers start with: (pairs, buckets, planes);
+    ``planes(codes, rows)`` builds the stacks of the chunk ``rows`` of a
+    bucket's uploaded codes on the device."""
+    device = _resolve(engine, device, mesh)
+    pairs = list(pairs)
+    buckets = _code_buckets(pairs, bucket_quantum)
+    _require_int32_safe_codes(lut, structure_weight, buckets, params, affine)
+    lut_d = _device_lut(lut, device)
+    sw = int(structure_weight)
+
+    def planes(codes, rows=slice(None)):
+        ca, cb, sa, sb, ns, ms = (t[rows] for t in codes)
+        mu1p, mu2p = cuda_dp.mu_planes_from_codes(lut_d, ca, cb, sa, sb, ns,
+                                                  ms, sw)
+        return mu1p, mu2p, ns, ms
+
+    return pairs, buckets, planes, device
+
+
+def dispatch_score_batch_codes(pairs, max_shift: int, params, *,
+                               affine: bool, lut, structure_weight: int,
+                               mesh=None, bucket_quantum: int = 64,
+                               engine: str = "cuda",
+                               device="cuda") -> PendingScores:
+    """Launch batched scoring from code vectors (see the section's note).
+    ``pairs``: list of :func:`encode_pair` tuples; ``lut``: a [256, 256]
+    int32 table, a tensor on ``device`` (used as it is: keep it there across
+    calls) or a host array (copied up on every call).  Then the route of
+    :func:`score_batch`."""
+    pairs, buckets, planes, device = _codes_setup(
+        pairs, max_shift, params, affine, lut, structure_weight, mesh,
+        bucket_quantum, engine, device)
+    parts = [
+        (b.indices, _bucket_scores(planes(_upload_codes(b, device)),
+                                   _last_diagonal(b), max_shift,
+                                   tuple(params), affine, engine))
+        for b in buckets.values()
+    ]
+    return PendingScores(len(pairs), parts)
+
+
+def dispatch_align_batch_codes(pairs, max_shift: int, params, *,
+                               affine: bool, lut, structure_weight: int,
+                               mesh=None, bucket_quantum: int = 64,
+                               chunk: int | None = None,
+                               engine: str = "cuda",
+                               device="cuda") -> PendingAlignments:
+    """Codes-input twin of :func:`dispatch_align_batch`: a chunk's tables
+    are built on the device just before its fill."""
+    pairs, buckets, planes, device = _codes_setup(
+        pairs, max_shift, params, affine, lut, structure_weight, mesh,
+        bucket_quantum, engine, device)
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    parts = _dispatch_chunks(
+        buckets, lambda b: _upload_codes(b, device), planes, max_shift,
+        tuple(params), affine, chunk, engine)
+    return PendingAlignments(len(pairs), parts)
 
 
 class PreparedBatch:

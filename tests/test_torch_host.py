@@ -423,3 +423,113 @@ def test_batch_int32_guard(affine, params, safe):
         else:
             with pytest.raises(ValueError, match="int32"):
                 guard(tables, params, affine)
+
+
+# -- parallel/batch.py: the numpy part of the alignments and codes paths ----
+
+CODE_PAIRS = [("ACDE", "ACD", "HHCC", "HCC"), ("", "KR", "", "EE"),
+              ("RAKLPLKEK", "KAKLPLKEKK", "CHHHHHHHH", "HHHHHHHHHC"),
+              ("W", "", "C", ""), (PRO["seqA"], PRO["seqB"], PRO["strA"],
+                                   PRO["strB"])]
+
+
+@pytest.mark.parametrize("pair", CODE_PAIRS, ids=[f"{len(p[0])}x{len(p[1])}"
+                                                  for p in CODE_PAIRS])
+def test_batch_encode_pair(pair):
+    got, want = TB.encode_pair(*pair), JB.encode_pair(*pair)
+    assert all(g.dtype == np.uint8 for g in got) and _same(got, want)
+
+
+def test_batch_encode_pair_outside_latin1_raises_key_error():
+    """The JAX package raises UnicodeEncodeError here; the port raises what
+    the tables path raises for a residue it does not know."""
+    with pytest.raises(UnicodeEncodeError):
+        JB.encode_pair("ACΔE", "ACD", "HHCC", "HCC")
+    with pytest.raises(KeyError, match="Δ"):
+        TB.encode_pair("ACΔE", "ACD", "HHCC", "HCC")
+    with pytest.raises(KeyError):
+        TB.encode_pair("ACDE", "ACD", "HHCC", "H€C")
+
+
+@pytest.mark.parametrize("match,mismatch", [(100, 0), (5, -4), (0, 0)])
+def test_batch_match_mismatch_lut(match, mismatch):
+    got = TB.match_mismatch_lut(match, mismatch)
+    assert got.dtype == np.int32
+    assert _same(got, JB.match_mismatch_lut(match, mismatch))
+
+
+@pytest.mark.parametrize("quantum", [8, 64])
+def test_batch_code_buckets_are_the_jax_ones_without_padding(quantum):
+    """The JAX buckets pad ca/sa to the lane width and the batch axis to a
+    multiple of PACK; the port's hold the same codes without either."""
+    pairs = [TB.encode_pair(*p) for p in CODE_PAIRS]
+    want = JB._code_buckets(pairs, quantum)
+    got = TB._code_buckets(pairs, quantum)
+    assert list(got) == list(want)
+    for (N, M), (indices, ca, cb, sa, sb, ns, ms) in want.items():
+        b = got[N, M]
+        B = len(indices)
+        assert b.indices == indices and (b.N, b.M) == (N, M)
+        assert b.n == ns[:B].tolist() and b.m == ms[:B].tolist()
+        gca, gcb, gsa, gsb = b.mu1d
+        assert gca.shape == gsa.shape == (B, N + 1)
+        assert gcb.shape == gsb.shape == (B, M + 1)
+        assert all(a.dtype == np.uint8 for a in b.mu1d)
+        assert _same(gca, ca[:B, :N + 1]) and _same(gsa, sa[:B, :N + 1])
+        assert _same(gcb, cb[:B]) and _same(gsb, sb[:B])
+        assert not ca[:B, N + 1:].any()          # what was cut was padding
+
+
+def test_batch_code_buckets_check_the_structure_lengths():
+    with pytest.raises(ValueError, match="structure codes"):
+        TB._code_buckets([TB.encode_pair("ACD", "AC", "HH", "HC")], 8)
+
+
+@pytest.mark.parametrize("affine,params,sw,peak,safe", [
+    (True, (-150, -50, -150), 800, 17, True),
+    (False, (-200, -250), 400, 100, True),
+    (True, (-150, -50, -150), 800, (1 << 24) + 5, True),   # the JAX 2^24 limit
+    (True, (-150, -50, -150), 40_000_000, 17, False),
+    (False, (-200, -250), 400, 40_000_000, False),
+])
+def test_batch_int32_guard_of_the_codes_path(affine, params, sw, peak, safe):
+    """The drift bound of the JAX guard, from the table's peak and the
+    structure weight, without its 2^24 refusal (the port indexes the table,
+    it does not contract float32 one-hots)."""
+    lut = TB.match_mismatch_lut(peak, -3)
+    buckets = {(4, 4): None, (2, 4): None}   # the bound takes the largest
+    if safe:
+        TB._require_int32_safe_codes(lut, sw, buckets, params, affine)
+    else:
+        with pytest.raises(ValueError, match="int32"):
+            TB._require_int32_safe_codes(lut, sw, buckets, params, affine)
+    if peak < 1 << 24:
+        if safe:
+            JB._require_int32_safe_codes(lut, sw, buckets, params, affine)
+        else:
+            with pytest.raises(ValueError, match="int32"):
+                JB._require_int32_safe_codes(lut, sw, buckets, params, affine)
+    else:
+        with pytest.raises(ValueError, match="2\\^24"):
+            JB._require_int32_safe_codes(lut, sw, buckets, params, affine)
+
+
+@pytest.mark.parametrize("N,M,S,affine,budget,chunk", [
+    (512, 512, 1, True, None, 100),     # 28 such pairs are one chunk
+    (512, 512, 1, True, 2 << 30, 12),
+    (4096, 4096, 1, True, None, 1),     # a 4000 x 4000 pair still fits
+    (64, 64, 1, True, None, 1024),      # capped
+    (512, 512, 2, False, None, 326),
+    (8192, 8192, 3, True, None, 1),     # never less than one pair
+])
+def test_batch_auto_chunk_is_sized_for_the_card(N, M, S, affine, budget,
+                                                chunk):
+    """The port's own budget (16 GiB of an 80 GB card), without the TPU's
+    lane and diagonal rounding; one band per pair is
+    (N+M+1) * (9) * W^2 * (N+1) * 4 bytes."""
+    assert TB.BAND_BUDGET == 16 << 30
+    got = TB._auto_chunk(N, M, S, affine, budget)
+    per_pair = (N + M + 1) * (9 if affine else 1) * (2 * S + 1) ** 2 \
+        * (N + 1) * 4
+    assert got == max(1, min(1024, (budget or TB.BAND_BUDGET) // per_pair))
+    assert got == min(chunk, 1024)
