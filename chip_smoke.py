@@ -15,7 +15,11 @@ package.  Phases, one line each:
    The bucket kernels K4-K8 on buckets of mixed lengths at max_shift 0-3,
    B from 1 to 64, rings of garbage, every route forced ("cta" wherever the
    bucket fits one CTA's shared memory, the conveyor on one lane, on a few
-   and on one per pair), all equal;
+   and on one per pair), all equal.  K4 and K5 in band mode and the batch
+   walks on the same buckets, on bands pre-filled with garbage: the bands
+   equal to their twins' cell for cell (so nothing but a pair's genuine
+   cells is written), the scores equal to score mode's, every walk equal to
+   the host walk over the pair's own band;
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -38,8 +42,19 @@ package.  Phases, one line each:
    from host
    tables and from resident ones, cold and warm, kernel times against the
    twins' and against the pairs one at a time, the routes and the
-   conveyor's lanes against each other, peak memory;
-6. launch counts of the three paths, counted apart, each of which must be
+   conveyor's lanes against each other, peak memory.
+   The batched-alignments path through parallel.align_batch: the same 64
+   windows (every score equal to affine_score, every trace and complete
+   flag equal to the single-pair BiAligner's), 512 toy pairs (48500 and the
+   golden lines), the whole DNA-Pol-1 pair as a batch of one (761500 and
+   the md5 anchors), four DNA-Pol-1 pairs non-affine (288000), the
+   max_shift 3 goldens; and the codes path: the 64 windows from their raw
+   sequences through dispatch_score_batch_codes and
+   dispatch_align_batch_codes with the BLOSUM62 table resident on the card,
+   equal to the tables path.  Alignments/s from tables and from codes beside
+   the same pairs one at a time, stage times, peak memory at the card's
+   band budget and at 2 GiB, host-to-device bytes of both paths;
+6. launch counts of the four paths, counted apart, each of which must be
    > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
@@ -56,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import functools
 import hashlib
 import importlib.util
 import json
@@ -75,6 +91,7 @@ from bialign_tpu_torch.data import dnapol_pair
 from bialign_tpu_torch.ops import cuda_dp
 from bialign_tpu_torch.ops import device_traceback as dtb
 from bialign_tpu_torch.parallel import batch as pbatch
+from bialign_tpu_torch.scoring.tables import _sim_lut
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -147,6 +164,14 @@ KERNELS = {
                     "bialign_tpu/ops/device_traceback.py:85"),
     "walk_nonaffine": ("bialign_tpu_torch/csrc/walk.cu",
                        "bialign_tpu/ops/device_traceback.py:304"),
+    "batch_fill_affine": ("bialign_tpu_torch/csrc/batch_affine.cu",
+                          "bialign_tpu/ops/pallas_dp.py:1004"),
+    "batch_fill_nonaffine": ("bialign_tpu_torch/csrc/batch_nonaffine.cu",
+                             "bialign_tpu/ops/pallas_dp.py:1402"),
+    "walk_affine_batch": ("bialign_tpu_torch/csrc/walk.cu",
+                          "bialign_tpu/ops/device_traceback.py:264"),
+    "walk_nonaffine_batch": ("bialign_tpu_torch/csrc/walk.cu",
+                             "bialign_tpu/ops/device_traceback.py:291"),
 }
 
 # the kernels of each counted path
@@ -156,7 +181,36 @@ PATHS = {
     "score_only": ("score_affine", "score_nonaffine", "score_affine_ms0"),
     "batch": ("batch_affine", "batch_nonaffine", "cta_scores",
               "cta_scores_ms0", "conveyor_scores"),
+    "align": ("batch_fill_affine", "batch_fill_nonaffine",
+              "walk_affine_batch", "walk_nonaffine_batch"),
 }
+
+# The goldens at max_shift 3 (computed with the JAX package, engines "xla"
+# and "numpy" agreeing): the toy protein pair, whose optimum needs no shift
+# beyond 1, and the same sequence twice with the second structure five
+# residues late, which only max_shift 3 brings together (43950 at 2).
+MS3_PARAMS = dict(type="Protein", shift_cost=-150, structure_weight=800,
+                  simmatrix="BLOSUM62", gap_opening_cost=-150, gap_cost=-50,
+                  max_shift=3)
+MS3_GOLDENS = {
+    "toy_protein": (TOY, 48500, [
+        "A               -RAKLPLKEKKLTATANYHPGIRYIMTGYSAKYIYSSTYAR-FR",
+        "B               -KAKLPLKEKKLTRTANYHPGIRYIMTGYSAKRIYSSTYAY-FR",
+        "A ss            CHHHHHHHHHHHH-HCCCCTCEEEEEEECCTC-EEEEEEEECCC",
+        "B ss            -HHHHHHHHHHHHCCCCCCTCEEEEEEECCCCCEEEEEEEE-CC",
+        "A shifts        >............<..................<........>..",
+        "B shifts        ............................................"]),
+    "structure_offset_5": (
+        dict(seqA=TOY["seqA"], seqB=TOY["seqA"], strA=TOY["strA"],
+             strB="CCCCC" + TOY["strA"][:-5]), 49200, [
+        "A               RAKL--PLKEKKLTATANYHPGIRYIMTGYSAKYIYSSTYARFR---",
+        "B               RAKL--PLKEKKLTATANYHPGIRYIMTGYSAKYIYSSTYARFR---",
+        "A ss            C-----HHHHHHHHHHHHHCCCCTCEEEEEEECCTCEEEEEEEECCC",
+        "B ss            CCCCCCHHHHHHHHHHHHHCCCCTCEEEEEEECCTCEEEEEE-----",
+        "A shifts        .<<<........................................>>>",
+        "B shifts        ....>>....................................<<..."]),
+}
+TPU_SIZED_BUDGET = 2 << 30     # the band budget of the JAX package's chunks
 
 
 def check(cond, what: str) -> None:
@@ -243,6 +297,36 @@ def garbage_ring(rng, shape, dev):
         rng.integers(-2 ** 31, 2 ** 31, size=shape).astype(np.int32)).to(dev)
 
 
+def garbage_band(shape, dev):
+    """A chunk band of arbitrary int32 values, made on the card: a band-mode
+    fill must write a pair's genuine cells and nothing else, and a walk must
+    read only those."""
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                         device=dev)
+
+
+def batch_band_err(a, b) -> int:
+    """Max |a - b| over two chunk bands, every cell, pair by pair."""
+    check(a.ys.shape == b.ys.shape, f"band shapes {a.ys.shape} {b.ys.shape}")
+    return max((int((x.long() - y.long()).abs().max())
+                for x, y in zip(a.ys, b.ys)), default=0)
+
+
+def walks_err(out_a, out_b) -> tuple[int, int]:
+    """(max |difference|, steps) of two batch walks' outputs [B, 3 + Lmax]:
+    step counts, done flags, scores and the codes written."""
+    a, b = (dtb.unpack_walks(o.cpu().numpy()) for o in (out_a, out_b))
+    check(len(a) == len(b), f"walks of {len(a)} and {len(b)} pairs")
+    e = steps = 0
+    for (codes_a, done_a, score_a), (codes_b, done_b, score_b) in zip(a, b):
+        check(len(codes_a) == len(codes_b),
+              f"walks of {len(codes_a)} and {len(codes_b)} steps")
+        diff = np.abs(codes_a.astype(np.int64) - codes_b).max(initial=0)
+        e = max(e, int(diff), abs(done_a - done_b), abs(score_a - score_b))
+        steps += len(codes_a)
+    return e, steps
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take to move
     ``nbytes`` and do ``ops`` int32 operations."""
@@ -270,6 +354,15 @@ def batch_bound(lengths, S, cases: int, states: int):
     cells = sum((n + 1) * (m + 1) for n, m in lengths)
     W2 = (2 * S + 1) ** 2
     return bound(2 * cells * 4 + 4 * len(lengths),
+                 cells * W2 * states * cases * 2)
+
+
+def band_bound(lengths, S, cases: int, states: int):
+    """Bound of a bucket's or a batch's bands: as batch_bound, and every
+    pair's genuine band cells written once."""
+    cells = sum((n + 1) * (m + 1) for n, m in lengths)
+    W2 = (2 * S + 1) ** 2
+    return bound(2 * cells * 4 + cells * W2 * states * 4 + 4 * len(lengths),
                  cells * W2 * states * cases * 2)
 
 
@@ -366,11 +459,13 @@ def phase_kernels(dev, errs: dict) -> None:
         check(cuda_dp.affine_score(t1, t2, 0, beta, gamma, delta)
               == int(k1[:, 0, 0, n].max()), f"score_affine_ms0 score {n, m}")
     buckets = phase_batch_kernels(dev, errs)
+    bands = phase_align_kernels(dev, errs)
     torch.cuda.synchronize()
     say("3 kernels", shapes=SHAPES, ms0_shapes=MS0_SHAPES, bands_equal=True,
         last_slabs_equal=True, traces_equal=True,
         buckets_n_m_b_shift_form_routes_own=buckets, bucket_scores_equal=True,
-        max_abs_err=errs)
+        bands_n_m_b_shift_form_diagonals_steps=bands,
+        bucket_bands_and_walks_equal=True, max_abs_err=errs)
 
 
 def mixed_lengths(rng, N, M, B):
@@ -479,6 +574,66 @@ def phase_batch_kernels(dev, errs: dict) -> list:
                 check(score_err(kern(*stacks, S, *params), want) == 0,
                       f"{form} {N, M, B, S} on its own route {own}")
                 ran.append([N, M, B, S, form, routes, own])
+    torch.cuda.synchronize()
+    return ran
+
+
+def align_forms(S: int) -> tuple:
+    """(form, fill, its twin, the score-mode twin, walk, its twin, costs,
+    a slab's cell axes, fill counter, walk counter) of K4 and K5 in band
+    mode with their batch walks."""
+    W = 2 * S + 1
+    return (
+        ("affine", cuda_dp.affine_batch_bands,
+         cuda_dp.affine_batch_bands_plain, cuda_dp.affine_batch_scores_plain,
+         dtb.affine_walk_batch, dtb.affine_walk_batch_plain, AFFINE_PARAMS,
+         (9, W, W), "batch_fill_affine", "walk_affine_batch"),
+        ("nonaffine", cuda_dp.nonaffine_batch_bands,
+         cuda_dp.nonaffine_batch_bands_plain,
+         cuda_dp.nonaffine_batch_scores_plain, dtb.nonaffine_walk_batch,
+         dtb.nonaffine_walk_batch_plain, NONAFFINE_PARAMS, (W, W),
+         "batch_fill_nonaffine", "walk_nonaffine_batch"),
+    )
+
+
+def phase_align_kernels(dev, errs: dict) -> list:
+    """K4 and K5 in band mode and the batch walks against their plain twins
+    on the buckets of mixed lengths, the bands pre-filled with garbage: the
+    kernel and the twin start from the same garbage, so bands equal in
+    every cell mean that only genuine cells were written; the scores are
+    score mode's; the walks (kernel over the kernel's band, host walk over
+    the twin's, pair by pair) give the same steps, flags, scores and codes.
+    Each bucket runs to its pairs' last diagonal, as the path does, the
+    small ones also to the bucket's N + M."""
+    ran = []
+    for N, M, B, shifts in BUCKETS:
+        for S in shifts:
+            rng = np.random.default_rng(SEED + 1000 * N + 10 * B + S + 7)
+            lengths = mixed_lengths(rng, N, M, B)
+            stacks = bucket_stacks(rng, N, M, lengths, dev)
+            own = max(n + m for n, m in lengths)
+            for form, fill, fill_plain, scores_plain, walk, walk_plain, \
+                    params, cells, fill_name, walk_name in align_forms(S):
+                want = scores_plain(*stacks, S, *params)
+                for d_max in ((own, None) if N <= 24 else (own,)):
+                    D = (N + M if d_max is None else d_max) + 1
+                    junk = garbage_band((B, D, *cells, N + 1), dev)
+                    bk, sk = fill(*stacks, S, *params, d_max=d_max,
+                                  band=junk.clone())
+                    bp, sp = fill_plain(*stacks, S, *params, d_max=d_max,
+                                        band=junk)
+                    e = max(batch_band_err(bk, bp), score_err(sk, sp),
+                            score_err(sk, want))
+                    check(e == 0, f"{fill_name} {N, M, B, S, d_max}: "
+                          f"max |err| {e}")
+                    errs[fill_name] = max(errs[fill_name], e)
+                    e, steps = walks_err(
+                        walk(bk, *params, *stacks[:2]),
+                        walk_plain(bp, *params, *stacks[:2]))
+                    check(e == 0, f"{walk_name} {N, M, B, S, d_max}: "
+                          f"max |err| {e}")
+                    errs[walk_name] = max(errs[walk_name], e)
+                    ran.append([N, M, B, S, form, D, steps])
     torch.cuda.synchronize()
     return ran
 
@@ -922,6 +1077,293 @@ def phase_batch_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
     return times, bounds, more
 
 
+def single_alignments(windows, params) -> tuple:
+    """The pairs one at a time through BiAligner on the card (tables, band
+    fill, score, device walk, each pair waited for): (scores, traces,
+    complete flags, seconds by stage)."""
+    scores, traces, complete = [], [], []
+    clock = time.perf_counter
+    spent = dict(tables_s=0.0, fill_and_score_s=0.0, walk_s=0.0)
+    for w in windows:
+        t = [clock()]
+        ba = BiAligner(**w, **params)
+        t.append(clock())
+        scores.append(ba.optimize())
+        t.append(clock())
+        if ba._affine:
+            trace, whole = dtb.affine_traceback(
+                ba._band, ba.beta, ba.gamma, ba.delta, ba._mu1_t, ba._mu2_t)
+        else:
+            trace, whole = ba.traceback(), True
+        t.append(clock())
+        traces.append(trace)
+        complete.append(whole)
+        for key, dt in zip(spent, np.diff(t)):
+            spent[key] += float(dt)
+    return scores, traces, complete, spent
+
+
+def align_rates(run, pairs: int) -> tuple:
+    """``run()`` cold, then three times warm, on the host clock with the
+    device drained; returns (its result, report)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cold, out = timed(run)
+    warm = [timed(run)[0] for _ in range(3)]
+    return out, dict(pairs=pairs, cold_s=cold, warm_s=warm,
+                     alignments_per_s=pairs / min(warm),
+                     max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def check_alignments(got, want, what: str) -> None:
+    """(scores, traces, complete) of two runs, equal pair by pair."""
+    check(np.asarray(got[0]).tolist() == np.asarray(want[0]).tolist(),
+          f"{what}: scores differ")
+    check(list(got[2]) == list(want[2]), f"{what}: complete flags differ")
+    check(len(got[1]) == len(want[1]), f"{what}: {len(got[1])} traces")
+    for idx, (ta, tb) in enumerate(zip(got[1], want[1])):
+        check(ta == tb, f"{what}: trace of pair {idx} differs")
+
+
+def md5_anchors(lines) -> dict:
+    return {line[:16].rstrip(): hashlib.md5(line[16:].encode()).hexdigest()
+            for line in lines}
+
+
+def upload_bytes(buckets, stack_bytes) -> int:
+    """Bytes a batch's buckets send to the card: ``stack_bytes(bucket)`` for
+    its stacks and the two int32 length vectors."""
+    return sum(stack_bytes(b) + 2 * 4 * len(b.indices)
+               for b in buckets.values())
+
+
+def align_realistic(mol, batch) -> tuple[dict, dict]:
+    """The 64 windows through align_batch, against affine_score and the
+    single-pair path, at the card's band budget and at a smaller one; then
+    from their raw sequences through the codes path, against the tables
+    path.  Returns (report, dispatchers for the profile)."""
+    found = {}
+    windows = realistic_windows(mol, SEED)
+    tables, _lengths, S, costs, affine, quantum = batch
+    kw = dict(affine=affine, bucket_quantum=quantum)
+    from_tables = functools.partial(pbatch.dispatch_align_batch, tables, S,
+                                    costs, **kw)
+    aligned, report = align_rates(lambda: from_tables().get(), len(tables))
+    scores, traces, complete = aligned
+    check(scores.dtype == np.int64 and scores.shape == (REALISTIC_PAIRS,),
+          f"aligned scores {scores.dtype} {scores.shape}")
+    singly = [cuda_dp.affine_score(*tables_to_torch(mu1, mu2, "cuda"), S,
+                                   *costs) for mu1, mu2 in tables]
+    check(scores.tolist() == singly,
+          f"align_batch scores {scores.tolist()} != affine_score {singly}")
+    t0 = time.perf_counter()
+    *single, spent = single_alignments(windows, DNAPOL_FULL)
+    one_at_a_time = time.perf_counter() - t0
+    check_alignments(aligned, single, "align_batch against BiAligner")
+    t0 = time.perf_counter()
+    pending = from_tables()
+    dispatch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    report.update(
+        band_budget=pbatch.BAND_BUDGET, dispatches=pending.n_dispatches,
+        dispatch_returns_after_s=dispatch_s,
+        one_at_a_time_s=one_at_a_time, one_at_a_time_stages=spent,
+        one_at_a_time_alignments_per_s=len(tables) / one_at_a_time,
+        columns=sum(len(t) for t in traces),
+        incomplete=complete.count(False),
+        scores_equal_affine_score=True, equal_to_single_pair_path=True,
+        host_to_device_bytes=upload_bytes(
+            pbatch.make_buckets_dense(tables, quantum),
+            lambda b: 2 * len(b.indices) * (b.N + 1) * (b.M + 1) * 4))
+    found["realistic"] = report
+
+    # the same at the band budget of the JAX package's chunks
+    kept, pbatch.BAND_BUDGET = pbatch.BAND_BUDGET, TPU_SIZED_BUDGET
+    try:
+        again, report = align_rates(lambda: from_tables().get(), len(tables))
+        report.update(band_budget=pbatch.BAND_BUDGET,
+                      dispatches=from_tables().n_dispatches)
+    finally:
+        pbatch.BAND_BUDGET = kept
+    check_alignments(again, aligned, "align_batch at the smaller budget")
+    found["realistic_2GiB_budget"] = report
+
+    # the codes path: the same windows from their raw sequences, the
+    # similarity table resident on the card
+    lut = torch.from_numpy(_sim_lut(DNAPOL_FULL["simmatrix"])[0]).to("cuda")
+    ckw = dict(kw, lut=lut, structure_weight=DNAPOL_FULL["structure_weight"])
+
+    def encoded():
+        return [pbatch.encode_pair(w["seqA"], w["seqB"], w["strA"], w["strB"])
+                for w in windows]
+
+    coded_scores, report = align_rates(
+        lambda: pbatch.dispatch_score_batch_codes(encoded(), S, costs,
+                                                  **ckw).get(), len(windows))
+    check(coded_scores.tolist() == scores.tolist(),
+          "dispatch_score_batch_codes differs from the tables path")
+    found["realistic_codes_scores"] = dict(
+        report, pairs_per_s=report["alignments_per_s"],
+        equal_to_tables_path=True)
+    from_codes = lambda: pbatch.dispatch_align_batch_codes(  # noqa: E731
+        encoded(), S, costs, **ckw)
+    coded, report = align_rates(lambda: from_codes().get(), len(windows))
+    check_alignments(coded, aligned, "dispatch_align_batch_codes against "
+                     "the tables path")
+    found["realistic_codes"] = dict(
+        report, dispatches=from_codes().n_dispatches,
+        equal_to_tables_path=True, lut_resident=True,
+        host_to_device_bytes=upload_bytes(
+            pbatch._code_buckets(encoded(), quantum),
+            lambda b: sum(a.nbytes for a in b.mu1d)))
+    return found, {"realistic_tables": from_tables,
+                   "realistic_codes": from_codes}
+
+
+def phase_align_main(mol, batches, md5, G) -> tuple[dict, dict]:
+    """The batched-alignments path through align_batch and the codes path
+    through dispatch_score_batch_codes and dispatch_align_batch_codes
+    (counted launches); returns (report, dispatchers for the profile)."""
+    found, dispatchers = align_realistic(mol, batches["realistic"])
+    seqA, strA, seqB, strB = mol
+    full = dict(seqA=seqA, seqB=seqB, strA=strA, strB=strB)
+
+    # 512 toy pairs: the golden score and lines
+    tables, _lengths, S, costs, affine, quantum = batches["toy_b512"]
+    aligned, report = align_rates(
+        lambda: pbatch.align_batch(tables, S, costs, affine=affine,
+                                   bucket_quantum=quantum), TOY_PAIRS)
+    scores, traces, complete = aligned
+    check((scores == TOY_SCORE).all() and scores.shape == (TOY_PAIRS,),
+          f"toy b512 aligned scores {np.unique(scores)}")
+    check(all(complete) and all(t == traces[0] for t in traces),
+          "toy b512 traces differ from one another")
+    ba = BiAligner(**TOY, **G.TOY_PROTEIN_PARAMS)
+    check(list(ba.decode_trace(traces[0])) == G.TOY_PROTEIN_SORTED_OUT,
+          "toy b512 golden lines")
+    found["toy_b512"] = dict(report, all_scores=TOY_SCORE,
+                             golden_lines="equal")
+
+    # the whole DNA-Pol-1 pair as a batch of one: the golden gate
+    mu1, mu2, _nm = host_tables(full, DNAPOL_FULL)
+    aligned, report = align_rates(
+        lambda: pbatch.align_batch([(mu1, mu2)], 1, costs, affine=True,
+                                   bucket_quantum=REALISTIC_QUANTUM), 1)
+    scores, traces, complete = aligned
+    check(scores.tolist() == [761500] and complete == [True],
+          f"DNA-Pol-1 batch of one {scores} {complete}")
+    ba = BiAligner(seqA, seqB, strA, strB, **DNAPOL_FULL)
+    got = md5_anchors(ba.decode_trace(traces[0]))
+    check(got == md5, f"DNA-Pol-1 batch of one md5 anchors {got}")
+    found["dnapol_affine_x1"] = dict(report, all_scores=761500,
+                                     md5_anchors="all 6 equal")
+
+    # four DNA-Pol-1 pairs, non-affine, against the single pair
+    tables, _lengths, S, na, affine, quantum = batches["dnapol_nonaffine_x4"]
+    aligned, report = align_rates(
+        lambda: pbatch.align_batch(tables, S, na, affine=affine,
+                                   bucket_quantum=quantum), FULL_COPIES)
+    ba = BiAligner(seqA, seqB, strA, strB, **DNAPOL_CLI_DEFAULTS)
+    want = ba.optimize()
+    check(want == 288000, f"DNA-Pol-1 non-affine score {want} != 288000")
+    check_alignments(aligned, ([want] * FULL_COPIES,
+                               [ba.traceback()] * FULL_COPIES,
+                               [True] * FULL_COPIES),
+                     "DNA-Pol-1 non-affine x4 against the single pair")
+    found["dnapol_nonaffine_x4"] = dict(report, all_scores=want,
+                                        equal_to_single_pair_path=True)
+
+    # max_shift 3: through BiAligner and as a batch of two
+    for name, (molecule, score, lines) in MS3_GOLDENS.items():
+        ba = BiAligner(**molecule, **MS3_PARAMS)
+        check(ba.optimize() == score and list(ba.decode_trace()) == lines,
+              f"max_shift 3 golden {name} through BiAligner")
+        scores, traces, complete = pbatch.align_batch(
+            [(ba.mu1, ba.mu2)] * 2, 3, (ba.beta, ba.gamma, ba.delta),
+            affine=True)
+        check(scores.tolist() == [score] * 2 and complete == [True] * 2
+              and all(list(ba.decode_trace(t)) == lines for t in traces),
+              f"max_shift 3 golden {name} through align_batch")
+        found[f"max_shift_3_{name}"] = score
+    return found, dispatchers
+
+
+# fill kernel of the kernels line -> (batch of phase_batch_main, its walk,
+# cases, states)
+ALIGN_TIMED = {
+    "batch_fill_affine": ("realistic", "walk_affine_batch", 15, 9),
+    "batch_fill_nonaffine": ("dnapol_nonaffine_x4", "walk_nonaffine_batch",
+                             13, 1)}
+
+
+def phase_align_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
+    """K4 and K5 in band mode and the batch walks against their plain twins
+    on the batches of the main path (not counted), bucket by bucket with
+    the tables resident: CUDA events around three fills into fresh memory
+    and three walks; the twin fill once on the card from a band of garbage,
+    which the kernel must leave equal in every cell; the host walk over
+    every pair's own band, on the host clock.  Beside them the time to set a
+    bucket's band to INVALID, which the fill does without.  Returns (times,
+    bounds, more)."""
+    times, bounds, more = {}, {}, {}
+    dev = torch.device("cuda")
+    for fill_name, (batch, walk_name, cases, states) in ALIGN_TIMED.items():
+        tables, lengths, S, params, affine, quantum = batches[batch]
+        _form, fill, fill_plain, _scores, walk, walk_plain, *_rest = \
+            align_forms(S)[0 if affine else 1]
+        ms = dict(fill=0.0, walk=0.0, fill_plain=0.0, walk_plain=0.0,
+                  set_invalid=0.0)
+        per_bucket, steps, launches, band_bytes = [], 0, 0, 0
+        for _idx, st, d_max in pbatch._device_buckets(tables, quantum, dev):
+            run = lambda band=None: fill(  # noqa: E731
+                *st, S, *params, d_max=d_max, band=band)
+            run()                                             # warm-up
+            ms_f, (bband, _sc) = cuda_ms(run, reps=3)
+            walk(bband, *params, *st[:2])
+            ms_w, _out = cuda_ms(lambda: walk(bband, *params, *st[:2]),
+                                 reps=3)
+            ms_i, _ys = cuda_ms(
+                lambda: bband.ys.fill_(cuda_dp.INVALID), reps=1)
+            shape = tuple(bband.ys.shape)
+            del bband, _ys
+
+            junk = garbage_band(shape, dev)
+            bk, sk = run(junk.clone())
+            ms_fp, (bp, sp) = cuda_ms(
+                lambda: fill_plain(*st, S, *params, d_max=d_max, band=junk),
+                reps=1)
+            e = max(batch_band_err(bk, bp), score_err(sk, sp))
+            check(e == 0, f"{fill_name} on {batch} {shape}: max |err| {e}")
+            errs[fill_name] = max(errs[fill_name], e)
+            t0 = time.perf_counter()
+            wp = walk_plain(bp, *params, *st[:2])
+            ms_wp = (time.perf_counter() - t0) * 1e3
+            e, n_steps = walks_err(walk(bk, *params, *st[:2]), wp)
+            check(e == 0, f"{walk_name} on {batch} {shape}: max |err| {e}")
+            errs[walk_name] = max(errs[walk_name], e)
+            del junk, bk, bp
+
+            for key, val in zip(ms, (ms_f, ms_w, ms_fp, ms_wp, ms_i)):
+                ms[key] += val
+            steps += n_steps
+            launches += d_max + 1
+            band_bytes += int(np.prod(shape)) * 4
+            per_bucket.append(dict(band_shape=shape, fill_ms=ms_f,
+                                   walk_ms=ms_w, set_invalid_ms=ms_i,
+                                   columns=n_steps))
+        times[fill_name] = (ms["fill"], ms["fill_plain"])
+        times[walk_name] = (ms["walk"], ms["walk_plain"])
+        bounds[fill_name] = band_bound(lengths, S, cases, states)
+        bounds[walk_name] = walk_bound(steps, cases)
+        more[fill_name] = dict(
+            batch=batch, buckets=per_bucket, kernel_launches_per_run=launches,
+            us_per_launch=ms["fill"] * 1e3 / launches, band_bytes=band_bytes,
+            set_invalid_ms=ms["set_invalid"])
+        more[walk_name] = dict(batch=batch, columns=steps,
+                               kernel_launches_per_run=len(per_bucket))
+    return times, bounds, more
+
+
 def phase_full_timing(mol, errs: dict) -> tuple[dict, dict]:
     """Kernels against plain twins at the DNA-Pol-1 shapes (not counted);
     returns (times, bounds) by kernel name."""
@@ -1143,6 +1585,45 @@ def profiled_batch(run, trace_path: Path) -> dict:
     )
 
 
+def staged_align(dispatch) -> dict:
+    """One batch of alignments timed stage by stage on the host clock:
+    ``dispatch()`` (buckets, stacks, upload and the queueing of every
+    chunk's fill and walk: the host returns), the wait for the device, the
+    walks' one copy back, and the host's decoding of the codes."""
+    clock = time.perf_counter
+    torch.cuda.synchronize()
+    t = [clock()]
+    pending = dispatch()
+    t.append(clock())
+    torch.cuda.synchronize()
+    t.append(clock())
+    torch.cat([dev.reshape(-1) for _i, _a, dev in pending._parts]).cpu()
+    t.append(clock())
+    pending.get()                           # the same copy again, and decode
+    t.append(clock())
+    d = np.diff(t).tolist()
+    return dict(pack_upload_and_queue_s=d[0], wait_s=d[1], copy_back_s=d[2],
+                decode_s=d[3] - d[2])
+
+
+def profiled_align(run, trace_path: Path) -> dict:
+    """One batch of alignments under torch.profiler: the summary of
+    :func:`traced`, the band-mode fill kernels and the batch walks."""
+    summary, dev = traced(run, trace_path)
+    spans, dur, gaps = dp_kernel_stats(dev, ("batch_diag",))
+    _w, walks, _g = dp_kernel_stats(dev, ("walk_",))
+    check(len(spans) > 0 and len(walks) > 0, "no fill or no walk traced")
+    copies = {name: k for name, k in summary["kernels"].items()
+              if "Memcpy" in name or "Memset" in name}
+    return dict(
+        {k: v for k, v in summary.items() if k != "kernels"},
+        fill_kernels=dict(kernels=len(spans), mean_us=dur.mean(),
+                          total_us=dur.sum(), mean_gap_us=gaps.mean()),
+        walk_kernels=dict(kernels=len(walks), total_us=walks.sum(),
+                          us_each=walks.tolist()),
+        copies=copies, kernels=summary["kernels"])
+
+
 def staged_score(mol, params) -> dict:
     """One score-only run timed on the host clock: molecules and tables
     (host), then the tables' copy, the kernel's launches and the score's
@@ -1158,10 +1639,11 @@ def staged_score(mol, params) -> dict:
     return dict(tables_s=t1_ - t0, score_s=clock() - t1_, score=score)
 
 
-def phase_profile(mol, batches, out: Path) -> None:
+def phase_profile(mol, batches, aligners, out: Path) -> None:
     """Where the time goes in the DNA-Pol-1 runs, band path and score-only
-    path, and in the two batches of the batched-scores path (from host
-    tables and from resident ones): staged runs and one profiled run per
+    path, in the two batches of the batched-scores path (from host tables
+    and from resident ones) and in the realistic batch's alignments (from
+    tables and from codes): staged runs and one profiled run per
     configuration, after a warm-up run."""
     out.mkdir(parents=True, exist_ok=True)
     n, m = len(mol[0]), len(mol[2])
@@ -1192,6 +1674,12 @@ def phase_profile(mol, batches, out: Path) -> None:
                 out / f"trace_batch_{name}.json"),
             profile_prepared=profiled_batch(
                 prep.scores, out / f"trace_batch_{name}_prepared.json"))
+    for name, dispatch in aligners.items():
+        dispatch().get()
+        report[f"align_{name}"] = dict(
+            staged=[staged_align(dispatch) for _ in range(3)],
+            profile=profiled_align(lambda: dispatch().get(),
+                                   out / f"trace_align_{name}.json"))
     (out / "profile.json").write_text(json.dumps(report, indent=1))
     say("7 profile", out=str(out), **{
         name: {key: (val if key == "staged" else
@@ -1256,10 +1744,20 @@ def main() -> int:
     launches.update(path_counts("batch"))
     say("5 full size, batched scores", nvidia_smi=smi, **full_batch)
 
+    reset_counts()
+    full_align, aligners = phase_align_main(mol, batches, md5, G)
+    launches.update(path_counts("align"))
+    say("5 full size, batched alignments and codes", nvidia_smi=smi,
+        **full_align)
+
     times, bounds = phase_full_timing(mol, errs)
     batch_times, batch_bounds, more = phase_batch_timing(batches, errs)
     times.update(batch_times)
     bounds.update(batch_bounds)
+    align_times, align_bounds, align_more = phase_align_timing(batches, errs)
+    times.update(align_times)
+    bounds.update(align_bounds)
+    more.update(align_more)
     say("5 kernel times", nvidia_smi=smi,
         ms_kernel_vs_plain={k: {"kernel_ms": v[0], "plain_ms": v[1],
                                 "bound_ms": bounds[k][0],
@@ -1271,7 +1769,7 @@ def main() -> int:
     say("6 launches", **launches)
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} not launched by the path")
-    phase_profile(mol, batches, ROOT / "build" / "profile")
+    phase_profile(mol, batches, aligners, ROOT / "build" / "profile")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
