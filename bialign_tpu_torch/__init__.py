@@ -7,6 +7,8 @@ hand-written CUDA kernels (``csrc/``: the affine and non-affine band fills
 and the traceback walk), built with ``nvcc`` at first use.  The score of
 one pair without a band, ``ops.cuda_dp.affine_score`` and
 ``nonaffine_score``, runs through three more (``csrc/score_*.cu``).
+``BiAligner(..., lowmem=True)`` aligns a pair whose band the card cannot
+hold through a checkpointed band (``ops/checkpoint_dp.py``).
 
 The package stands alone: it imports ``torch`` and numpy, never ``jax`` and
 nothing of :mod:`bialign_tpu`.  Host preprocessing (``models``), score

@@ -57,6 +57,16 @@ _SIGNATURES = {
     # bands, mu1, mu2, cases, ns, ms, B, N, M, D, S, out, lmax, device, stream
     "bialign_walk_affine_batch": [_P] * 6 + [_I] * 5 + [_P, _I, _I, _P],
     "bialign_walk_nonaffine_batch": [_P] * 6 + [_I] * 5 + [_P, _I, _I, _P],
+    # ring, ckpts, mu1, mu2, cases, n, m, S, C, device, stream
+    "bialign_ckpt_affine": [_P] * 5 + [_I] * 5 + [_P],
+    "bialign_ckpt_nonaffine": [_P] * 5 + [_I] * 5 + [_P],
+    # window, ck, mu1, mu2, cases, n, m, S, d0, C, device, stream
+    "bialign_block_affine": [_P] * 5 + [_I] * 6 + [_P],
+    "bialign_block_nonaffine": [_P] * 5 + [_I] * 6 + [_P],
+    # window, mu1, mu2, cases, n, m, S, d0, start, state, out, lmax, device,
+    # stream
+    "bialign_walk_affine_block": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    "bialign_walk_nonaffine_block": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

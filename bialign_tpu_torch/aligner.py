@@ -6,8 +6,12 @@ path, on the port's own layers: host preprocessing
 (:mod:`bialign_tpu_torch.scoring.tables`), the band fill
 (:mod:`bialign_tpu_torch.ops.cuda_dp`), the final score, the walk on the
 device (:mod:`bialign_tpu_torch.ops.device_traceback`) and the host decode
-(:mod:`bialign_tpu_torch.render.decode`).  Nothing is imported from
-``bialign_tpu``.
+(:mod:`bialign_tpu_torch.render.decode`).  With ``lowmem=True`` the band is
+a checkpointed one (:mod:`bialign_tpu_torch.ops.checkpoint_dp`): the fill
+keeps two slabs every ``checkpoint_block`` diagonals and the traceback
+recomputes the band block by block, for pairs whose band the device cannot
+hold; score, trace and lines are the band path's.  Nothing is imported
+from ``bialign_tpu``.
 
 Engines (``engine=``; the device is explicit, ``device=``):
 
@@ -16,8 +20,8 @@ Engines (``engine=``; the device is explicit, ``device=``):
 * ``"torch"``: the plain PyTorch twins of the kernels, on any device.
 
 Not in this port yet, and refused with ``NotImplementedError`` rather than
-run some other way: ``lowmem`` (ROADMAP P13), ``seqsplit_mesh`` (P15) and
-the int64 engine for tables that fail the int32 check (P2).
+run some other way: ``seqsplit_mesh`` (ROADMAP P15) and the int64 engine
+for tables that fail the int32 check (P2).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 
 from .convert import tables_to_torch
 from .models.molecule import MoleculeError, preprocess_molecule
-from .ops import cuda_dp
+from .ops import checkpoint_dp, cuda_dp
 from .ops import device_traceback as dtb
 from .ops.cases import (
     NonAffineTables,
@@ -56,9 +60,11 @@ PARAM_DEFAULTS = {
     "simmatrix": None,
     "nameA": "A",
     "nameB": "B",
-    # modes of the JAX package that the port refuses until they are ported
+    # the checkpointed band: two slabs kept every checkpoint_block
+    # diagonals (None: sqrt(2 (n+m+1))), blocks recomputed in the traceback
     "lowmem": False,
     "checkpoint_block": None,
+    # a mode of the JAX package that the port refuses until it is ported
     "seqsplit_mesh": None,
     "seqsplit_axis": "sp",
 }
@@ -130,11 +136,6 @@ class BiAligner:
     # -- fill, score, walk -------------------------------------------------
 
     def _fill(self):
-        if self._params.get("lowmem"):
-            raise NotImplementedError(
-                "lowmem (the checkpointed band) is not ported yet: "
-                "ROADMAP.md Queue 1 P13"
-            )
         if self._params.get("seqsplit_mesh") is not None:
             raise NotImplementedError(
                 "seqsplit_mesh (one pair over several devices) is not "
@@ -148,16 +149,23 @@ class BiAligner:
         mu1, mu2 = tables_to_torch(self.mu1, self.mu2, self.device)
         self._mu1_t, self._mu2_t = mu1, mu2
         cuda = self._engine == "cuda"
-        if self._affine:
-            fill = (cuda_dp.fill_affine_device if cuda
-                    else cuda_dp.fill_affine_plain)
-            self._band = fill(mu1, mu2, self.max_shift, self.beta,
-                              self.gamma, self.delta)
+        more = {}
+        if self._params.get("lowmem"):
+            # a CheckpointBand in place of the band; 0 as None, as in the
+            # JAX package
+            more["block"] = self._params.get("checkpoint_block") or None
+            fills = ((checkpoint_dp.fill_affine_checkpoint,
+                      checkpoint_dp.fill_affine_checkpoint_plain),
+                     (checkpoint_dp.fill_nonaffine_checkpoint,
+                      checkpoint_dp.fill_nonaffine_checkpoint_plain))
         else:
-            fill = (cuda_dp.fill_nonaffine_device if cuda
-                    else cuda_dp.fill_nonaffine_plain)
-            self._band = fill(mu1, mu2, self.max_shift, self.gamma,
-                              self.delta)
+            fills = ((cuda_dp.fill_affine_device, cuda_dp.fill_affine_plain),
+                     (cuda_dp.fill_nonaffine_device,
+                      cuda_dp.fill_nonaffine_plain))
+        fill = fills[0 if self._affine else 1][0 if cuda else 1]
+        costs = ((self.beta, self.gamma, self.delta) if self._affine
+                 else (self.gamma, self.delta))
+        self._band = fill(mu1, mu2, self.max_shift, *costs, **more)
 
     def optimize(self) -> int:
         """Fill the DP band; return the optimal score (pyx:443-509)."""
@@ -169,22 +177,28 @@ class BiAligner:
         if self._band is None:
             self.optimize()
         cuda = self._engine == "cuda"
+        if isinstance(self._band, checkpoint_dp.CheckpointBand):
+            mod, tables = checkpoint_dp, ()     # the band holds its tables
+        else:
+            mod, tables = dtb, (self._mu1_t, self._mu2_t)
         if self._affine:
-            walk = (dtb.affine_traceback if cuda
-                    else dtb.affine_traceback_plain)
+            walk = (mod.affine_traceback if cuda
+                    else mod.affine_traceback_plain)
             trace, complete = walk(self._band, self.beta, self.gamma,
-                                   self.delta, self._mu1_t, self._mu2_t)
+                                   self.delta, *tables)
             if not complete:
                 print("WARNING: incomplete traceback. "
                       "Alignment could be garbage.")
             return trace
-        walk = (dtb.nonaffine_traceback if cuda
-                else dtb.nonaffine_traceback_plain)
-        return walk(self._band, self.gamma, self.delta, self._mu1_t,
-                    self._mu2_t)
+        walk = (mod.nonaffine_traceback if cuda
+                else mod.nonaffine_traceback_plain)
+        return walk(self._band, self.gamma, self.delta, *tables)
 
     def _band_cells(self, idxs):
-        """Values of band cells (i, j, k, l), for the verbose replay."""
+        """Values of band cells (i, j, k, l), for the verbose replay; a
+        checkpointed band recomputes the blocks they lie in."""
+        if isinstance(self._band, checkpoint_dp.CheckpointBand):
+            return self._band.cells(idxs, plain=self._engine != "cuda")
         return self._band.cells(idxs)
 
     # -- decoding ----------------------------------------------------------

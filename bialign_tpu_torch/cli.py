@@ -104,8 +104,10 @@ def add_bialign_parameters(parser):
     )
     parser.add_argument(
         "--lowmem", action="store_true",
-        help="Linear-memory band mode of the JAX package; not ported yet, "
-        "refused with an error",
+        help="Low-memory band mode: keep two diagonal slabs every "
+        "sqrt(2 (n+m+1)) diagonals and recompute the band block by block "
+        "during traceback (same score and alignment; for pairs whose band "
+        "the device cannot hold)",
     )
 
 

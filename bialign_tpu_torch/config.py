@@ -33,8 +33,9 @@ class AlignConfig:
     outmode: str = "default"
     nodescription: bool = False
     # extensions over the reference: DP engine and torch device; the
-    # linear-memory band mode and the cross-device sequence-split fill of
-    # the JAX package, which the port's BiAligner refuses until ported
+    # low-memory band mode (checkpoint_block: diagonals per checkpoint,
+    # None for sqrt(2 (n+m+1))); and the cross-device sequence-split fill
+    # of the JAX package, which the port's BiAligner refuses until ported
     engine: str = "cuda"
     device: str = "cuda"
     lowmem: bool = False

@@ -2,8 +2,8 @@
 
 The DP has no learned parameters: its "weights" are the dense score tables
 ``mu1``/``mu2`` built on the host (``scoring/tables.py`` of either
-package), and its state is the filled band, or in score-only mode the last
-diagonal's slab.  A batch's inputs are its buckets' padded stacks of
+package), and its state is the filled band, in score-only mode the last
+diagonal's slab, or in low-memory mode the checkpoints.  A batch's inputs are its buckets' padded stacks of
 tables, or of residue and structure codes; the state of a batch of
 alignments is the chunk band of its pairs.  All cross as numpy arrays.
 """
@@ -15,6 +15,7 @@ import torch
 
 from .ops.band import DeviceBand, DeviceBatchBand
 from .ops.cases import N_STATES
+from .ops.checkpoint_dp import CheckpointBand
 
 _I32 = np.iinfo(np.int32)
 
@@ -164,3 +165,39 @@ def code_stacks_from_jax(ca, cb, sa, sb, ns, ms, B: int, N: int, device):
     out += [np.asarray(a[:B], dtype=np.int32) for a in arrays[4:]]
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in out)
+
+
+def checkpoint_band_from_jax(cb, mu1, mu2) -> CheckpointBand:
+    """A checkpointed band filled by the JAX package, as the port's on the
+    CPU.
+
+    ``cb``: the JAX ``CheckpointBand`` (read by attribute: ``ckpts``,
+    ``final``, ``db``, ``n``, ``m``, ``max_shift``, ``affine``, ``params``,
+    ``p_last``), in either layout: ``ckpts [NB, 2, (Q,) P, W, W]`` from the
+    XLA scan, or ``[NB, 2, (Q,) W, W, Ppad]`` from the Pallas fill
+    (``p_last``), whose block count covers the padded diagonals.  Both are
+    cropped to the port's ``[(n+m) // C + 1, 2, (Q,) W, W, n+1]``, C the
+    JAX band's block size; ``mu1``, ``mu2``: the pair's dense tables, which
+    take the place of its diagonal tables.  Rows off a diagonal's live
+    range keep the JAX engine's values, which nothing reads.
+    """
+    n, m, S, affine = cb.n, cb.m, cb.max_shift, bool(cb.affine)
+    C = int(np.asarray(cb.db).shape[1])
+    NB, P, W = (n + m) // C + 1, n + 1, 2 * S + 1
+    ckpts, final = np.asarray(cb.ckpts), np.asarray(cb.final)
+    if not cb.p_last:
+        ckpts, final = (np.moveaxis(a, -3, -1) for a in (ckpts, final))
+    ckpts, final = ckpts[:NB, ..., :P], final[..., :P]
+    slab = (*((N_STATES,) if affine else ()), W, W, P)
+    if ckpts.shape != (NB, 2, *slab) or final.shape != slab:
+        raise ValueError(
+            f"JAX checkpoints crop to {ckpts.shape} and {final.shape}, "
+            f"expected {(NB, 2, *slab)} and {slab}")
+    t1, t2 = tables_to_torch(mu1, mu2, "cpu")
+    if tuple(t1.shape) != (n + 1, m + 1):
+        raise ValueError(f"tables {tuple(t1.shape)} for a band of ({n}, {m})")
+    return CheckpointBand(
+        ckpts=torch.from_numpy(np.array(ckpts, dtype=np.int32, order="C")),
+        final=torch.from_numpy(np.array(final, dtype=np.int32, order="C")),
+        mu1=t1, mu2=t2, n=n, m=m, max_shift=S, affine=affine,
+        params=tuple(int(v) for v in cb.params), block=C)

@@ -1,1 +1,2 @@
-"""Device code of the port: band fills, band handle, traceback walks."""
+"""Device code of the port: band fills, band handle, checkpointed band,
+traceback walks."""

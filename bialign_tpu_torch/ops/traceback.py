@@ -30,16 +30,82 @@ from .cases import (
 )
 
 
-def _shift_by(col, total):
-    """Mutate running shift record [netA, netB, |netA|+|netB|] (pyx:541-545)."""
-    total[0] += col[0] - col[2]
-    total[1] += col[1] - col[3]
-    total[2] = abs(total[0]) + abs(total[1])
-    return total
-
-
 class TracebackIncomplete(Warning):
     pass
+
+
+_AFFINE_CASES = [list(iter_affine_cases(t)) for t in range(N_STATES)]
+_INTRINSIC = [abs(s[0] - s[2]) + abs(s[1] - s[3]) for s in STATES]
+
+
+def affine_start_state(final) -> int:
+    """Start state of the affine walk from the 9 values of the last cell
+    (n, m, n, m): best score, ties broken by minimal intrinsic shift, then
+    by state enumeration order (pyx:573-582)."""
+    best_score = max(final)
+    best_states = [q for q in range(N_STATES) if final[q] == best_score]
+    intrinsic = [_INTRINSIC[q] for q in best_states]
+    return best_states[int(np.argmin(intrinsic))]
+
+
+def affine_walk(cell, mu1, mu2, max_shift, beta, gamma, delta, state, *,
+                stop_below=0, cap=None):
+    """Walk the affine band read through ``cell(q, i, j, k, l)`` from
+    ``state`` = (i, j, k, l, q, netA, netB, first) until the origin is
+    reached (done 1), no case matches (done 2), i + j falls below
+    ``stop_below`` or ``cap`` columns were taken (done 0).  ``netA``,
+    ``netB``: the net shift of the columns walked so far; ``first``: no
+    column taken yet.  Returns (columns in walk order, state, done)."""
+    S = max_shift
+    i, j, k, l, q, net_a, net_b, first = state
+    cols = []
+    done = 0
+    while cap is None or len(cols) < cap:
+        if i + j < stop_below:
+            break
+        # Quirk kept for parity: the reference's start state is a tuple, so
+        # its `state == [1,1,1,1]` termination test (pyx:551) can never pass
+        # on the initial call — only after at least one traced column.
+        if (i, j, k, l) == (0, 0, 0, 0) and q == STATE_BOTH_MATCH \
+                and not first:
+            done = 1
+            break
+        here = cell(q, i, j, k, l)
+
+        # of all co-optimal cases the least [total |shift|, |net B shift|]
+        # with this column and the source state's intrinsic shift counted
+        # in; the first minimum wins (pyx:541-545, :564)
+        best = None
+        for (src, col, mu1c, mu2c, ng, nb, nd, _g) in _AFFINE_CASES[q]:
+            if not guard_case(col, (i, j, k, l), S):
+                continue
+            val = (
+                cell(src, i - col[0], j - col[1], k - col[2], l - col[3])
+                + ng * gamma
+                + nb * beta
+                + nd * delta
+                + mu1c * int(mu1[i, j])
+                + mu2c * int(mu2[k, l])
+            )
+            if val == here:
+                t_a = net_a + col[0] - col[2] + STATES[src][0] - STATES[src][2]
+                t_b = net_b + col[1] - col[3] + STATES[src][1] - STATES[src][3]
+                key = (abs(t_a) + abs(t_b), abs(t_b))
+                if best is None or key < best[0]:
+                    best = (key, src, col)
+
+        if best is None:
+            done = 2
+            break
+        _key, src, col = best
+        cols.append(col)
+        i, j, k, l = i - col[0], j - col[1], k - col[2], l - col[3]
+        # the persistent record gets the column only
+        net_a += col[0] - col[2]
+        net_b += col[1] - col[3]
+        q = src
+        first = False
+    return cols, (i, j, k, l, q, net_a, net_b, first), done
 
 
 def affine_traceback(H, mu1, mu2, max_shift, beta, gamma, delta):
@@ -56,67 +122,46 @@ def affine_traceback(H, mu1, mu2, max_shift, beta, gamma, delta):
     def cell(q, i, j, k, l):
         return int(H[q, i, j, k - i + S, l - j + S])
 
-    # -- start state: best score, ties broken by minimal intrinsic shift,
-    #    then by state enumeration order (pyx:573-582)
-    final = [cell(q, n, m, n, m) for q in range(N_STATES)]
-    best_score = max(final)
-    best_states = [q for q in range(N_STATES) if final[q] == best_score]
-    intrinsic = [
-        abs(STATES[q][0] - STATES[q][2]) + abs(STATES[q][1] - STATES[q][3])
-        for q in best_states
-    ]
-    q = best_states[int(np.argmin(intrinsic))]
+    q = affine_start_state([cell(s, n, m, n, m) for s in range(N_STATES)])
+    cols, _state, done = affine_walk(
+        cell, mu1, mu2, S, beta, gamma, delta, (n, m, n, m, q, 0, 0, True))
+    return list(reversed(cols)), done == 1
 
-    cases = [list(iter_affine_cases(t)) for t in range(N_STATES)]
 
-    trace = []
-    idx = [n, m, n, m]
-    total_shift = [0, 0, 0]
-    complete = False
-    first = True
-    while True:
-        # Quirk kept for parity: the reference's start state is a tuple, so
-        # its `state == [1,1,1,1]` termination test (pyx:551) can never pass
-        # on the initial call — only after at least one traced column.
-        if idx == [0, 0, 0, 0] and q == STATE_BOTH_MATCH and not first:
-            complete = True
+def nonaffine_walk(cell, mu1, mu2, max_shift, gamma, delta, state, *,
+                   stop_below=0, cap=None):
+    """Walk the non-affine band read through ``cell(i, j, k, l)`` from
+    ``state`` = (i, j, k, l): at each cell the first case whose re-evaluated
+    value equals the cell's (pyx:513-531), until none does (done 1), i + j
+    falls below ``stop_below`` or ``cap`` columns were taken (done 0).
+    Returns (columns in walk order, state, done)."""
+    S = max_shift
+    tab = NonAffineTables(gamma, delta)
+    cases = [(tuple(int(v) for v in c), int(tab.const[ci]),
+              int(tab.mu1_coef[ci]), int(tab.mu2_coef[ci]))
+             for ci, c in enumerate(tab.cols)]
+    i, j, k, l = state
+    cols = []
+    done = 0
+    while cap is None or len(cols) < cap:
+        if i + j < stop_below:
             break
-        first = False
-        i, j, k, l = idx
-        here = cell(q, i, j, k, l)
-
-        candidates = []
-        for (src, col, mu1c, mu2c, ng, nb, nd, _g) in cases[q]:
-            if not guard_case(col, idx, S):
+        here = cell(i, j, k, l)
+        for col, const, mu1c, mu2c in cases:
+            if not guard_case(col, (i, j, k, l), S):
                 continue
             pi, pj = i - col[0], j - col[1]
             pk, pl = k - col[2], l - col[3]
-            val = (
-                cell(src, pi, pj, pk, pl)
-                + ng * gamma
-                + nb * beta
-                + nd * delta
-                + mu1c * int(mu1[i, j])
-                + mu2c * int(mu2[k, l])
-            )
+            val = (cell(pi, pj, pk, pl) + const + mu1c * int(mu1[i, j])
+                   + mu2c * int(mu2[k, l]))
             if val == here:
-                tmp = total_shift[:]
-                _shift_by(col, tmp)
-                _shift_by(STATES[src], tmp)
-                candidates.append((src, col, tmp))
-
-        if not candidates:
+                cols.append(col)
+                i, j, k, l = pi, pj, pk, pl
+                break
+        else:
+            done = 1
             break
-
-        keys = [(tmp[2], abs(tmp[1])) for _src, _col, tmp in candidates]
-        sel = min(range(len(keys)), key=keys.__getitem__)
-        src, col, _tmp = candidates[sel]
-        _shift_by(col, total_shift)  # persistent record gets the column only
-        trace.append(col)
-        idx = [i - col[0], j - col[1], k - col[2], l - col[3]]
-        q = src
-
-    return list(reversed(trace)), complete
+    return cols, (i, j, k, l), done
 
 
 def nonaffine_traceback(H, mu1, mu2, max_shift, gamma, delta):
@@ -124,35 +169,10 @@ def nonaffine_traceback(H, mu1, mu2, max_shift, gamma, delta):
     S = max_shift
     n = H.shape[0] - 1
     m = H.shape[1] - 1
-    tab = NonAffineTables(gamma, delta)
-    cols = [tuple(int(v) for v in c) for c in tab.cols]
 
     def cell(i, j, k, l):
         return int(H[i, j, k - i + S, l - j + S])
 
-    trace = []
-    idx = (n, m, n, m)
-    while True:
-        i, j, k, l = idx
-        here = cell(i, j, k, l)
-        advanced = False
-        for ci, col in enumerate(cols):
-            if not guard_case(col, idx, S):
-                continue
-            pi, pj = i - col[0], j - col[1]
-            pk, pl = k - col[2], l - col[3]
-            val = (
-                cell(pi, pj, pk, pl)
-                + int(tab.const[ci])
-                + int(tab.mu1_coef[ci]) * int(mu1[i, j])
-                + int(tab.mu2_coef[ci]) * int(mu2[k, l])
-            )
-            if val == here:
-                trace.append(col)
-                idx = (pi, pj, pk, pl)
-                advanced = True
-                break
-        if not advanced:
-            break
-
-    return list(reversed(trace))
+    cols, _state, _done = nonaffine_walk(cell, mu1, mu2, S, gamma, delta,
+                                         (n, m, n, m))
+    return list(reversed(cols))

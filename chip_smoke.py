@@ -19,7 +19,14 @@ package.  Phases, one line each:
    walks on the same buckets, on bands pre-filled with garbage: the bands
    equal to their twins' cell for cell (so nothing but a pair's genuine
    cells is written), the scores equal to score mode's, every walk equal to
-   the host walk over the pair's own band;
+   the host walk over the pair's own band.  The checkpointed path's
+   kernels K9-K12 and the blockwise walks at the same shapes, each at
+   several block sizes C (1, 7, the default, one beyond n+m), on rings,
+   checkpoint buffers and windows of garbage: checkpoints and last slab
+   equal to the twin's in every cell, every block's window equal to what
+   the twin's band gives (and to the block twin itself), every block walk's
+   state and codes equal to the host walk's over the same window, and the
+   blockwise traceback equal to the full-band device walk;
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -53,8 +60,17 @@ package.  Phases, one line each:
    dispatch_align_batch_codes with the BLOSUM62 table resident on the card,
    equal to the tables path.  Alignments/s from tables and from codes beside
    the same pairs one at a time, stage times, peak memory at the card's
-   band budget and at 2 GiB, host-to-device bytes of both paths;
-6. launch counts of the four paths, counted apart, each of which must be
+   band budget and at 2 GiB, host-to-device bytes of both paths.
+   The low-memory path through BiAligner(lowmem=True): the DNA-Pol-1 pair,
+   affine max_shift 1 (761500, the md5 anchors), max_shift 2 and the
+   non-affine CLI defaults, every trace equal to the band path's; the toy
+   and max_shift 3 goldens at small block sizes; one --lowmem CLI run; the
+   4000x3990 pair against the band kernel and its walk, with both peak
+   memories; and a 13000x12990 pair whose band (109 GB) the card cannot
+   hold: score equal to affine_score, trace complete and replayed on the
+   host to that score.  Times of the checkpointed fill beside the
+   score-only fill, of the block fills and block walks, peak bytes;
+6. launch counts of the five paths, counted apart, each of which must be
    > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
@@ -88,8 +104,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from bialign_tpu_torch import BiAligner, _build
 from bialign_tpu_torch.convert import tables_to_torch
 from bialign_tpu_torch.data import dnapol_pair
+from bialign_tpu_torch.ops import checkpoint_dp as ckp
 from bialign_tpu_torch.ops import cuda_dp
 from bialign_tpu_torch.ops import device_traceback as dtb
+from bialign_tpu_torch.ops.cases import affine_score_multiplicities
 from bialign_tpu_torch.parallel import batch as pbatch
 from bialign_tpu_torch.scoring.tables import _sim_lut
 
@@ -111,6 +129,14 @@ DNAPOL_PREFIX = dict(type="Protein", shift_cost=-210, structure_weight=800,
 DNAPOL_CLI_DEFAULTS = dict(type="Protein")         # non-affine, max_shift 2
 MS0_SHAPES = [(7, 9), (1, 1), (0, 3), (5, 0), (20, 13)]   # (n, m) for K3
 BIG_PAIR = (4000, 3990, 1)              # README: a synthetic protein pair
+# a pair whose band [n+m+1, 9, 3, 3, n+1] int32 (109 GB) no card holds
+HUGE_PAIR = (13000, 12990, 1)
+# block sizes of phase 3 beside the default: every diagonal a block, a
+# small odd one, and (from n + m) one block for the whole band
+SMALL_BLOCKS = (1, 7)
+# phase 3 runs the block twins on every block up to this many diagonals,
+# beyond it on the first, the middle and the last block
+BLOCK_TWIN_DIAGONALS = 100
 
 # Buckets of phase 3: (N, M, B, the max_shifts to run).  Lengths are mixed
 # inside each bucket (mixed_lengths); the last has 150-300 rows.
@@ -172,6 +198,18 @@ KERNELS = {
                           "bialign_tpu/ops/device_traceback.py:264"),
     "walk_nonaffine_batch": ("bialign_tpu_torch/csrc/walk.cu",
                              "bialign_tpu/ops/device_traceback.py:291"),
+    "ckpt_affine": ("bialign_tpu_torch/csrc/ckpt_affine.cu",
+                    "bialign_tpu/ops/pallas_dp.py:1944"),
+    "ckpt_nonaffine": ("bialign_tpu_torch/csrc/ckpt_nonaffine.cu",
+                       "bialign_tpu/ops/pallas_dp.py:2151"),
+    "block_affine": ("bialign_tpu_torch/csrc/block_affine.cu",
+                     "bialign_tpu/ops/pallas_dp.py:2065"),
+    "block_nonaffine": ("bialign_tpu_torch/csrc/block_nonaffine.cu",
+                        "bialign_tpu/ops/pallas_dp.py:2243"),
+    "walk_affine_block": ("bialign_tpu_torch/csrc/walk.cu",
+                          "bialign_tpu/ops/checkpoint_dp.py:362"),
+    "walk_nonaffine_block": ("bialign_tpu_torch/csrc/walk.cu",
+                             "bialign_tpu/ops/checkpoint_dp.py:451"),
 }
 
 # the kernels of each counted path
@@ -183,6 +221,9 @@ PATHS = {
               "cta_scores_ms0", "conveyor_scores"),
     "align": ("batch_fill_affine", "batch_fill_nonaffine",
               "walk_affine_batch", "walk_nonaffine_batch"),
+    "lowmem": ("ckpt_affine", "ckpt_nonaffine", "block_affine",
+               "block_nonaffine", "walk_affine_block",
+               "walk_nonaffine_block"),
 }
 
 # The goldens at max_shift 3 (computed with the JAX package, engines "xla"
@@ -223,11 +264,11 @@ def say(phase: str, **found) -> None:
 
 
 def counts() -> dict:
-    return {**cuda_dp.LAUNCHES, **dtb.LAUNCHES}
+    return {**cuda_dp.LAUNCHES, **dtb.LAUNCHES, **ckp.LAUNCHES}
 
 
 def reset_counts() -> None:
-    for table in (cuda_dp.LAUNCHES, dtb.LAUNCHES):
+    for table in (cuda_dp.LAUNCHES, dtb.LAUNCHES, ckp.LAUNCHES):
         for key in table:
             table[key] = 0
 
@@ -389,6 +430,7 @@ def phase_kernels(dev, errs: dict) -> None:
     """Each kernel against its plain twin on random tables."""
     beta, gamma, delta = AFFINE_PARAMS
     g2, d2 = NONAFFINE_PARAMS
+    lowmem_ran = []
     for n, m, S in SHAPES:
         rng = np.random.default_rng(SEED + 1000 * n + 10 * m + S)
         t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
@@ -400,11 +442,13 @@ def phase_kernels(dev, errs: dict) -> None:
         check(bk.final_score() == bp.final_score(), f"affine score {n, m, S}")
         errs["fill_affine"] = max(errs["fill_affine"], e)
         affine_band = bk
+        plain_bands = {True: bp}
         tk, ck = dtb.affine_traceback(bk, beta, gamma, delta, t1, t2)
         tp, cp = dtb.affine_traceback_plain(bp, beta, gamma, delta, t1, t2)
         e = trace_err(tk, tp)
         check(e == 0 and ck == cp, f"walk_affine trace ({n}, {m}, {S})")
         errs["walk_affine"] = max(errs["walk_affine"], e)
+        device_walks = {True: (tk, ck)}
 
         bk = cuda_dp.fill_nonaffine_device(t1, t2, S, g2, d2)
         bp = cuda_dp.fill_nonaffine_plain(t1, t2, S, g2, d2)
@@ -419,6 +463,10 @@ def phase_kernels(dev, errs: dict) -> None:
         check(e == 0, f"walk_nonaffine trace ({n}, {m}, {S})")
         errs["walk_nonaffine"] = max(errs["walk_nonaffine"], e)
         nonaffine_band = bk
+        plain_bands[False] = bp
+        device_walks[False] = tk
+        lowmem_ran.append(lowmem_kernels(dev, errs, t1, t2, S, plain_bands,
+                                         device_walks))
 
         # score-only: the last slab's live row against the plain twin's and
         # the band kernel's, on a ring of garbage; the score on a fresh one
@@ -465,7 +513,116 @@ def phase_kernels(dev, errs: dict) -> None:
         last_slabs_equal=True, traces_equal=True,
         buckets_n_m_b_shift_form_routes_own=buckets, bucket_scores_equal=True,
         bands_n_m_b_shift_form_diagonals_steps=bands,
-        bucket_bands_and_walks_equal=True, max_abs_err=errs)
+        bucket_bands_and_walks_equal=True,
+        lowmem_n_m_shift_form_blocksizes_blocks_twinblocks=lowmem_ran,
+        checkpoints_windows_block_walks_and_tracebacks_equal=True,
+        max_abs_err=errs)
+
+
+def lowmem_forms(affine: bool) -> tuple:
+    """(fill, its twin, block fill, its twin, block walk, its twin,
+    traceback, costs, the three counters) of one kind of checkpointed
+    band."""
+    if affine:
+        return (ckp.fill_affine_checkpoint, ckp.fill_affine_checkpoint_plain,
+                ckp.affine_block, ckp.affine_block_plain,
+                ckp.affine_block_walk, ckp.affine_block_walk_plain,
+                ckp.affine_traceback, AFFINE_PARAMS,
+                ("ckpt_affine", "block_affine", "walk_affine_block"))
+    return (ckp.fill_nonaffine_checkpoint, ckp.fill_nonaffine_checkpoint_plain,
+            ckp.nonaffine_block, ckp.nonaffine_block_plain,
+            ckp.nonaffine_block_walk, ckp.nonaffine_block_walk_plain,
+            ckp.nonaffine_traceback, NONAFFINE_PARAMS,
+            ("ckpt_nonaffine", "block_nonaffine", "walk_nonaffine_block"))
+
+
+def tensor_err(a, b) -> int:
+    """Max |a - b| over two int32 tensors of one shape, every element."""
+    check(a.shape == b.shape, f"shapes {tuple(a.shape)} {tuple(b.shape)}")
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def window_from_band(cb, b, band, junk):
+    """What block b's window must hold after its fill, from the full band
+    of the plain twin: the checkpoint's two slabs (block 0: untouched), the
+    live rows of the block's diagonals, and ``junk`` everywhere else."""
+    want = junk.clone()
+    d0 = b * cb.block
+    if b:
+        want[0], want[1] = cb.ckpts[b, 1], cb.ckpts[b, 0]
+    i = torch.arange(cb.n + 1, device=junk.device)
+    for x in range(2, want.shape[0]):
+        d = d0 + x - 2
+        if d > cb.n + cb.m:
+            break
+        live = (i <= d) & (d - i <= cb.m)
+        want[x] = torch.where(live, band.ys[d], want[x])
+    return want
+
+
+def lowmem_kernels(dev, errs: dict, t1, t2, S, plain_bands, device_walks):
+    """K9-K12 and the blockwise walks of one shape against their twins, at
+    several block sizes, all memory pre-filled with garbage.  The twin fill
+    runs once, at C = 1, where it saves every diagonal: the ring's contents
+    do not depend on C, so the kernel's ckpts[b] at any C must equal the
+    twin's ckpts[b * C] in every cell, and the last slab the twin's.  Every
+    block's window must equal what the twin's full band gives it (and the
+    block twin's own window, on every block of a short band and on three of
+    a long one), every block walk's tensor the host walk's over that
+    window, and the whole traceback the full-band device walk."""
+    n, m = t1.shape[0] - 1, t1.shape[1] - 1
+    D = n + m + 1
+    ran = []
+    for affine in (True, False):
+        (fill, fill_plain, block, block_plain, walk, walk_plain, traceback,
+         costs, (ckpt_name, block_name, walk_name)) = lowmem_forms(affine)
+        W = 2 * S + 1
+        slab = ((9,) if affine else ()) + (W, W, n + 1)
+        ring = garbage_band((3, *slab), dev)
+        twin = fill_plain(t1, t2, S, *costs, block=1, ring=ring.clone(),
+                          ckpts=garbage_band((D, 2, *slab), dev))
+        sizes = sorted({*SMALL_BLOCKS, ckp.default_block(D), D + 4})
+        for C in sizes:
+            NB = (n + m) // C + 1
+            junk = garbage_band((NB, 2, *slab), dev)
+            cb = fill(t1, t2, S, *costs, block=C, ring=ring.clone(),
+                      ckpts=junk.clone())
+            check((cb.block, cb.n_blocks) == (C, NB), f"blocks {C, NB}")
+            want = junk.clone()
+            want[1:] = twin.ckpts[C::C]
+            e = max(tensor_err(cb.ckpts, want),
+                    tensor_err(cb.final, twin.final))
+            check(e == 0, f"{ckpt_name} {n, m, S} C {C}: max |err| {e}")
+            errs[ckpt_name] = max(errs[ckpt_name], e)
+            check(cb.final_score() == plain_bands[affine].final_score(),
+                  f"{ckpt_name} {n, m, S} C {C}: score")
+
+            walk_k, walk_p = ckp.new_walk(cb), ckp.new_walk(cb, "cpu")
+            twinned = (range(NB) if D <= BLOCK_TWIN_DIAGONALS
+                       else {0, NB // 2, NB - 1})
+            for b in range(NB - 1, -1, -1):
+                junk = garbage_band(cb.window_shape, dev)
+                window = block(cb, b, window=junk.clone())
+                e = tensor_err(window, window_from_band(
+                    cb, b, plain_bands[affine], junk))
+                if b in twinned:
+                    e = max(e, tensor_err(
+                        window, block_plain(cb, b, window=junk)))
+                check(e == 0, f"{block_name} {n, m, S} C {C} block {b}: "
+                      f"max |err| {e}")
+                errs[block_name] = max(errs[block_name], e)
+                walk(cb, b, window, walk_k)
+                walk_plain(cb, b, window, walk_p)
+                e = tensor_err(walk_k.cpu(), walk_p)
+                check(e == 0, f"{walk_name} {n, m, S} C {C} block {b}: "
+                      f"max |err| {e} in the walk's state and codes")
+                errs[walk_name] = max(errs[walk_name], e)
+            check(traceback(cb, *costs) == device_walks[affine],
+                  f"blockwise traceback {n, m, S} C {C} differs from the "
+                  "full-band device walk")
+            ran.append([n, m, S, "affine" if affine else "nonaffine", C, NB,
+                        len(twinned)])
+    return ran
 
 
 def mixed_lengths(rng, N, M, B):
@@ -1288,6 +1445,347 @@ def phase_align_main(mol, batches, md5, G) -> tuple[dict, dict]:
     return found, dispatchers
 
 
+LOWMEM_GOLDEN_BLOCKS = (2, 7)    # many block edges under a short trace
+
+
+def replay_affine(trace, mu1, mu2, beta, gamma, delta) -> tuple:
+    """An affine trace's score summed column by column on the host, as
+    BiAligner._eval_affine_trace does, and where its columns end."""
+    total, state, idx = 0, [1, 1, 1, 1], [0, 0, 0, 0]
+    for y in trace:
+        idx = [a + b for a, b in zip(idx, y)]
+        i, j, k, l = idx
+        mu1c, mu2c, ng, nb, nd = affine_score_multiplicities(state, y)
+        total += (ng * gamma + nb * beta + nd * delta
+                  + mu1c * int(mu1[i, j]) + mu2c * int(mu2[k, l]))
+        state = [*(y[:2] if y[0] or y[1] else state[:2]),
+                 *(y[2:] if y[2] or y[3] else state[2:])]
+    return total, tuple(idx)
+
+
+def timed_traceback(cb) -> tuple:
+    """The blockwise traceback of ``cb`` as checkpoint_dp._traceback queues
+    it, with CUDA events around every block's fill and every block's walk
+    (nothing is waited for until the last): (trace or (trace, complete),
+    ms of all block fills, ms of all block walks, seconds on the host clock
+    with the one copy back)."""
+    (_fill, _fp, block, _bp, walk_fn, _wp, _tb, _costs, _names) = \
+        lowmem_forms(cb.affine)
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walk, window = ckp.new_walk(cb), None
+    for b in range(cb.n_blocks - 1, -1, -1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        window = block(cb, b, window=window)
+        ev[1].record()
+        walk_fn(cb, b, window, walk)
+        ev[2].record()
+        marks.append(ev)
+    res = walk.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    steps, done = int(res[ckp.STATE]), int(res[ckp.STATE + 1])
+    codes = res[ckp.STATE + 3:ckp.STATE + 3 + steps]
+    result = (ckp._affine_result if cb.affine else ckp._nonaffine_result)(
+        codes, done, res[:ckp.STATE])
+    return (result, sum(a.elapsed_time(b) for a, b, _c in marks),
+            sum(b.elapsed_time(c) for _a, b, c in marks), seconds)
+
+
+def lowmem_stages(fill, what: str) -> tuple:
+    """One checkpointed fill and its timed traceback, with the peak device
+    memory above what was allocated before: (band, result, report)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fill_ms, cb = cuda_ms(fill, reps=1)
+    result, blocks_ms, walks_ms, seconds = timed_traceback(cb)
+    launches = cb.n + cb.m + 1
+    return cb, result, dict(
+        what=what, block=cb.block, blocks=cb.n_blocks,
+        checkpoint_bytes=cb.ckpts.numel() * 4,
+        window_bytes=int(np.prod(cb.window_shape)) * 4,
+        ckpt_fill_ms=fill_ms, ckpt_us_per_launch=fill_ms * 1e3 / launches,
+        block_fills_ms=blocks_ms,
+        block_us_per_launch=blocks_ms * 1e3 / launches,
+        block_walks_ms=walks_ms, traceback_s=seconds,
+        peak_bytes_above_tables=torch.cuda.max_memory_allocated() - base)
+
+
+def lowmem_dnapol(mol, md5) -> dict:
+    """The DNA-Pol-1 pair through BiAligner(lowmem=True): the golden score
+    and md5 anchors at affine max_shift 1, and there, at max_shift 2 and at
+    the non-affine CLI defaults the band path's score and trace; end-to-end
+    times and peak memory of both paths."""
+    found = {}
+    for name, params, want in (
+            ("affine_ms1", DNAPOL_FULL, 761500),
+            ("affine_ms2", dict(DNAPOL_FULL, max_shift=2), 768650),
+            ("nonaffine_ms2_cli_defaults", DNAPOL_CLI_DEFAULTS, 288000)):
+        runs = {}
+        for path, kw in (("lowmem", dict(lowmem=True)), ("band", {})):
+            run_e2e(mol, params, **kw)                        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seconds, score, lines, ba = run_e2e(mol, params, **kw)
+            trace = ba.traceback()
+            del ba                          # one run's memory at a time
+            runs[path] = dict(
+                score=score,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                e2e_s=[seconds] + [run_e2e(mol, params, **kw)[0]
+                                   for _ in range(2)],
+                alignment=(score, trace, lines))
+        low, band = (runs[k].pop("alignment") for k in ("lowmem", "band"))
+        check(low[0] == want, f"lowmem {name}: score {low[0]} != {want}")
+        check(low == band, f"lowmem {name}: score, trace or lines differ "
+              "from the band path's")
+        if name == "affine_ms1":
+            check(md5_anchors(low[2]) == md5, "lowmem md5 anchors")
+            runs["md5_anchors"] = "all 6 equal"
+        runs["columns"] = len(low[1])
+        runs["equal_to_band_path"] = True
+        found[name] = runs
+    return found
+
+
+def lowmem_goldens(G) -> dict:
+    """The toy goldens and the max_shift 3 goldens through
+    BiAligner(lowmem=True) at small block sizes, the verbose replay (which
+    reads a non-affine band's cells block by block) and one --lowmem CLI
+    run in a subprocess."""
+    found = {}
+    cases = [
+        ("toy_rna_affine", G.TOY_RNA, G.TOY_RNA_AFFINE_PARAMS,
+         G.TOY_RNA_AFFINE_SCORE, G.TOY_RNA_AFFINE_DEFAULT_OUT),
+        ("toy_rna_nonaffine", G.TOY_RNA, G.TOY_RNA_NONAFFINE_PARAMS,
+         G.TOY_RNA_NONAFFINE_SCORE, G.TOY_RNA_NONAFFINE_DEFAULT_OUT),
+        ("toy_protein_sorted", G.TOY_PROTEIN, G.TOY_PROTEIN_PARAMS,
+         G.TOY_PROTEIN_SCORE, G.TOY_PROTEIN_SORTED_OUT),
+    ] + [(f"max_shift_3_{name}", mol, MS3_PARAMS, score, lines)
+         for name, (mol, score, lines) in MS3_GOLDENS.items()]
+    for name, mol, params, score, lines in cases:
+        want = list(BiAligner(**mol, **params).eval_trace())
+        for block in (None, *LOWMEM_GOLDEN_BLOCKS):
+            ba = BiAligner(**mol, **params, lowmem=True,
+                           checkpoint_block=block)
+            check(ba.optimize() == score and list(ba.decode_trace()) == lines,
+                  f"lowmem golden {name} at block {block}")
+            check(list(ba.eval_trace()) == want,
+                  f"lowmem golden {name} at block {block}: eval_trace")
+        found[name] = score
+
+    mol, p = G.TOY_RNA, G.TOY_RNA_AFFINE_PARAMS
+    argv = [mol["seqA"], mol["seqB"], "--strA", mol["strA"],
+            "--strB", mol["strB"],
+            "--structure_weight", str(p["structure_weight"]),
+            "--gap_opening_cost", str(p["gap_opening_cost"]),
+            "--gap_cost", str(p["gap_cost"]),
+            "--max_shift", str(p["max_shift"]),
+            "--shift_cost", str(p["shift_cost"]), "--lowmem"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "bialign_tpu_torch.cli", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    want = (["Input:"]
+            + [f"{k}\t {mol[k]}" for k in ("seqA", "seqB", "strA", "strB")]
+            + [f"SCORE: {G.TOY_RNA_AFFINE_SCORE}", ""]
+            + G.TOY_RNA_AFFINE_DEFAULT_OUT)
+    check(proc.returncode == 0,
+          f"CLI --lowmem exit {proc.returncode}: {proc.stderr[-2000:]}")
+    check(proc.stdout.splitlines() == want,
+          f"CLI --lowmem stdout {proc.stdout!r}")
+    found["cli_toy_rna_affine_lowmem"] = "stdout equal"
+    return found
+
+
+def lowmem_big_pair(dev) -> dict:
+    """The 4000x3990 pair, affine max_shift 1: the checkpointed fill and
+    the blockwise traceback against the band kernel and its walk (score,
+    trace, complete flag), with the times and peak memories of both."""
+    n, m, S = BIG_PAIR
+    t1, t2 = tables_to_torch(
+        *rand_tables(np.random.default_rng(SEED), n, m), dev)
+    fill = lambda: ckp.fill_affine_checkpoint(  # noqa: E731
+        t1, t2, S, *AFFINE_PARAMS)
+    fill()                                                    # warm-up
+    _cb, low, report = lowmem_stages(fill, f"{n}x{m} affine max_shift {S}")
+    del _cb
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fill_ms, band = cuda_ms(
+        lambda: cuda_dp.fill_affine_device(t1, t2, S, *AFFINE_PARAMS), reps=1)
+    score = band.final_score()
+    walk_ms, full = cuda_ms(
+        lambda: dtb.affine_traceback(band, *AFFINE_PARAMS, t1, t2), reps=1)
+    report["band_path"] = dict(
+        fill_ms=fill_ms, walk_ms=walk_ms, band_bytes=band.ys.numel() * 4,
+        peak_bytes_above_tables=torch.cuda.max_memory_allocated() - base)
+    del band
+    check(low == full, f"{n}x{m}: the blockwise trace or its complete flag "
+          "differs from the band path's")
+    low_score = fill().final_score()
+    check(low_score == score, f"{n}x{m}: lowmem score {low_score} != {score}")
+    return dict(report, score=score, columns=len(low[0]), complete=low[1],
+                equal_to_band_path=True)
+
+
+def lowmem_huge_pair(dev) -> dict:
+    """A 13000x12990 pair of random tables, affine max_shift 1, whose band
+    would take 109 GB: the checkpointed score against affine_score, the
+    trace complete, its columns summing to the pair's lengths, its score
+    replayed column by column on the host."""
+    n, m, S = HUGE_PAIR
+    mu1, mu2 = rand_tables(np.random.default_rng(SEED + 1), n, m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1, t2 = tables_to_torch(mu1, mu2, dev)
+    score_s, want = timed(
+        lambda: cuda_dp.affine_score(t1, t2, S, *AFFINE_PARAMS))
+    cb, (trace, complete), report = lowmem_stages(
+        lambda: ckp.fill_affine_checkpoint(t1, t2, S, *AFFINE_PARAMS),
+        f"{n}x{m} affine max_shift {S}")
+    peak = torch.cuda.max_memory_allocated()
+    score = cb.final_score()
+    check(score == want, f"{n}x{m}: lowmem score {score} != affine_score "
+          f"{want}")
+    check(complete, f"{n}x{m}: incomplete traceback")
+    replayed, end = replay_affine(trace, mu1, mu2, *AFFINE_PARAMS)
+    check(end == (n, m, n, m), f"{n}x{m}: the trace's columns sum to {end}")
+    check(replayed == score, f"{n}x{m}: replayed score {replayed} != {score}")
+    band_bytes = (n + m + 1) * 9 * (2 * S + 1) ** 2 * (n + 1) * 4
+    return dict(report, score=score, affine_score_s=score_s,
+                columns=len(trace), complete=True, replayed_score=replayed,
+                table_bytes=2 * t1.numel() * 4,
+                max_memory_allocated=peak, full_band_bytes=band_bytes,
+                device_memory_bytes=torch.cuda.get_device_properties(
+                    dev).total_memory)
+
+
+def phase_lowmem_main(mol, md5, G, dev) -> dict:
+    """The low-memory path (counted launches)."""
+    return dict(goldens=lowmem_goldens(G), dnapol=lowmem_dnapol(mol, md5),
+                big_pair=lowmem_big_pair(dev),
+                huge_pair=lowmem_huge_pair(dev))
+
+
+def block_bound(cb, b: int, cases: int, states: int):
+    """Bound of one block's fill: the checkpoint's two slabs and the block's
+    table entries read once, the window's slabs (the block's diagonals and
+    the two copied in) written once; the operations of the block's cells."""
+    n, m, S = cb.n, cb.m, cb.max_shift
+    d = np.arange(b * cb.block, min((b + 1) * cb.block, n + m + 1))
+    cells = int((np.minimum(n, d) - np.maximum(0, d - m) + 1).sum())
+    W2 = (2 * S + 1) ** 2
+    slab = states * W2 * (n + 1) * 4
+    return bound(2 * slab + 2 * cells * 4 + (len(d) + 2) * slab,
+                 cells * W2 * states * cases * 2)
+
+
+def phase_lowmem_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
+    """K9-K12 and the blockwise walks against their twins at the DNA-Pol-1
+    shapes (not counted).  The checkpointed fill in turns with the
+    score-only fill (what saving costs), and once from a ring and a
+    checkpoint buffer of garbage beside the twin from the same garbage: all
+    equal.  One block (the middle one) beside its twin, into the same
+    garbage.  The traceback with events around every block's fill and walk;
+    the host walk block by block over the kernel's windows, on the host
+    clock, its tensor equal to the kernel's.  Returns (times, bounds,
+    more)."""
+    seqA, strA, seqB, strB = mol
+    times, bounds, more = {}, {}, {}
+    dev = torch.device("cuda")
+    for affine, params in ((True, DNAPOL_FULL), (False, DNAPOL_CLI_DEFAULTS)):
+        (fill, fill_plain, block, block_plain, walk_fn, walk_plain, _tb,
+         _costs, (ckpt_name, block_name, walk_name)) = lowmem_forms(affine)
+        ba = BiAligner(seqA, seqB, strA, strB, **params)
+        t1, t2 = tables_to_torch(ba.mu1, ba.mu2, dev)
+        S, n, m = ba.max_shift, len(seqA), len(seqB)
+        p = (ba.beta, ba.gamma, ba.delta) if affine else (ba.gamma, ba.delta)
+        cases, states = (15, 9) if affine else (13, 1)
+        score = cuda_dp.affine_last_slab if affine \
+            else cuda_dp.nonaffine_last_slab
+        runs = {"score_only": lambda: score(t1, t2, S, *p),
+                "checkpointed": lambda: fill(t1, t2, S, *p)}
+        turns = {name: [] for name in runs}
+        runs["checkpointed"]()                                # warm-up
+        for name in ("score_only", "checkpointed", "checkpointed",
+                     "score_only"):
+            turns[name].append(cuda_ms(runs[name], reps=3)[0])
+
+        cb = runs["checkpointed"]()
+        junk = garbage_band(tuple(cb.ckpts.shape), dev)
+        ring = garbage_band((3, *cb.final.shape), dev)
+        got = fill(t1, t2, S, *p, ring=ring.clone(), ckpts=junk.clone())
+        ms_p, twin = cuda_ms(lambda: fill_plain(t1, t2, S, *p, ring=ring,
+                                                ckpts=junk), reps=1)
+        e = max(tensor_err(got.ckpts, twin.ckpts),
+                tensor_err(got.final, twin.final))
+        check(e == 0, f"{ckpt_name} DNA-Pol checkpoints: max |err| {e}")
+        errs[ckpt_name] = max(errs[ckpt_name], e)
+        times[ckpt_name] = (min(turns["checkpointed"]), ms_p)
+        b_ms, b_by = dp_bound(n, m, S, cases, states, band=False)
+        saved = (cb.n_blocks - 1) * 2 * cb.final.numel() * 4
+        bounds[ckpt_name] = bound(
+            2 * (n + 1) * (m + 1) * 4 + cb.final.numel() * 4 + saved,
+            (n + 1) * (m + 1) * (2 * S + 1) ** 2 * states * cases * 2)
+        del got, twin, junk, ring
+
+        mid = cb.n_blocks // 2
+        junk = garbage_band(cb.window_shape, dev)
+        ms_b, _w = cuda_ms(lambda: block(cb, mid), reps=5)
+        window = block(cb, mid, window=junk.clone())
+        ms_bp, want = cuda_ms(lambda: block_plain(cb, mid, window=junk),
+                              reps=1)
+        e = tensor_err(window, want)
+        check(e == 0, f"{block_name} DNA-Pol block {mid}: max |err| {e}")
+        errs[block_name] = max(errs[block_name], e)
+        times[block_name] = (ms_b, ms_bp)
+        bounds[block_name] = block_bound(cb, mid, cases, states)
+        del junk, want
+
+        timed_traceback(cb)                                   # warm-up
+        result, blocks_ms, walks_ms, seconds = timed_traceback(cb)
+        walk_k, walk_p = ckp.new_walk(cb), ckp.new_walk(cb, "cpu")
+        host_ms = 0.0
+        for b in range(cb.n_blocks - 1, -1, -1):
+            window = block(cb, b, window=window)
+            walk_fn(cb, b, window, walk_k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            walk_plain(cb, b, window, walk_p)
+            host_ms += (time.perf_counter() - t0) * 1e3
+        e = tensor_err(walk_k.cpu(), walk_p)
+        check(e == 0, f"{walk_name} DNA-Pol: max |err| {e} in the walk's "
+              "state and codes")
+        errs[walk_name] = max(errs[walk_name], e)
+        steps = int(walk_p[ckp.STATE])
+        times[walk_name] = (walks_ms, host_ms)
+        bounds[walk_name] = walk_bound(steps, cases)
+        launches = n + m + 1
+        more[ckpt_name] = dict(
+            block=cb.block, blocks=cb.n_blocks, turns_ms=turns,
+            us_per_launch=min(turns["checkpointed"]) * 1e3 / launches,
+            score_only_us_per_launch=min(turns["score_only"]) * 1e3
+            / launches,
+            saving_costs_share=min(turns["checkpointed"])
+            / min(turns["score_only"]) - 1,
+            checkpoint_bytes=cb.ckpts.numel() * 4,
+            score_only_bound_ms=b_ms, score_only_bound_by=b_by)
+        more[block_name] = dict(
+            one_block=mid, diagonals=cb.window_shape[0] - 2,
+            window_bytes=int(np.prod(cb.window_shape)) * 4,
+            all_block_fills_ms=blocks_ms,
+            us_per_launch=blocks_ms * 1e3 / launches)
+        more[walk_name] = dict(columns=steps, launches=cb.n_blocks,
+                               all_block_walks_ms=walks_ms,
+                               traceback_s=seconds)
+    return times, bounds, more
+
+
 # fill kernel of the kernels line -> (batch of phase_batch_main, its walk,
 # cases, states)
 ALIGN_TIMED = {
@@ -1544,6 +2042,34 @@ def profiled_run(run, n: int, m: int, trace_path: Path) -> dict:
     )
 
 
+def profiled_lowmem(run, n: int, m: int, trace_path: Path) -> dict:
+    """One end-to-end lowmem ``run()`` of an n x m pair under
+    torch.profiler: the summary of :func:`traced`; the DP kernels (the
+    checkpointed fill's, then the block fills': twice n+m+1), the block
+    walks, the slab copies, the copies back to the host, and the longest
+    time the device stood still between the first and the last DP kernel
+    (a host round trip between blocks would show there)."""
+    summary, dev = traced(run, trace_path)
+    fills, dur, gaps = dp_kernel_stats(dev, ("_diag",))
+    check(len(fills) == 2 * (n + m + 1), f"{len(fills)} DP kernels traced")
+    walks, walk_dur, _g = dp_kernel_stats(dev, ("walk_",))
+    half = n + m + 1
+    inside = [(s, f) for s, f, _name in dev         # the traceback's events
+              if fills[half][0] <= s and f <= fills[-1][1]]
+    still = max((b[0] - a[1] for a, b in zip(inside, inside[1:])),
+                default=0.0)
+    copies = {name: k for name, k in summary["kernels"].items()
+              if "Memcpy" in name or "Memset" in name}
+    return dict(
+        summary,
+        ckpt_fill=dict(kernels=half, mean_us=dur[:half].mean(),
+                       mean_gap_us=gaps[:half - 1].mean()),
+        block_fills=dict(kernels=half, mean_us=dur[half:].mean(),
+                         mean_gap_us=gaps[half:].mean()),
+        block_walks=dict(kernels=len(walks), total_us=walk_dur.sum()),
+        copies=copies, longest_device_standstill_us=still)
+
+
 def staged_batch(tables, S, params, affine, quantum) -> dict:
     """One batch timed stage by stage on the host clock: buckets, stacks
     and their copy to the card (closed by a device sync), the queueing of
@@ -1654,6 +2180,12 @@ def phase_profile(mol, batches, aligners, out: Path) -> None:
             staged=[staged_run(mol, params) for _ in range(3)],
             profile=profiled_run(lambda: run_e2e(mol, params), n, m,
                                  out / f"trace_{name}.json"))
+    lowmem = dict(DNAPOL_FULL, lowmem=True)
+    run_e2e(mol, lowmem)
+    report["lowmem_affine_ms1"] = dict(
+        staged=[staged_run(mol, lowmem) for _ in range(3)],
+        profile=profiled_lowmem(lambda: run_e2e(mol, lowmem), n, m,
+                                out / "trace_lowmem_affine_ms1.json"))
     for name, params, _want in SCORED:
         score = lambda: score_only(*port_tables(mol, params))  # noqa: E731
         score()
@@ -1750,6 +2282,11 @@ def main() -> int:
     say("5 full size, batched alignments and codes", nvidia_smi=smi,
         **full_align)
 
+    reset_counts()
+    full_lowmem = phase_lowmem_main(mol, md5, G, dev)
+    launches.update(path_counts("lowmem"))
+    say("5 full size, low memory", nvidia_smi=smi, **full_lowmem)
+
     times, bounds = phase_full_timing(mol, errs)
     batch_times, batch_bounds, more = phase_batch_timing(batches, errs)
     times.update(batch_times)
@@ -1758,6 +2295,10 @@ def main() -> int:
     times.update(align_times)
     bounds.update(align_bounds)
     more.update(align_more)
+    lowmem_times, lowmem_bounds, lowmem_more = phase_lowmem_timing(mol, errs)
+    times.update(lowmem_times)
+    bounds.update(lowmem_bounds)
+    more.update(lowmem_more)
     say("5 kernel times", nvidia_smi=smi,
         ms_kernel_vs_plain={k: {"kernel_ms": v[0], "plain_ms": v[1],
                                 "bound_ms": bounds[k][0],

@@ -61,8 +61,12 @@ _PROTEIN = [G.TOY_PROTEIN["seqA"], G.TOY_PROTEIN["seqB"],
     _RNA + _RNA_AFFINE + ["-v", "--outmode", "full"],
     _RNA + ["-v"],                               # non-affine CLI defaults
     _PROTEIN,
+    _RNA + _RNA_AFFINE + ["--lowmem", "-v"],
+    _RNA + ["--lowmem", "-v"],                   # reads cells block by block
+    _PROTEIN + ["--lowmem"],
 ], ids=["rna_affine", "rna_affine_verbose_full", "rna_defaults_verbose",
-        "protein_sorted"])
+        "protein_sorted", "rna_affine_lowmem_verbose",
+        "rna_defaults_lowmem_verbose", "protein_sorted_lowmem"])
 def test_cli_output_equals_jax_cli(capsys, argv):
     jax_main(argv + ["--engine", "xla"])
     want = capsys.readouterr().out

@@ -15,6 +15,7 @@ import bialign_tpu.data
 import bialign_tpu.io
 import bialign_tpu.models.molecule
 import bialign_tpu.ops.cases
+import bialign_tpu.ops.checkpoint_dp
 import bialign_tpu.ops.traceback
 import bialign_tpu.parallel.batch
 import bialign_tpu.render.decode
@@ -32,6 +33,7 @@ import bialign_tpu_torch.data
 import bialign_tpu_torch.io
 import bialign_tpu_torch.models.molecule
 import bialign_tpu_torch.ops.cases
+import bialign_tpu_torch.ops.checkpoint_dp
 import bialign_tpu_torch.ops.traceback
 import bialign_tpu_torch.parallel.batch
 import bialign_tpu_torch.render.decode
@@ -274,6 +276,14 @@ def test_host_walk_on_an_oracle_band(n, m, S):
     got = T.ops.traceback.nonaffine_traceback(H, mu1, mu2, S, -200, -250)
     want = J.ops.traceback.nonaffine_traceback(H, mu1, mu2, S, -200, -250)
     assert _same(got, want) and len(got) >= max(n, m)
+
+
+# -- ops/checkpoint_dp.py ----------------------------------------------------
+
+@pytest.mark.parametrize("D", [1, 8, 31, 32, 33, 85, 1862, 7991, 25991])
+def test_default_block(D):
+    assert (T.ops.checkpoint_dp.default_block(D)
+            == J.ops.checkpoint_dp.default_block(D))
 
 
 # -- render/decode.py, aligner -----------------------------------------------

@@ -55,6 +55,7 @@ def test_port_imports_and_runs_with_jax_blocked():
     modules = list(_port_modules())
     assert "bialign_tpu_torch.ops.cuda_dp" in modules
     assert "bialign_tpu_torch.scoring.tables" in modules
+    assert "bialign_tpu_torch.ops.checkpoint_dp" in modules
     proc = subprocess.run([sys.executable, "-c", code, *modules], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -99,8 +100,9 @@ def test_unknown_engine_is_refused():
 
 
 @pytest.mark.parametrize("params,item", [
-    (dict(lowmem=True), "P13"),
+    (dict(lowmem=True, seqsplit_mesh=object()), "P15"),
     (dict(seqsplit_mesh=object()), "P15"),
+    (dict(lowmem=True, gap_cost=-10 ** 8), "P2"),
     (dict(gap_cost=-10 ** 8), "P2"),       # fails check_int32_safe
 ])
 def test_unported_modes_raise(params, item):

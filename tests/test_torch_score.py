@@ -265,6 +265,31 @@ def test_score_entry_points_refuse_unsafe_scores():
     assert isinstance(cuda_dp.affine_score(t1, t2, 1, -150, -50, -150), int)
 
 
+@pytest.mark.parametrize("n,m", [(6, 6), (3, 40), (25, 0)])
+def test_the_refusal_is_check_int32_safe_on_the_tables(n, m):
+    """The entry points' check, made from the tables' largest magnitude and
+    n + m alone, decides as check_int32_safe does on the tables themselves,
+    on either side of its limit."""
+    from bialign_tpu.ops.cases import check_int32_safe, int32_value_bound
+    mu1, mu2 = _pair(n, m, 1)
+    t1, t2 = _tables(mu1, mu2)
+    peak = max(int(np.abs(mu1).max(initial=0)),
+               int(np.abs(mu2).max(initial=0)))
+    # the largest |gap_cost| the check lets pass, within rounding
+    edge = ((1 << 30) - (1 << 20)) // (2 * (n + m + 2)) // 2 - 250 - peak
+    for gamma, want in ((-50, True), (-(edge - 3), True),
+                        (-(edge + 3), False), (-10 ** 8, False)):
+        costs = dict(gap_cost=gamma, gap_opening_cost=0, shift_cost=-250)
+        assert check_int32_safe(mu1, mu2, costs) is want
+        assert int32_value_bound(mu1, mu2, costs) \
+            == 2 * (n + m + 2) * 2 * (-gamma + 250 + peak)
+        if want:
+            cuda_dp._require_int32_safe(t1, t2, gamma, -250)
+        else:
+            with pytest.raises(NotImplementedError, match="P2"):
+                cuda_dp._require_int32_safe(t1, t2, gamma, -250)
+
+
 def test_score_entry_points_reject_bad_tables_and_rings():
     t1, t2 = _tables(*_pair(4, 4, 1))
     with pytest.raises(ValueError, match="int32"):
