@@ -19,14 +19,21 @@ Engines (``engine=``; the device is explicit, ``device=``):
   device; raises otherwise.
 * ``"torch"``: the plain PyTorch twins of the kernels, on any device.
 
+Tables and costs that fail the int32 check
+(:func:`~bialign_tpu_torch.ops.cases.check_int32_safe`) take the int64
+engine whichever engine was asked for, with a ``RuntimeWarning``, as the
+JAX package does: the plain recurrence at int64 on the aligner's device
+(``cuda_dp.fill_*_plain(dtype=torch.int64)``, a full band also with
+``lowmem=True``), the host walk and the decode on that band.
+
 Not in this port yet, and refused with ``NotImplementedError`` rather than
-run some other way: ``seqsplit_mesh`` (ROADMAP P15) and the int64 engine
-for tables that fail the int32 check (P2).
+run some other way: ``seqsplit_mesh`` (ROADMAP P15).
 """
 
 from __future__ import annotations
 
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -111,6 +118,7 @@ class BiAligner:
             self.molA, self.molB, self._params, is_rna=self._is_rna
         )
         self._band = None
+        self._int64 = False     # the band is the int64 engine's
 
     @property
     def _is_rna(self) -> bool:
@@ -141,11 +149,25 @@ class BiAligner:
                 "seqsplit_mesh (one pair over several devices) is not "
                 "ported yet: ROADMAP.md Queue 1 P15"
             )
+        costs = ((self.beta, self.gamma, self.delta) if self._affine
+                 else (self.gamma, self.delta))
         if not check_int32_safe(self.mu1, self.mu2, self._params):
-            raise NotImplementedError(
-                "these scores exceed the certified int32 range and need the "
-                "int64 engine, which is not ported yet: ROADMAP.md Queue 1 P2"
-            )
+            # the int32 range cannot be certified: the int64 engine, as the
+            # JAX package's aligner runs its int64 XLA fill
+            warnings.warn(
+                "scoring parameters exceed the certified int32 range; using "
+                "the int64 engine (the plain PyTorch recurrence at int64 on "
+                f"{self.device}, slower than the int32 kernels)",
+                RuntimeWarning, stacklevel=3)
+            mu1, mu2 = (torch.from_numpy(np.ascontiguousarray(mu, np.int64))
+                        .to(self.device) for mu in (self.mu1, self.mu2))
+            self._mu1_t, self._mu2_t = mu1, mu2
+            fill = (cuda_dp.fill_affine_plain if self._affine
+                    else cuda_dp.fill_nonaffine_plain)
+            self._band = fill(mu1, mu2, self.max_shift, *costs,
+                              dtype=torch.int64)
+            self._int64 = True
+            return
         mu1, mu2 = tables_to_torch(self.mu1, self.mu2, self.device)
         self._mu1_t, self._mu2_t = mu1, mu2
         cuda = self._engine == "cuda"
@@ -163,8 +185,6 @@ class BiAligner:
                      (cuda_dp.fill_nonaffine_device,
                       cuda_dp.fill_nonaffine_plain))
         fill = fills[0 if self._affine else 1][0 if cuda else 1]
-        costs = ((self.beta, self.gamma, self.delta) if self._affine
-                 else (self.gamma, self.delta))
         self._band = fill(mu1, mu2, self.max_shift, *costs, **more)
 
     def optimize(self) -> int:
@@ -176,7 +196,9 @@ class BiAligner:
         """Trace columns of one optimal alignment (pyx:513-586)."""
         if self._band is None:
             self.optimize()
-        cuda = self._engine == "cuda"
+        # the CUDA walk reads int32 bands; the int64 engine's is walked on
+        # the host
+        cuda = self._engine == "cuda" and not self._int64
         if isinstance(self._band, checkpoint_dp.CheckpointBand):
             mod, tables = checkpoint_dp, ()     # the band holds its tables
         else:

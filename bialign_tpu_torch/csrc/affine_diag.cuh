@@ -1,15 +1,17 @@
 // One row of one diagonal of the affine recurrence of one pair: the device
-// function `Affine::row` that every affine kernel instantiates, so that
-// band, score and batch cannot drift apart:
-//   csrc/fill_affine.cu (K1, band mode) and csrc/score_affine.cu (K1,
-//   score-only mode) through the per-diagonal kernel `affine_diag` below;
+// function `Affine::row` that the bucket kernels instantiate:
 //   csrc/batch_affine.cu (K4, both modes) through csrc/batch_diag.cuh;
 //   csrc/cta_scores.cu (K6, affine form) through csrc/cta_scores.cuh;
 //   csrc/conveyor_scores.cu (K8, affine form) through csrc/conveyor.cuh.
+// The single-pair fills K1 and K9-K12 run the tile kernel of
+// csrc/tile_diag.cuh, the same recurrence over a tile of rows a CTA; the
+// next step moves these drivers onto it too (its device function takes a
+// pair's slab base, tables and row range).  Until then the two are held
+// to the same plain twins on the card (chip_smoke.py, phase 3).
 //
 // Replaces bialign_tpu/ops/pallas_dp.py:_affine_kernel with its slab
-// update _make_update (launched by _affine_pallas).  Same recurrence, same
-// int32 values on every genuine cell: group A (9 full columns, one per
+// update _make_update, as the batched kernels use it.  Same recurrence,
+// same int32 values on every genuine cell: group A (9 full columns, one per
 // source state), group C (seq-only half columns), group B (str-only half
 // columns, within the diagonal, in ascending t = sk + sl), the INVALID mask
 // of a failed guard, INVALID -> NEG_INF, and the origin's initial values.
@@ -27,16 +29,13 @@
 // a bucket's zero-padded stack [N+1, M+1] (ld = M+1, P = N+1), bounded by
 // the pair's own n, m either way.
 //
-// What bounds the per-diagonal kernel on an H100 80GB HBM3 at 700 W
+// What bounds the bucket kernels that run it on an H100 80GB HBM3 at 700 W
 // (measured; PERF.md, Findings): the length of one thread's chain of
 // dependent loads.  Each case group's loads sit behind that group's guard
 // branch, which the compiler does not hoist them above, so a thread's
 // groups load one after another: 81 (position, state) pairs x 3 groups,
-// about 243 serial L2 round trips.  A launch takes about 51 us on diagonals
-// of <= 128 rows and 60 us on diagonals of >= 800 rows, so its time follows
-// that chain, not rows or bytes, in either mode.  Issuing each position's
-// loads together and spreading a diagonal's work over more threads is the
-// next step.
+// about 243 serial L2 round trips, about 50-75 us a launch whatever the
+// rows.  csrc/tile_diag.cuh is what replaces it.
 //
 // Design: one thread per live lattice row i of the diagonal (max(0, d-m)
 // <= i <= min(n, d)); rows are the slab's last axis, so a warp's loads and
@@ -44,17 +43,13 @@
 // ascending t and writes each value at once: group B then reads its own
 // earlier writes from the slab, so the thread keeps no Q*W*W array in
 // registers and needs no barrier inside a diagonal.  Between diagonals the
-// caller orders reads after writes: one launch per diagonal (with the host
-// loop in C++, one call from Python per fill), or a __syncthreads() where
-// one CTA holds the pair.  Rows outside the live range are never written:
-// in a band they keep the INVALID the wrapper filled it with, in a ring
-// they keep diagonal d-3 or whatever the memory held.  They are never read
-// either: a case's guard (i >= a, j >= b) makes its predecessor a live row
-// of its own diagonal (0 <= i-a <= n, 0 <= j-b <= m), which a thread wrote
-// for every state and shift position.
+// caller orders reads after writes: one launch per diagonal, or a
+// __syncthreads() where one CTA holds the pair.  Rows outside the live
+// range are never written, and never read either: a case's guard (i >= a,
+// j >= b) makes its predecessor a live row of its own diagonal
+// (0 <= i-a <= n, 0 <= j-b <= m), which a thread wrote for every state and
+// shift position.
 #pragma once
-
-#include <algorithm>
 
 #include "common.cuh"
 
@@ -174,37 +169,6 @@ struct Affine {
     return best;
   }
 };
-
-template <bool kRing>
-__global__ void affine_diag(int32_t* slabs, const int32_t* __restrict__ mu1,
-                            const int32_t* __restrict__ mu2,
-                            const int32_t* __restrict__ cases, int n, int m,
-                            int S, int d, int lo, int hi) {
-  __shared__ int32_t tab[Affine::kTable];
-  load_table(tab, cases, Affine::kTable);
-  const int i = lo + blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > hi) return;
-  Affine::row<kRing>(slabs, tab, mu1, mu2, n, m, m + 1, n + 1, S, d, i);
-}
-
-// Runs diagonals 0..n+m on `stream`, one launch each.  Returns 0, or the
-// first launch error as a cudaError_t value.
-template <bool kRing>
-int run_affine_diagonals(int32_t* slabs, const int32_t* mu1,
-                         const int32_t* mu2, const int32_t* cases, int n,
-                         int m, int S, int device, void* stream) {
-  BIALIGN_TRY(cudaSetDevice(device));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int d = 0; d <= n + m; ++d) {
-    const int lo = std::max(0, d - m);
-    const int hi = std::min(n, d);
-    const int blocks = (hi - lo + kRowBlock) / kRowBlock;
-    affine_diag<kRing><<<blocks, kRowBlock, 0, st>>>(slabs, mu1, mu2, cases, n,
-                                                     m, S, d, lo, hi);
-    BIALIGN_TRY(cudaGetLastError());
-  }
-  return 0;
-}
 
 }  // namespace
 }  // namespace bialign

@@ -29,8 +29,11 @@ constexpr int FIRST_C = 12;
 enum Field { SRC = 0, X0, X1, X2, X3, MU1C, MU2C, CST, SRCA, SRCB, REC };
 
 // Offset of band cell (d, q, sk, sl, i) in the layout [D, nq, W, W, P]
-// (nq = 9 affine, 1 non-affine).  Rows are last, so the threads of a warp,
-// which hold neighbouring rows, touch neighbouring addresses.
+// (nq = 9 affine, 1 non-affine), in 64 bits, for the row functions and the
+// walks.  Rows are last, so the threads of a warp, which hold neighbouring
+// rows, touch neighbouring addresses.  The tile kernels
+// (csrc/tile_diag.cuh) take one 64-bit base a slab and 32-bit offsets
+// inside it instead.
 __device__ __forceinline__ long long cell_offset(int d, int q, int sk, int sl,
                                                  int i, int nq, int W, int P) {
   return ((((long long)d * nq + q) * W + sk) * W + sl) * P + i;
@@ -57,12 +60,17 @@ __device__ __forceinline__ int32_t mu_at(const int32_t* mu, int k, int l,
                                                 : 0;
 }
 
-// Threads of a block that walks rows lo..hi of a diagonal in strides (the
-// one-CTA-per-pair kernels) or holds one row each (the per-diagonal ones).
+// Threads of a block of the kernels that run one thread a row (the row
+// functions of csrc/affine_diag.cuh and csrc/nonaffine_diag.cuh under the
+// bucket kernels K4-K8, and K3): a block holds 128 consecutive rows of a
+// diagonal, or walks a pair's rows in strides of 128 (one CTA a pair).
+// The single-pair fills K1, K2 and K9-K12 size their CTAs by the tile of
+// csrc/tile_diag.cuh instead (`tile_geometry`).
 constexpr int kRowBlock = 128;
 
 // Copies a packed case table into a block's shared memory; every thread of
-// the block calls it.
+// the block calls it (the kernels that run one thread a row; the tile
+// kernels take their constants by value and compile the rest in).
 __device__ __forceinline__ void load_table(int32_t* tab,
                                            const int32_t* __restrict__ cases,
                                            int count) {

@@ -1,17 +1,16 @@
 // One row of one diagonal of the non-affine recurrence of one pair: the
-// device function `Nonaffine::row` that every non-affine kernel
-// instantiates:
-//   csrc/fill_nonaffine.cu (K2, band mode) and csrc/score_nonaffine.cu (K2,
-//   score-only mode) through the per-diagonal kernel `nonaffine_diag` below;
+// device function `Nonaffine::row` that the bucket kernels instantiate:
 //   csrc/batch_nonaffine.cu (K5, both modes) through csrc/batch_diag.cuh;
 //   csrc/cta_scores.cu (K6, non-affine form) through csrc/cta_scores.cuh;
 //   csrc/conveyor_scores.cu (K8, non-affine form) through csrc/conveyor.cuh.
+// The single-pair fills K2, K11 and K12 run the tile kernel of
+// csrc/tile_diag.cuh (`NonaffineTile`), as csrc/affine_diag.cuh says.
 //
 // Replaces bialign_tpu/ops/pallas_dp.py:_nonaffine_kernel with its slab
-// update _make_nonaffine_update (launched by _nonaffine_pallas).  Same
+// update _make_nonaffine_update, as the batched kernels use it.  Same
 // recurrence, same int32 values on every genuine cell: the 13 columns of
-// the reference (pyx:225-252), of which the 9 that advance a sequence read
-// diagonals d-1 and d-2 and the 4 str-only ones read this diagonal in
+// the reference (pyx:225-252), of which the 10 that advance a sequence read
+// diagonals d-1 and d-2 and the 3 str-only ones read this diagonal in
 // ascending t = sk + sl; the INVALID mask of a failed guard,
 // INVALID -> NEG_INF, and 0 at the origin.
 //
@@ -21,11 +20,10 @@
 // [3, W, W, P] (template kRing); the tables are the pair's own or its plane
 // of a bucket's stack (ld).
 //
-// What bounds the per-diagonal kernel on an H100 80GB HBM3 at 700 W
+// What bounds the bucket kernels that run it on an H100 80GB HBM3 at 700 W
 // (measured; PERF.md, Findings): as in csrc/affine_diag.cuh, one thread's
 // chain of dependent loads, each case's loads behind that case's guard: 25
-// positions x 13 cases, about 325 serial L2 round trips, about 50 us per
-// launch, in either mode.
+// positions x 13 cases, about 325 serial L2 round trips, 43-50 us a launch.
 //
 // Design: as csrc/affine_diag.cuh.  One thread per live lattice row, shift
 // positions in ascending t with each value written at once, so the
@@ -35,8 +33,6 @@
 // l >= x3.  Rows outside the live range are never written and, by the
 // guard, never read.
 #pragma once
-
-#include <algorithm>
 
 #include "common.cuh"
 
@@ -96,38 +92,6 @@ struct Nonaffine {
     return slab[cell_offset(0, 0, S, S, n, 1, 2 * S + 1, P)];
   }
 };
-
-template <bool kRing>
-__global__ void nonaffine_diag(int32_t* slabs,
-                               const int32_t* __restrict__ mu1,
-                               const int32_t* __restrict__ mu2,
-                               const int32_t* __restrict__ cases, int n, int m,
-                               int S, int d, int lo, int hi) {
-  __shared__ int32_t tab[Nonaffine::kTable];
-  load_table(tab, cases, Nonaffine::kTable);
-  const int i = lo + blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > hi) return;
-  Nonaffine::row<kRing>(slabs, tab, mu1, mu2, n, m, m + 1, n + 1, S, d, i);
-}
-
-// Runs diagonals 0..n+m on `stream`, one launch each.  Returns 0, or the
-// first launch error as a cudaError_t value.
-template <bool kRing>
-int run_nonaffine_diagonals(int32_t* slabs, const int32_t* mu1,
-                            const int32_t* mu2, const int32_t* cases, int n,
-                            int m, int S, int device, void* stream) {
-  BIALIGN_TRY(cudaSetDevice(device));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int d = 0; d <= n + m; ++d) {
-    const int lo = std::max(0, d - m);
-    const int hi = std::min(n, d);
-    const int blocks = (hi - lo + kRowBlock) / kRowBlock;
-    nonaffine_diag<kRing><<<blocks, kRowBlock, 0, st>>>(slabs, mu1, mu2, cases,
-                                                        n, m, S, d, lo, hi);
-    BIALIGN_TRY(cudaGetLastError());
-  }
-  return 0;
-}
 
 }  // namespace
 }  // namespace bialign

@@ -2,27 +2,28 @@
 //
 // Replaces bialign_tpu/ops/pallas_dp.py:_nonaffine_kernel with
 // score_only=True (out_ref[0] = val at d == d_last), launched by
-// _nonaffine_pallas.  The kernel is csrc/nonaffine_diag.cuh with ring
-// addressing: diagonal d writes slab d % 3 of a ring [3, W, W, n+1] in
-// device memory and reads slabs (d-1) % 3 and (d-2) % 3.
-// csrc/fill_nonaffine.cu is the same device function with band addressing.
-// What bounds it (one thread's chain of dependent loads) and its design
-// are written in csrc/nonaffine_diag.cuh.
+// _nonaffine_pallas.  The kernel is the tile kernel of csrc/tile_diag.cuh
+// (`NonaffineTile`) with ring addressing: diagonal d writes slab d % 3 of a
+// ring [3, W, W, n+1] in device memory and reads slabs (d-1) % 3 and
+// (d-2) % 3.  csrc/fill_nonaffine.cu is the same kernel with band
+// addressing.  What bounds it and its design are written in
+// csrc/tile_diag.cuh.
 //
 // Not carried over from the TPU kernel: the chunk of G diagonals per grid
 // step, the bucketed diagonal count with its garbage tail, the d_last
 // scalar prefetch and the padding of rows to 128 lanes.  The wrapper reads
 // the score from slab (n+m) % 3 at (S, S, n).
 
-#include "nonaffine_diag.cuh"
+#include "tile_diag.cuh"
 
 // Runs the recurrence over ring [3, W, W, n+1] (any contents) on `stream`;
-// the last diagonal is left in slab (n+m) % 3.  Returns 0, or the first
-// launch error as a cudaError_t value.
+// the last diagonal is left in slab (n+m) % 3.  `consts`: the int32 [13]
+// case constants in host memory.  Returns 0, or the first launch error as
+// a cudaError_t value.
 extern "C" int bialign_score_nonaffine(int32_t* ring, const int32_t* mu1,
                                        const int32_t* mu2,
-                                       const int32_t* cases, int n, int m,
+                                       const int32_t* consts, int n, int m,
                                        int S, int device, void* stream) {
-  return bialign::run_nonaffine_diagonals<true>(ring, mu1, mu2, cases, n, m, S,
-                                                device, stream);
+  return bialign::run_diagonals<bialign::NonaffineTile, true>(
+      ring, mu1, mu2, consts, n, m, S, device, stream);
 }

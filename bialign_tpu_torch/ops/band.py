@@ -21,6 +21,9 @@ import torch
 
 # Masked-case sentinel, the value of bialign_tpu/ops/xla_dp.py INVALID.
 INVALID = -(1 << 30) - (1 << 29)
+# The int64 engine's sentinel, the value of bialign_tpu/ops/xla_dp.py
+# INVALID64: far below NEG_INF less any path's drift at int64.
+INVALID64 = -(1 << 62)
 
 
 @dataclass(frozen=True)

@@ -73,6 +73,7 @@ from .cuda_dp import (
     _Geometry,
     _nonaffine_step,
     _ring_shape,
+    _tile_consts,
 )
 from .device_traceback import _HEADER, decode_codes, walk_capacity
 
@@ -252,8 +253,8 @@ def _ckpt_kernel(name, mu1, mu2, S, params, affine, block, ring, ckpts):
     C, ring, ckpts = _ckpt_memory(
         mu1, S, affine, block, ring, ckpts,
         lambda shape: torch.empty(shape, dtype=torch.int32, device=dev))
-    cases = _device_cases("affine" if affine else "nonaffine", params, dev)
-    _build.launch(f"bialign_{name}", dev, ring, ckpts, mu1, mu2, cases, n, m,
+    consts = _tile_consts(affine, params, S)
+    _build.launch(f"bialign_{name}", dev, ring, ckpts, mu1, mu2, consts, n, m,
                   S, C)
     LAUNCHES[name] += 1
     return CheckpointBand(ckpts=ckpts, final=ring[(n + m) % RING], mu1=mu1,
@@ -336,10 +337,10 @@ def _block_kernel(name, cb: CheckpointBand, b: int, window):
     _check_ring(window, shape, cb.mu1, "window")
     if window is None:
         window = torch.empty(shape, dtype=torch.int32, device=dev)
-    cases = _device_cases("affine" if cb.affine else "nonaffine", cb.params,
-                          dev)
+    consts = _tile_consts(cb.affine, cb.params, cb.max_shift)
     _build.launch(f"bialign_{name}", dev, window, cb.ckpts[b], cb.mu1, cb.mu2,
-                  cases, cb.n, cb.m, cb.max_shift, b * cb.block, shape[0] - 2)
+                  consts, cb.n, cb.m, cb.max_shift, b * cb.block,
+                  shape[0] - 2)
     LAUNCHES[name] += 1
     return window
 

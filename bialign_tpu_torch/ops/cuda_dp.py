@@ -49,6 +49,10 @@ mode K6 ``_packed_batched_kernel``, K7 ``_packed_ms0_kernel`` and K8
   :mod:`bialign_tpu.ops.xla_dp` (``_build_affine_step``,
   ``_build_nonaffine_step``): a loop over diagonals, vectorised over rows
   and shifts, on any device.  Band and score share one per-diagonal step.
+  The band fills also run at int64 (``dtype=torch.int64``, the sentinel
+  ``INVALID64``): the engine :class:`~bialign_tpu_torch.aligner.BiAligner`
+  takes for tables that fail the int32 check, as the JAX package's int64
+  XLA fill.
   The batch twins run the same steps with a leading batch axis, in the
   bucket's geometry, and the conveyor twins with a per-row diagonal index,
   in the conveyor's.  They are the specification the kernels are held to.
@@ -69,7 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .band import INVALID, DeviceBand, DeviceBatchBand
+from .band import INVALID, INVALID64, DeviceBand, DeviceBatchBand
 from .cases import (
     NEG_INF,
     N_STATES,
@@ -136,13 +140,63 @@ def nonaffine_case_table(gamma: int, delta: int) -> np.ndarray:
     return tab
 
 
-def _check_tables(mu1: torch.Tensor, mu2: torch.Tensor, max_shift: int):
+def affine_kernel_consts(beta: int, gamma: int, delta: int) -> np.ndarray:
+    """int32 ``[9, 15]``: the constant term of each affine case, per target
+    state in :func:`~bialign_tpu_torch.ops.cases.iter_affine_cases` order
+    (9 group A by source state, 3 group B, 3 group C).  The tile kernels
+    take it by value (``AffineConsts``, ``csrc/tile_diag.cuh``); the rest
+    of a case is compiled in (``csrc/recurrence.cuh``)."""
+    table = affine_case_table(beta, gamma, delta)
+    return np.ascontiguousarray(table[..., CST])
+
+
+def nonaffine_kernel_consts(gamma: int, delta: int) -> np.ndarray:
+    """int32 ``[13]``: the constant term of each non-affine column, in
+    NONAFFINE_COLS order (``NonaffineConsts``)."""
+    return np.ascontiguousarray(nonaffine_case_table(gamma, delta)[:, CST])
+
+
+# rows of a tile at max_shift 0-3 (affine, non-affine), 1 above: the
+# `rows` of AffineTile and NonaffineTile in csrc/tile_diag.cuh
+TILE_ROWS = ((32, 8, 4, 2), (128, 16, 8, 4))
+
+
+def tile_shared_bytes(max_shift: int, affine: bool) -> int:
+    """Shared memory of one CTA of the tile kernels K1, K2, K9-K12
+    (``csrc/tile_diag.cuh`` ``tile_geometry``): slabs d-1 and d-2 staged
+    over R + 1 rows, the tile of R rows, R rows of mu2 windows and of mu1."""
+    states, rows = (N_STATES, TILE_ROWS[0]) if affine else (1, TILE_ROWS[1])
+    R = rows[max_shift] if max_shift < len(rows) else 1
+    W2 = (2 * max_shift + 1) ** 2
+    return 4 * (states * W2 * (3 * R + 2) + W2 * R + R)
+
+
+def _tile_consts(affine: bool, params: tuple, max_shift: int) -> torch.Tensor:
+    """The case constants of a tile kernel, a CPU tensor: the kernel's C
+    function reads them on the host and passes them by value.  Raises for a
+    max_shift whose tile does not fit one CTA's shared memory."""
+    need = tile_shared_bytes(max_shift, affine)
+    if need > CTA_SHARED_LIMIT:
+        kind = "affine" if affine else "non-affine"
+        raise ValueError(
+            f"max_shift {max_shift}: the {kind} tile kernel needs {need} "
+            f"bytes of shared memory a CTA, one CTA has {CTA_SHARED_LIMIT}")
+    consts = (affine_kernel_consts if affine else nonaffine_kernel_consts)(
+        *params)
+    return torch.from_numpy(consts)
+
+
+def _check_tables(mu1: torch.Tensor, mu2: torch.Tensor, max_shift: int,
+                  dtype=torch.int32):
+    """The tables of one pair: contiguous 2-D tensors of ``dtype`` (int32;
+    the int64 engine also takes int64 ones) on one device."""
+    dtypes = (torch.int32, dtype)
     for name, mu in (("mu1", mu1), ("mu2", mu2)):
         if not isinstance(mu, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(mu)}")
-        if mu.dtype != torch.int32 or mu.dim() != 2 or not mu.is_contiguous():
+        if mu.dtype not in dtypes or mu.dim() != 2 or not mu.is_contiguous():
             raise ValueError(
-                f"{name} must be a contiguous 2-D int32 tensor, got "
+                f"{name} must be a contiguous 2-D {dtype} tensor, got "
                 f"{mu.dtype} {tuple(mu.shape)}"
             )
         if mu.device.type not in ("cpu", "cuda"):
@@ -197,8 +251,9 @@ def _require_int32_safe(mu1, mu2, gamma, delta, beta=0):
     costs = dict(gap_cost=gamma, gap_opening_cost=beta, shift_cost=delta)
     if not check_int32_safe(peak, peak, costs):
         raise NotImplementedError(
-            "these scores exceed the certified int32 range and need the "
-            "int64 engine, which is not ported yet: ROADMAP.md Queue 1 P2"
+            "these scores exceed the certified int32 range; the score-only "
+            "and batch entry points run int32 only, the int64 engine is "
+            "BiAligner's (ROADMAP.md P2)"
         )
 
 
@@ -221,35 +276,44 @@ def _check_ring(ring, shape, mu1, what="ring"):
 
 # -- kernel wrappers ---------------------------------------------------------
 
-def fill_affine_device(mu1, mu2, max_shift, beta, gamma, delta) -> DeviceBand:
+def fill_affine_device(mu1, mu2, max_shift, beta, gamma, delta, *,
+                       band=None) -> DeviceBand:
     """Affine band fill (K1 band mode): the CUDA kernel for tables on a
-    CUDA device, the plain twin for tables on the CPU."""
+    CUDA device, the plain twin for tables on the CPU.  ``band``: the
+    memory ``[n+m+1, 9, W, W, n+1]`` to fill, whatever it holds: only the
+    live rows are written, so the rest keeps its contents (default: fresh
+    memory set to INVALID, the band every reader expects)."""
     _check_tables(mu1, mu2, max_shift)
     if mu1.device.type == "cpu":
         return fill_affine_plain(mu1, mu2, max_shift, beta, gamma, delta)
-    return _fill_kernel("fill_affine", affine_case_table(beta, gamma, delta),
-                        mu1, mu2, max_shift, affine=True)
+    return _fill_kernel("fill_affine", (beta, gamma, delta), mu1, mu2,
+                        max_shift, band, affine=True)
 
 
-def fill_nonaffine_device(mu1, mu2, max_shift, gamma, delta) -> DeviceBand:
+def fill_nonaffine_device(mu1, mu2, max_shift, gamma, delta, *,
+                          band=None) -> DeviceBand:
     """Non-affine band fill (K2 band mode): the CUDA kernel for tables on
-    a CUDA device, the plain twin for tables on the CPU."""
+    a CUDA device, the plain twin for tables on the CPU; ``band`` as in
+    :func:`fill_affine_device`, ``[n+m+1, W, W, n+1]``."""
     _check_tables(mu1, mu2, max_shift)
     if mu1.device.type == "cpu":
         return fill_nonaffine_plain(mu1, mu2, max_shift, gamma, delta)
-    return _fill_kernel("fill_nonaffine", nonaffine_case_table(gamma, delta),
-                        mu1, mu2, max_shift, affine=False)
+    return _fill_kernel("fill_nonaffine", (gamma, delta), mu1, mu2, max_shift,
+                        band, affine=False)
 
 
-def _fill_kernel(name, cases, mu1, mu2, S, *, affine) -> DeviceBand:
+def _fill_kernel(name, params, mu1, mu2, S, band, *, affine) -> DeviceBand:
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
     W = 2 * S + 1
     states = (N_STATES,) if affine else ()
-    dev = mu1.device
-    band = torch.full((n + m + 1, *states, W, W, n + 1), INVALID,
-                      dtype=torch.int32, device=dev)
-    cases_t = torch.from_numpy(cases).to(dev)
-    _build.launch(f"bialign_{name}", dev, band, mu1, mu2, cases_t, n, m, S)
+    shape = (n + m + 1, *states, W, W, n + 1)
+    _check_ring(band, shape, mu1, "band")
+    consts = _tile_consts(affine, params, S)
+    if band is None:
+        band = torch.full(shape, INVALID, dtype=torch.int32,
+                          device=mu1.device)
+    _build.launch(f"bialign_{name}", mu1.device, band, mu1, mu2, consts, n, m,
+                  S)
     LAUNCHES[name] += 1
     return DeviceBand(ys=band, n=n, m=m, max_shift=S, affine=affine)
 
@@ -265,7 +329,8 @@ def affine_last_slab(mu1, mu2, max_shift, beta, gamma, delta, *, ring=None):
     if mu1.device.type == "cpu":
         return affine_last_slab_plain(mu1, mu2, max_shift, beta, gamma, delta,
                                       ring=ring)
-    return _score_kernel("score_affine", affine_case_table(beta, gamma, delta),
+    return _score_kernel("score_affine",
+                         _tile_consts(True, (beta, gamma, delta), max_shift),
                          mu1, mu2, _ring_shape(mu1, max_shift, (N_STATES,)),
                          ring, max_shift)
 
@@ -278,9 +343,9 @@ def nonaffine_last_slab(mu1, mu2, max_shift, gamma, delta, *, ring=None):
     if mu1.device.type == "cpu":
         return nonaffine_last_slab_plain(mu1, mu2, max_shift, gamma, delta,
                                          ring=ring)
-    return _score_kernel("score_nonaffine", nonaffine_case_table(gamma, delta),
-                         mu1, mu2, _ring_shape(mu1, max_shift, ()), ring,
-                         max_shift)
+    return _score_kernel("score_nonaffine",
+                         _tile_consts(False, (gamma, delta), max_shift), mu1,
+                         mu2, _ring_shape(mu1, max_shift, ()), ring, max_shift)
 
 
 def affine_ms0_last_slab(mu1, mu2, beta, gamma, delta, *, ring=None):
@@ -292,21 +357,22 @@ def affine_ms0_last_slab(mu1, mu2, beta, gamma, delta, *, ring=None):
         return affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta,
                                           ring=ring)
     return _score_kernel("score_affine_ms0",
-                         ms0_case_table(beta, gamma, delta), mu1, mu2,
+                         _device_cases("ms0", (beta, gamma, delta),
+                                       mu1.device), mu1, mu2,
                          (RING, 3, mu1.shape[0]), ring)
 
 
 def _score_kernel(name, cases, mu1, mu2, ring_shape, ring, *shift):
     """Launch score-only kernel ``name`` over ``ring`` (fresh memory if
-    None); ``shift`` is the kernel's max_shift argument, which K3 lacks.
-    Returns the slab of the last diagonal, a view of the ring."""
+    None); ``cases``: the tile kernels' constants on the host, or K3's case
+    table on the device; ``shift`` is the kernel's max_shift argument, which
+    K3 lacks.  Returns the slab of the last diagonal, a view of the ring."""
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
     dev = mu1.device
     _check_ring(ring, ring_shape, mu1)
     if ring is None:
         ring = torch.empty(ring_shape, dtype=torch.int32, device=dev)
-    cases_t = torch.from_numpy(cases).to(dev)
-    _build.launch(f"bialign_{name}", dev, ring, mu1, mu2, cases_t, n, m,
+    _build.launch(f"bialign_{name}", dev, ring, mu1, mu2, cases, n, m,
                   *shift)
     LAUNCHES[name] += 1
     return ring[(n + m) % RING]
@@ -338,10 +404,16 @@ def nonaffine_score(mu1, mu2, max_shift, gamma, delta) -> int:
 
 # -- plain twins -------------------------------------------------------------
 
-def _shift(x, dk: int, dl: int, di: int):
-    """out[..., sk, sl, i] = x[..., sk - dk, sl - dl, i - di], INVALID where
-    that index falls off the slab (every such position is guarded out)."""
-    return F.pad(x, (di, -di, dl, -dl, dk, -dk), value=INVALID)
+def _shift(x, dk: int, dl: int, di: int, invalid: int = INVALID):
+    """out[..., sk, sl, i] = x[..., sk - dk, sl - dl, i - di], ``invalid``
+    where that index falls off the slab (every such position is guarded
+    out)."""
+    return F.pad(x, (di, -di, dl, -dl, dk, -dk), value=invalid)
+
+
+def _sentinel(dtype) -> int:
+    """The masked-case sentinel of a DP dtype (xla_dp._sentinel)."""
+    return INVALID64 if dtype == torch.int64 else INVALID
 
 
 def _in_slab(idx, W: int):
@@ -441,21 +513,23 @@ def _index(rows, dev):
     return torch.as_tensor(rows, dtype=torch.long, device=dev)
 
 
-def _affine_step(g: _Geometry, beta, gamma, delta):
+def _affine_step(g: _Geometry, beta, gamma, delta, dtype=torch.int32):
     """The affine recurrence of one diagonal: ``step(d, vm1, vm2)`` maps
     the slabs ``[(B,) 9, W, W, P]`` of diagonals d-1 and d-2 to (slab of d,
     its live rows); band fill, score and batch share it.  Rows of the
     result off the live range are not meaningful, and rows of vm1/vm2 off
     their own live ranges may hold anything: every case that would read one
-    is guarded out (xla_dp._build_affine_step)."""
+    is guarded out (xla_dp._build_affine_step).  ``dtype``: int32, or int64
+    for the int64 engine (sentinel ``INVALID64``)."""
     Q = N_STATES
     S, W = g.S, g.W
     i, k, sk, sl = g.i, g.k, g.sk, g.sl
     dev = g.mu1.device
-    tabs = AffineTables(beta, gamma, delta)
+    invalid = _sentinel(dtype)
+    tabs = AffineTables(beta, gamma, delta, dtype=np.int64)
 
     def consts(a):
-        return torch.as_tensor(a, dtype=torch.int32, device=dev)[
+        return torch.as_tensor(a, dtype=dtype, device=dev)[
             ..., None, None, None]
 
     a_const = consts(tabs.a_const)         # [Q, Q, 1, 1, 1]
@@ -475,31 +549,32 @@ def _affine_step(g: _Geometry, beta, gamma, delta):
                if any(sk_ >= c and t - sk_ >= e for sk_ in range(W)
                       if 0 <= t - sk_ < W)]
               for t in range(4 * S + 1)]
-    init = torch.full((Q, 1, 1, 1), NEG_INF, dtype=torch.int32, device=dev)
+    init = torch.full((Q, 1, 1, 1), NEG_INF, dtype=dtype, device=dev)
     init[STATE_BOTH_MATCH] = 0
 
     def step(d, vm1, vm2):
         mu1_row, mu2_blk, j_ge, l_ge, live, protect = g.diag(d)
-        best = torch.empty((*g.batch, Q, W, W, g.n + 1), dtype=torch.int32,
+        best = torch.empty((*g.batch, Q, W, W, g.n + 1), dtype=dtype,
                            device=dev)
         for q in range(Q):
             a, b, c, e = STATES[q]
             pred = vm1 if a + b == 1 else vm2
             # group A: full column q from all 9 sources (pyx:275-279)
-            agg = (_shift(pred, c - a, e - b, a) + a_const[q]).amax(-4)
+            agg = (_shift(pred, c - a, e - b, a, invalid)
+                   + a_const[q]).amax(-4)
             if tabs.mu1_coef[q]:
                 agg = agg + mu1_row
             if tabs.mu2_coef[q]:
                 agg = agg + mu2_blk
-            cA = torch.where(gA[q] & j_ge[b] & l_ge[e], agg, INVALID)
+            cA = torch.where(gA[q] & j_ge[b] & l_ge[e], agg, invalid)
             # group C: seq-only half column (a, b, 0, 0) (pyx:291-296)
-            aggC = (_shift(pred.index_select(-4, c_src[q]), -a, -b, a)
-                    + c_const[q]).amax(-4)
+            aggC = (_shift(pred.index_select(-4, c_src[q]), -a, -b, a,
+                           invalid) + c_const[q]).amax(-4)
             if tabs.c_mu1_coef[q]:
                 aggC = aggC + mu1_row
-            cC = torch.where(gC[q] & j_ge[b], aggC, INVALID)
+            cC = torch.where(gC[q] & j_ge[b], aggC, invalid)
             best[..., q, :, :, :] = torch.maximum(cA, cC)
-        val = torch.where(best == INVALID, NEG_INF, best)
+        val = torch.where(best == invalid, NEG_INF, best)
         val = torch.where(protect, init, val)
 
         # group B: str-only half columns (0, 0, c, e) within the diagonal;
@@ -509,14 +584,14 @@ def _affine_step(g: _Geometry, beta, gamma, delta):
             commit = (g.t == t) & ~protect
             for q in b_live[t]:
                 _a, _b, c, e = STATES[q]
-                aggB = (_shift(val.index_select(-4, b_src[q]), c, e, 0)
-                        + b_const[q]).amax(-4)
+                aggB = (_shift(val.index_select(-4, b_src[q]), c, e, 0,
+                               invalid) + b_const[q]).amax(-4)
                 if tabs.b_mu2_coef[q]:
                     aggB = aggB + mu2_blk
                 best_q, val_q = best[..., q, :, :, :], val[..., q, :, :, :]
                 bq = torch.maximum(
-                    best_q, torch.where(gB[q] & l_ge[e], aggB, INVALID))
-                vq = torch.where(bq == INVALID, NEG_INF, bq)
+                    best_q, torch.where(gB[q] & l_ge[e], aggB, invalid))
+                vq = torch.where(bq == invalid, NEG_INF, bq)
                 best_q.copy_(torch.where(commit, bq, best_q))
                 val_q.copy_(torch.where(commit, vq, val_q))
         return val, live
@@ -524,13 +599,14 @@ def _affine_step(g: _Geometry, beta, gamma, delta):
     return step
 
 
-def _nonaffine_step(g: _Geometry, gamma, delta):
+def _nonaffine_step(g: _Geometry, gamma, delta, dtype=torch.int32):
     """The non-affine recurrence of one diagonal, as :func:`_affine_step`
     on slabs ``[(B,) W, W, P]`` (xla_dp._build_nonaffine_step)."""
     W, S = g.W, g.S
     i, k, sk, sl = g.i, g.k, g.sk, g.sl
     dev = g.mu1.device
-    tab = NonAffineTables(gamma, delta)
+    invalid = _sentinel(dtype)
+    tab = NonAffineTables(gamma, delta, dtype=np.int64)
     # (column, constant, mu1 and mu2 multiplicities, guard terms fixed in d)
     external, internal = [], []
     for ci, (x0, x1, x2, x3) in enumerate(NONAFFINE_COLS):
@@ -545,18 +621,18 @@ def _nonaffine_step(g: _Geometry, gamma, delta):
 
     def step(d, vm1, vm2):
         mu1_row, mu2_blk, j_ge, l_ge, live, protect = g.diag(d)
-        best = torch.full((*g.batch, W, W, g.n + 1), INVALID,
-                          dtype=torch.int32, device=dev)
+        best = torch.full((*g.batch, W, W, g.n + 1), invalid, dtype=dtype,
+                          device=dev)
         for (x0, x1, x2, x3), const, m1c, m2c, fixed in external:
             pred = vm1 if x0 + x1 == 1 else vm2
-            contrib = _shift(pred, x2 - x0, x3 - x1, x0) + const
+            contrib = _shift(pred, x2 - x0, x3 - x1, x0, invalid) + const
             if m1c:
                 contrib = contrib + mu1_row
             if m2c:
                 contrib = contrib + mu2_blk
             ok = fixed & j_ge[x1] & l_ge[x3]
-            best = torch.maximum(best, torch.where(ok, contrib, INVALID))
-        val = torch.where(best == INVALID, NEG_INF, best)
+            best = torch.maximum(best, torch.where(ok, contrib, invalid))
+        val = torch.where(best == invalid, NEG_INF, best)
         val = torch.where(protect, 0, val)
 
         # the 4 str-only columns, within the diagonal in ascending t
@@ -564,31 +640,34 @@ def _nonaffine_step(g: _Geometry, gamma, delta):
             commit = (g.t == t) & ~protect
             b2 = best
             for (_x0, _x1, x2, x3), const, _m1c, m2c, fixed in internal:
-                contrib = _shift(val, x2, x3, 0) + const
+                contrib = _shift(val, x2, x3, 0, invalid) + const
                 if m2c:
                     contrib = contrib + mu2_blk
                 b2 = torch.maximum(
-                    b2, torch.where(fixed & l_ge[x3], contrib, INVALID))
+                    b2, torch.where(fixed & l_ge[x3], contrib, invalid))
             best = torch.where(commit, b2, best)
-            val = torch.where(commit, torch.where(b2 == INVALID, NEG_INF, b2),
+            val = torch.where(commit, torch.where(b2 == invalid, NEG_INF, b2),
                               val)
         return val, live
 
     return step
 
 
-def _fill_plain(step, g: _Geometry, states: tuple, affine: bool) -> DeviceBand:
-    """Run ``step`` over all diagonals into a band; rows off a diagonal's
-    live range hold INVALID, as in the kernels' band."""
+def _fill_plain(step, g: _Geometry, states: tuple, affine: bool,
+                dtype=torch.int32) -> DeviceBand:
+    """Run ``step`` over all diagonals into a band of ``dtype``; rows off a
+    diagonal's live range hold the dtype's sentinel (INVALID at int32), as
+    in the kernels' band."""
     n, m, W = g.n, g.m, g.W
     dev = g.mu1.device
-    band = torch.empty((n + m + 1, *states, W, W, n + 1), dtype=torch.int32,
+    invalid = _sentinel(dtype)
+    band = torch.empty((n + m + 1, *states, W, W, n + 1), dtype=dtype,
                        device=dev)
-    vm1 = vm2 = torch.full((*states, W, W, n + 1), INVALID,
-                           dtype=torch.int32, device=dev)
+    vm1 = vm2 = torch.full((*states, W, W, n + 1), invalid, dtype=dtype,
+                           device=dev)
     for d in range(n + m + 1):
         val, live = step(d, vm1, vm2)
-        val = torch.where(live, val, INVALID)
+        val = torch.where(live, val, invalid)
         band[d] = val
         vm1, vm2 = val, vm1
     return DeviceBand(ys=band, n=n, m=m, max_shift=g.S, affine=affine)
@@ -607,21 +686,28 @@ def _ring_plain(step, n: int, m: int, shape: tuple, ring, dev):
     return ring[(n + m) % RING]
 
 
-def fill_affine_plain(mu1, mu2, max_shift, beta, gamma, delta) -> DeviceBand:
+def fill_affine_plain(mu1, mu2, max_shift, beta, gamma, delta, *,
+                      dtype=torch.int32) -> DeviceBand:
     """Affine band fill in plain PyTorch, on the tables' device
-    (xla_dp._build_affine_step, with the band layout of the kernel)."""
-    _check_tables(mu1, mu2, max_shift)
+    (xla_dp._build_affine_step, with the band layout of the kernel).
+    ``dtype=torch.int64``: the int64 engine (xla_dp.fill_affine with
+    ``int64=True``), for scores the int32 check cannot certify; it takes
+    int64 tables too."""
+    _check_tables(mu1, mu2, max_shift, dtype)
     g = _Geometry(mu1, mu2, max_shift)
-    return _fill_plain(_affine_step(g, beta, gamma, delta), g, (N_STATES,),
-                       affine=True)
+    return _fill_plain(_affine_step(g, beta, gamma, delta, dtype), g,
+                       (N_STATES,), affine=True, dtype=dtype)
 
 
-def fill_nonaffine_plain(mu1, mu2, max_shift, gamma, delta) -> DeviceBand:
+def fill_nonaffine_plain(mu1, mu2, max_shift, gamma, delta, *,
+                         dtype=torch.int32) -> DeviceBand:
     """Non-affine band fill in plain PyTorch, on the tables' device
-    (xla_dp._build_nonaffine_step, with the band layout of the kernel)."""
-    _check_tables(mu1, mu2, max_shift)
+    (xla_dp._build_nonaffine_step, with the band layout of the kernel);
+    ``dtype`` as in :func:`fill_affine_plain`."""
+    _check_tables(mu1, mu2, max_shift, dtype)
     g = _Geometry(mu1, mu2, max_shift)
-    return _fill_plain(_nonaffine_step(g, gamma, delta), g, (), affine=False)
+    return _fill_plain(_nonaffine_step(g, gamma, delta, dtype), g, (),
+                       affine=False, dtype=dtype)
 
 
 def affine_last_slab_plain(mu1, mu2, max_shift, beta, gamma, delta, *,

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --kernels-only     # phases 1-3, then stop
+    python3 chip_smoke.py --fills-only       # phases 1-2 and the fills' times
 
 Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
 package.  Phases, one line each:
@@ -10,8 +11,10 @@ package.  Phases, one line each:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds csrc/*.cu into build/bialign_tpu_torch/;
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card,
-   on random tables at small to medium shapes (bands, last slabs and
-   traces exact; the score-only kernels on a ring pre-filled with garbage).
+   on random tables at small to medium shapes and at the edges of the tile
+   kernels' CTAs (R-1, R, R+1 and 2R+1 live rows at max_shift 1 and 3) and
+   max_shift 4 (bands, last slabs and traces exact; the band fills also on
+   a band of garbage, the score-only kernels on a ring of garbage).
    The bucket kernels K4-K8 on buckets of mixed lengths at max_shift 0-3,
    B from 1 to 64, rings of garbage, every route forced ("cta" wherever the
    bucket fits one CTA's shared memory, the conveyor on one lane, on a few
@@ -35,8 +38,11 @@ package.  Phases, one line each:
    The score-only path through the port's tables: affine_score = 761500,
    at max_shift 0 (K3) and 2 and nonaffine_score at the CLI defaults equal
    to the band path's.  End-to-end times, kernel times against the plain
-   twins', band bytes, peak memory.  Then a 4000x3990 pair of random
-   tables, affine max_shift 1: score-only against the band kernel.
+   twins', microseconds a launch, the score-only fills beside the bucket
+   kernels K4/K5 on the same pair as a batch of one (the row function, the
+   design K1 and K2 had before the tile kernels), band bytes, peak memory.
+   Then a 4000x3990 pair of random tables, affine max_shift 1: score-only
+   against the band kernel.
    The batched-scores path through bialign_tpu_torch.parallel.score_batch
    and PreparedBatch: 64 windows of 128-508 residues of the DNA-Pol-1 pair
    (affine max_shift 1, bucket_quantum 128; buckets beyond one CTA's shared
@@ -117,6 +123,23 @@ SEED = 0
 # (n, m, max_shift) of phase 3
 SHAPES = [(1, 1, 1), (5, 7, 1), (8, 8, 2), (12, 3, 1), (7, 9, 0),
           (33, 40, 3), (150, 150, 1), (300, 257, 2), (0, 5, 1), (6, 0, 2)]
+
+
+def tile_edge_shapes() -> list:
+    """Shapes at the edges of the tile kernels' CTAs (csrc/tile_diag.cuh):
+    middle diagonals of R-1, R, R+1 and 2R+1 live rows for the R rows of an
+    affine and of a non-affine tile at max_shift 1 and 3; and one at
+    max_shift 4, which the kernel takes with S read at run time."""
+    shapes = set()
+    for S in (1, 3):
+        for rows in cuda_dp.TILE_ROWS:                   # affine, non-affine
+            R = rows[S]
+            shapes |= {(live - 1, live + 2, S)
+                       for live in (R - 1, R, R + 1, 2 * R + 1)}
+    return sorted(shapes, key=lambda s: (s[2], s[0])) + [(9, 11, 4)]
+
+
+TILE_EDGE_SHAPES = tile_edge_shapes()
 AFFINE_PARAMS = (-150, -50, -150)       # beta, gamma, delta
 NONAFFINE_PARAMS = (-200, -250)         # gamma, delta
 
@@ -259,7 +282,12 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+START = time.perf_counter()
+
+
 def say(phase: str, **found) -> None:
+    """One phase's line, with the seconds since the script started."""
+    found["t_s"] = round(time.perf_counter() - START, 1)
     print(f"[{phase}] " + json.dumps(found), flush=True)
 
 
@@ -336,6 +364,15 @@ def garbage_ring(rng, shape, dev):
     it must read none of them."""
     return torch.from_numpy(
         rng.integers(-2 ** 31, 2 ** 31, size=shape).astype(np.int32)).to(dev)
+
+
+def live_rows(n: int, m: int, ndim: int, dev):
+    """bool ``[n+m+1, 1, ..., n+1]`` of ``ndim`` axes: the live rows of each
+    diagonal of a band, the cells a band fill writes."""
+    d = torch.arange(n + m + 1, device=dev)[:, None]
+    i = torch.arange(n + 1, device=dev)[None, :]
+    live = (i <= d) & (d - i <= m)
+    return live.reshape(n + m + 1, *[1] * (ndim - 2), n + 1)
 
 
 def garbage_band(shape, dev):
@@ -427,17 +464,22 @@ def trace_err(ta, tb) -> int:
 
 
 def phase_kernels(dev, errs: dict) -> None:
-    """Each kernel against its plain twin on random tables."""
+    """Each kernel against its plain twin on random tables, at SHAPES and
+    at the tile kernels' edges.  K1 and K2 in band mode fill a fresh band
+    (equal to the twin's in every cell) and a band of garbage, whose cells
+    off the live rows must keep the garbage."""
     beta, gamma, delta = AFFINE_PARAMS
     g2, d2 = NONAFFINE_PARAMS
     lowmem_ran = []
-    for n, m, S in SHAPES:
+    for n, m, S in SHAPES + TILE_EDGE_SHAPES:
         rng = np.random.default_rng(SEED + 1000 * n + 10 * m + S)
         t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
 
         bk = cuda_dp.fill_affine_device(t1, t2, S, beta, gamma, delta)
         bp = cuda_dp.fill_affine_plain(t1, t2, S, beta, gamma, delta)
-        e = band_err(bk, bp)
+        e = max(band_err(bk, bp), garbage_band_err(
+            lambda band: cuda_dp.fill_affine_device(t1, t2, S, beta, gamma,
+                                                    delta, band=band), bp))
         check(e == 0, f"fill_affine band ({n}, {m}, {S}): max |err| {e}")
         check(bk.final_score() == bp.final_score(), f"affine score {n, m, S}")
         errs["fill_affine"] = max(errs["fill_affine"], e)
@@ -452,7 +494,9 @@ def phase_kernels(dev, errs: dict) -> None:
 
         bk = cuda_dp.fill_nonaffine_device(t1, t2, S, g2, d2)
         bp = cuda_dp.fill_nonaffine_plain(t1, t2, S, g2, d2)
-        e = band_err(bk, bp)
+        e = max(band_err(bk, bp), garbage_band_err(
+            lambda band: cuda_dp.fill_nonaffine_device(t1, t2, S, g2, d2,
+                                                       band=band), bp))
         check(e == 0, f"fill_nonaffine band ({n}, {m}, {S}): max |err| {e}")
         check(bk.final_score() == bp.final_score(),
               f"nonaffine score {n, m, S}")
@@ -465,17 +509,19 @@ def phase_kernels(dev, errs: dict) -> None:
         nonaffine_band = bk
         plain_bands[False] = bp
         device_walks[False] = tk
-        lowmem_ran.append(lowmem_kernels(dev, errs, t1, t2, S, plain_bands,
-                                         device_walks))
+        lowmem_ran.append(lowmem_kernels(
+            dev, errs, t1, t2, S, plain_bands, device_walks,
+            edge=(n, m, S) in TILE_EDGE_SHAPES))
 
-        # score-only: the last slab's live row against the plain twin's and
-        # the band kernel's, on a ring of garbage; the score on a fresh one
+        # score-only: the last slab's live row against the twin's (the last
+        # diagonal of its band: the ring twin runs the same step) and the
+        # band kernel's, on a ring of garbage; the score on a fresh one
         W = 2 * S + 1
         sk = cuda_dp.affine_last_slab(
             t1, t2, S, beta, gamma, delta,
             ring=garbage_ring(rng, (3, 9, W, W, n + 1), dev))
-        sp = cuda_dp.affine_last_slab_plain(t1, t2, S, beta, gamma, delta)
-        e = max(row_err(sk, sp, n), row_err(sk, affine_band.ys[n + m], n))
+        e = max(row_err(sk, plain_bands[True].ys[n + m], n),
+                row_err(sk, affine_band.ys[n + m], n))
         check(e == 0, f"score_affine last slab ({n}, {m}, {S}): |err| {e}")
         errs["score_affine"] = max(errs["score_affine"], e)
         check(cuda_dp.affine_score(t1, t2, S, beta, gamma, delta)
@@ -483,8 +529,8 @@ def phase_kernels(dev, errs: dict) -> None:
 
         sk = cuda_dp.nonaffine_last_slab(
             t1, t2, S, g2, d2, ring=garbage_ring(rng, (3, W, W, n + 1), dev))
-        sp = cuda_dp.nonaffine_last_slab_plain(t1, t2, S, g2, d2)
-        e = max(row_err(sk, sp, n), row_err(sk, nonaffine_band.ys[n + m], n))
+        e = max(row_err(sk, plain_bands[False].ys[n + m], n),
+                row_err(sk, nonaffine_band.ys[n + m], n))
         check(e == 0, f"score_nonaffine last slab ({n}, {m}, {S}): |err| {e}")
         errs["score_nonaffine"] = max(errs["score_nonaffine"], e)
         check(cuda_dp.nonaffine_score(t1, t2, S, g2, d2)
@@ -509,7 +555,8 @@ def phase_kernels(dev, errs: dict) -> None:
     buckets = phase_batch_kernels(dev, errs)
     bands = phase_align_kernels(dev, errs)
     torch.cuda.synchronize()
-    say("3 kernels", shapes=SHAPES, ms0_shapes=MS0_SHAPES, bands_equal=True,
+    say("3 kernels", shapes=SHAPES, tile_edge_shapes=TILE_EDGE_SHAPES,
+        ms0_shapes=MS0_SHAPES, bands_equal=True, garbage_bands_equal=True,
         last_slabs_equal=True, traces_equal=True,
         buckets_n_m_b_shift_form_routes_own=buckets, bucket_scores_equal=True,
         bands_n_m_b_shift_form_diagonals_steps=bands,
@@ -517,6 +564,15 @@ def phase_kernels(dev, errs: dict) -> None:
         lowmem_n_m_shift_form_blocksizes_blocks_twinblocks=lowmem_ran,
         checkpoints_windows_block_walks_and_tracebacks_equal=True,
         max_abs_err=errs)
+
+
+def garbage_band_err(fill, plain) -> int:
+    """Max |err| of ``fill(band)`` on a band of garbage against the twin's
+    band ``plain``: its live rows, and the garbage everywhere else."""
+    junk = garbage_band(tuple(plain.ys.shape), plain.ys.device)
+    got = fill(junk.clone())
+    live = live_rows(plain.n, plain.m, plain.ys.dim(), junk.device)
+    return tensor_err(got.ys, torch.where(live, plain.ys, junk))
 
 
 def lowmem_forms(affine: bool) -> tuple:
@@ -560,7 +616,8 @@ def window_from_band(cb, b, band, junk):
     return want
 
 
-def lowmem_kernels(dev, errs: dict, t1, t2, S, plain_bands, device_walks):
+def lowmem_kernels(dev, errs: dict, t1, t2, S, plain_bands, device_walks,
+                   edge=False):
     """K9-K12 and the blockwise walks of one shape against their twins, at
     several block sizes, all memory pre-filled with garbage.  The twin fill
     runs once, at C = 1, where it saves every diagonal: the ring's contents
@@ -569,7 +626,9 @@ def lowmem_kernels(dev, errs: dict, t1, t2, S, plain_bands, device_walks):
     block's window must equal what the twin's full band gives it (and the
     block twin's own window, on every block of a short band and on three of
     a long one), every block walk's tensor the host walk's over that
-    window, and the whole traceback the full-band device walk."""
+    window, and the whole traceback the full-band device walk.  At a tile
+    edge shape (``edge``) one block size, 7: K9-K12 run the tile kernel of
+    K1 and K2, which the band checks there already hold at every row."""
     n, m = t1.shape[0] - 1, t1.shape[1] - 1
     D = n + m + 1
     ran = []
@@ -581,7 +640,8 @@ def lowmem_kernels(dev, errs: dict, t1, t2, S, plain_bands, device_walks):
         ring = garbage_band((3, *slab), dev)
         twin = fill_plain(t1, t2, S, *costs, block=1, ring=ring.clone(),
                           ckpts=garbage_band((D, 2, *slab), dev))
-        sizes = sorted({*SMALL_BLOCKS, ckp.default_block(D), D + 4})
+        sizes = ([SMALL_BLOCKS[-1]] if edge else
+                 sorted({*SMALL_BLOCKS, ckp.default_block(D), D + 4}))
         for C in sizes:
             NB = (n + m) // C + 1
             junk = garbage_band((NB, 2, *slab), dev)
@@ -1862,11 +1922,46 @@ def phase_align_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
     return times, bounds, more
 
 
-def phase_full_timing(mol, errs: dict) -> tuple[dict, dict]:
+def batch_of_one(t1, t2):
+    """The stacks of a bucket that holds the one pair of tables t1, t2."""
+    n, m = t1.shape[0] - 1, t1.shape[1] - 1
+    lengths = [torch.tensor([x], dtype=torch.int32, device=t1.device)
+               for x in (n, m)]
+    return (t1[None].contiguous(), t2[None].contiguous(), *lengths)
+
+
+def tile_against_row(score_slab, batch_scores, t1, t2, S, p) -> dict:
+    """The tile kernel's score-only fill (K1 or K2) in turns with the row
+    function's per-diagonal bucket kernel (K4 or K5, route "grid") on the
+    same pair as a batch of one: the design K1 and K2 had before the tile
+    kernels, on the same pair and the same card.  Both give the score; ms
+    by CUDA events, 3 runs a turn."""
+    n, m = t1.shape[0] - 1, t1.shape[1] - 1
+    stacks = batch_of_one(t1, t2)
+    runs = {"tile": lambda: score_slab(t1, t2, S, *p),
+            "row": lambda: batch_scores(*stacks, S, *p, route="grid")}
+    turns = {name: [] for name in runs}
+    for name in runs:
+        runs[name]()                                          # warm-up
+    for name in ("tile", "row", "row", "tile"):
+        turns[name].append(cuda_ms(runs[name], reps=3)[0])
+    slab = runs["tile"]()
+    want = int(slab[..., S, S, n].max())
+    check(int(runs["row"]()[0]) == want, "batch of one != score-only fill")
+    launches = n + m + 1
+    return dict(turns_ms=turns, launches=launches,
+                tile_us_per_launch=min(turns["tile"]) * 1e3 / launches,
+                row_us_per_launch=min(turns["row"]) * 1e3 / launches,
+                row_over_tile=min(turns["row"]) / min(turns["tile"]))
+
+
+def phase_full_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
     """Kernels against plain twins at the DNA-Pol-1 shapes (not counted);
-    returns (times, bounds) by kernel name."""
+    returns (times, bounds, more) by kernel name: ``more`` has the tile
+    kernels' microseconds a launch and their time beside the row function's
+    bucket kernel on the same pair."""
     seqA, strA, seqB, strB = mol
-    times, bounds = {}, {}
+    times, bounds, more = {}, {}, {}
     for name, params in (("affine", DNAPOL_FULL),
                          ("nonaffine", DNAPOL_CLI_DEFAULTS)):
         ba = BiAligner(seqA, seqB, strA, strB, engine="torch",
@@ -1888,6 +1983,7 @@ def phase_full_timing(mol, errs: dict) -> tuple[dict, dict]:
         errs[f"fill_{name}"] = max(errs[f"fill_{name}"], e)
         times[f"fill_{name}"] = (ms_k, ms_p)
         n, m = bk.n, bk.m
+        more[f"fill_{name}"] = dict(us_per_launch=ms_k * 1e3 / (n + m + 1))
         cases, states = (15, 9) if name == "affine" else (13, 1)
         bounds[f"fill_{name}"] = dp_bound(n, m, S, cases, states, band=True)
 
@@ -1905,6 +2001,11 @@ def phase_full_timing(mol, errs: dict) -> tuple[dict, dict]:
         errs[f"score_{name}"] = max(errs[f"score_{name}"], e)
         times[f"score_{name}"] = (ms_k, ms_p)
         bounds[f"score_{name}"] = dp_bound(n, m, S, cases, states, band=False)
+        more[f"score_{name}"] = dict(
+            us_per_launch=ms_k * 1e3 / (n + m + 1),
+            beside_the_row_kernel=tile_against_row(
+                kern, cuda_dp.affine_batch_scores if name == "affine"
+                else cuda_dp.nonaffine_batch_scores, t1, t2, S, p))
 
         if name == "affine":                                  # K3
             k3 = lambda: cuda_dp.affine_ms0_last_slab(t1, t2, *p)  # noqa
@@ -1935,7 +2036,7 @@ def phase_full_timing(mol, errs: dict) -> tuple[dict, dict]:
         errs[f"walk_{name}"] = max(errs[f"walk_{name}"], e)
         times[f"walk_{name}"] = (ms_w, ms_wp)
         bounds[f"walk_{name}"] = walk_bound(len(tk), cases)
-    return times, bounds
+    return times, bounds, more
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")   # device activity
@@ -2227,6 +2328,11 @@ def main() -> int:
         help="stop after phase 3: build the kernels, print what ptxas says "
         "and hold each against its plain twin at small shapes (a new "
         "kernel's first run on a card)")
+    parser.add_argument(
+        "--fills-only", action="store_true",
+        help="build, then only time the single-pair fills, score-only fills "
+        "and walks at the DNA-Pol-1 shapes against their twins (phase 5's "
+        "kernel times; two checkouts compared in one call)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2253,6 +2359,13 @@ def main() -> int:
         library=str(_build.LIB_PATH), ptxas=resources)
 
     errs = dict.fromkeys(KERNELS, 0)
+    if args.fills_only:
+        times, bounds, more = phase_full_timing(dnapol_pair(), errs)
+        say("5 kernel times", nvidia_smi=smi, ms_kernel_vs_plain={
+            k: {"kernel_ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1]} for k, v in times.items()},
+            details=more, max_abs_err=errs)
+        return 0
     phase_kernels(dev, errs)
     if args.kernels_only:
         say("stopped after phase 3 (--kernels-only)")
@@ -2287,8 +2400,9 @@ def main() -> int:
     launches.update(path_counts("lowmem"))
     say("5 full size, low memory", nvidia_smi=smi, **full_lowmem)
 
-    times, bounds = phase_full_timing(mol, errs)
-    batch_times, batch_bounds, more = phase_batch_timing(batches, errs)
+    times, bounds, more = phase_full_timing(mol, errs)
+    batch_times, batch_bounds, batch_more = phase_batch_timing(batches, errs)
+    more.update(batch_more)
     times.update(batch_times)
     bounds.update(batch_bounds)
     align_times, align_bounds, align_more = phase_align_timing(batches, errs)
@@ -2304,7 +2418,7 @@ def main() -> int:
                                 "bound_ms": bounds[k][0],
                                 "bound_by": bounds[k][1]}
                             for k, v in times.items()},
-        batch_kernels=more)
+        details=more)
     say("5 big pair", nvidia_smi=smi, **phase_big_pair(dev))
 
     say("6 launches", **launches)

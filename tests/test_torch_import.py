@@ -99,11 +99,11 @@ def test_unknown_engine_is_refused():
         BiAligner(**G.TOY_RNA, engine="pallas", device="cpu")
 
 
+# tables that fail check_int32_safe take the int64 engine now:
+# tests/test_torch_int64.py
 @pytest.mark.parametrize("params,item", [
     (dict(lowmem=True, seqsplit_mesh=object()), "P15"),
     (dict(seqsplit_mesh=object()), "P15"),
-    (dict(lowmem=True, gap_cost=-10 ** 8), "P2"),
-    (dict(gap_cost=-10 ** 8), "P2"),       # fails check_int32_safe
 ])
 def test_unported_modes_raise(params, item):
     ba = BiAligner(**G.TOY_RNA, engine="torch", device="cpu", **params)
