@@ -40,8 +40,8 @@ _SIGNATURES = {
     "bialign_score_affine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_affine_ms0": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # rings, out, mu1, mu2, ns, ms, cases, B, N, M, (S,) (lanes, T0,)
-    # (d_max,) device, stream
+    # rings, out, mu1, mu2, ns, ms, consts (host; the device case table of
+    # K6/K7), B, N, M, (S,) (lanes, T0,) (d_max,) device, stream
     "bialign_batch_affine": [_P] * 7 + [_I] * 6 + [_P],
     "bialign_batch_nonaffine": [_P] * 7 + [_I] * 6 + [_P],
     # bands in place of rings: the same arguments

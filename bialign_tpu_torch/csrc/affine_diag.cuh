@@ -1,13 +1,13 @@
 // One row of one diagonal of the affine recurrence of one pair: the device
-// function `Affine::row` that the bucket kernels instantiate:
-//   csrc/batch_affine.cu (K4, both modes) through csrc/batch_diag.cuh;
-//   csrc/cta_scores.cu (K6, affine form) through csrc/cta_scores.cuh;
-//   csrc/conveyor_scores.cu (K8, affine form) through csrc/conveyor.cuh.
-// The single-pair fills K1 and K9-K12 run the tile kernel of
-// csrc/tile_diag.cuh, the same recurrence over a tile of rows a CTA; the
-// next step moves these drivers onto it too (its device function takes a
-// pair's slab base, tables and row range).  Until then the two are held
-// to the same plain twins on the card (chip_smoke.py, phase 3).
+// function `Affine::row` that the one-CTA-a-pair kernel K6 instantiates,
+// csrc/cta_scores.cu (affine form) through csrc/cta_scores.cuh.  Every
+// other fill runs the tile kernel of csrc/tile_diag.cuh, the same
+// recurrence over a tile of rows a CTA: the single-pair fills K1 and K9-K12
+// directly, the bucket kernels K4 (csrc/batch_diag.cuh) and K8
+// (csrc/conveyor.cuh) through its device function `fill_tile`.  K6 moves
+// onto the tile next, and this file goes with it (ROADMAP S3).  Until then
+// both are held to the same plain twins on the card (chip_smoke.py, phase
+// 3).
 //
 // Replaces bialign_tpu/ops/pallas_dp.py:_affine_kernel with its slab
 // update _make_update, as the batched kernels use it.  Same recurrence,
@@ -29,13 +29,14 @@
 // a bucket's zero-padded stack [N+1, M+1] (ld = M+1, P = N+1), bounded by
 // the pair's own n, m either way.
 //
-// What bounds the bucket kernels that run it on an H100 80GB HBM3 at 700 W
-// (measured; PERF.md, Findings): the length of one thread's chain of
-// dependent loads.  Each case group's loads sit behind that group's guard
-// branch, which the compiler does not hoist them above, so a thread's
-// groups load one after another: 81 (position, state) pairs x 3 groups,
-// about 243 serial L2 round trips, about 50-75 us a launch whatever the
-// rows.  csrc/tile_diag.cuh is what replaces it.
+// What bounds K6, which runs it (measured; PERF.md, Findings): the length
+// of one thread's chain.  Each case group's loads sit behind that group's
+// guard branch, which the compiler does not hoist them above, so a
+// thread's groups load one after another: 81 (position, state) pairs x 3
+// groups.  From device memory (the bucket kernels' first design) that was
+// about 243 serial L2 round trips, 50-75 us a launch on an H100 80GB HBM3
+// at 700 W; from K6's shared memory it is 25.6 us a diagonal.
+// csrc/tile_diag.cuh is what replaces it.
 //
 // Design: one thread per live lattice row i of the diagonal (max(0, d-m)
 // <= i <= min(n, d)); rows are the slab's last axis, so a warp's loads and

@@ -51,13 +51,6 @@ inline cudaError_t copy_slab(int32_t* to, const int32_t* from, size_t values,
                          cudaMemcpyDeviceToDevice, st);
 }
 
-// int32 values of one slab of a (n+1)-row pair at max_shift S
-template <class Tile>
-size_t slab_values(int n, int S) {
-  return static_cast<size_t>(Tile::kStates) * (2 * S + 1) * (2 * S + 1) *
-         (n + 1);
-}
-
 // Diagonals 0..n+m on `ring` with Tile's ring kernel, saving the slabs
 // that enter each block of C diagonals into ckpts [NB, 2, ...]; `consts`
 // (host memory) are the case constants.
@@ -68,7 +61,7 @@ int run_ckpt_diagonals(int32_t* ring, int32_t* ckpts, const int32_t* mu1,
   BIALIGN_TRY(cudaSetDevice(device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const typename Tile::Consts cs = consts_from<Tile>(consts);
-  const size_t slab = slab_values<Tile>(n, S);
+  const size_t slab = slab_values<Tile>(n + 1, S);
   for (int d = 0; d <= n + m; ++d) {
     if (d > 0 && d % C == 0) {
       int32_t* ck = ckpts + static_cast<size_t>(d / C) * 2 * slab;
@@ -100,7 +93,7 @@ int run_block_diagonals(int32_t* window, const int32_t* ck, const int32_t* mu1,
   BIALIGN_TRY(cudaSetDevice(device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const typename Tile::Consts cs = consts_from<Tile>(consts);
-  const size_t slab = slab_values<Tile>(n, S);
+  const size_t slab = slab_values<Tile>(n + 1, S);
   if (d0 > 0) {
     BIALIGN_TRY(copy_slab(window, ck + slab, slab, st));
     BIALIGN_TRY(copy_slab(window + slab, ck, slab, st));

@@ -60,17 +60,17 @@ __device__ __forceinline__ int32_t mu_at(const int32_t* mu, int k, int l,
                                                 : 0;
 }
 
-// Threads of a block of the kernels that run one thread a row (the row
-// functions of csrc/affine_diag.cuh and csrc/nonaffine_diag.cuh under the
-// bucket kernels K4-K8, and K3): a block holds 128 consecutive rows of a
-// diagonal, or walks a pair's rows in strides of 128 (one CTA a pair).
-// The single-pair fills K1, K2 and K9-K12 size their CTAs by the tile of
-// csrc/tile_diag.cuh instead (`tile_geometry`).
+// Threads of a block of the kernels that run one thread a row (K3, and the
+// row functions of csrc/affine_diag.cuh and csrc/nonaffine_diag.cuh under
+// K6 and K7): a block holds 128 consecutive rows of a diagonal, or walks a
+// pair's rows in strides of 128 (one CTA a pair).  The fills K1, K2, K4,
+// K5, K8 and K9-K12 size their CTAs by the tile of csrc/tile_diag.cuh
+// instead (`tile_geometry`).
 constexpr int kRowBlock = 128;
 
 // Copies a packed case table into a block's shared memory; every thread of
-// the block calls it (the kernels that run one thread a row; the tile
-// kernels take their constants by value and compile the rest in).
+// the block calls it (K3, K6 and K7; the tile kernels take their constants
+// by value and compile the rest in).
 __device__ __forceinline__ void load_table(int32_t* tab,
                                            const int32_t* __restrict__ cases,
                                            int count) {

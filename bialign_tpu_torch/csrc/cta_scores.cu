@@ -5,9 +5,9 @@
 // _pallas_batched_packed (both recurrences, scores only).  The two forms
 // are the kernel of csrc/cta_scores.cuh, which states the design and what
 // was not carried over, instantiated with `Affine::row` of
-// csrc/affine_diag.cuh (the recurrence of K1 and K4) and `Nonaffine::row`
-// of csrc/nonaffine_diag.cuh (K2 and K5).  Affine buckets at max_shift 0
-// go to csrc/cta_scores_ms0.cu (K7) instead.
+// csrc/affine_diag.cuh (the recurrence of K1 and K4, there over a tile) and
+// `Nonaffine::row` of csrc/nonaffine_diag.cuh (K2 and K5).  Affine buckets
+// at max_shift 0 go to csrc/cta_scores_ms0.cu (K7) instead.
 
 #include "affine_diag.cuh"
 #include "cta_scores.cuh"

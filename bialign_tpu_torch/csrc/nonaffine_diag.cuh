@@ -1,10 +1,9 @@
 // One row of one diagonal of the non-affine recurrence of one pair: the
-// device function `Nonaffine::row` that the bucket kernels instantiate:
-//   csrc/batch_nonaffine.cu (K5, both modes) through csrc/batch_diag.cuh;
-//   csrc/cta_scores.cu (K6, non-affine form) through csrc/cta_scores.cuh;
-//   csrc/conveyor_scores.cu (K8, non-affine form) through csrc/conveyor.cuh.
-// The single-pair fills K2, K11 and K12 run the tile kernel of
-// csrc/tile_diag.cuh (`NonaffineTile`), as csrc/affine_diag.cuh says.
+// device function `Nonaffine::row` that the one-CTA-a-pair kernel K6
+// instantiates, csrc/cta_scores.cu (non-affine form) through
+// csrc/cta_scores.cuh.  Every other non-affine fill (K2, K5, K8's
+// non-affine form, K11, K12) runs the tile kernel of csrc/tile_diag.cuh
+// (`NonaffineTile`), as csrc/affine_diag.cuh says.
 //
 // Replaces bialign_tpu/ops/pallas_dp.py:_nonaffine_kernel with its slab
 // update _make_nonaffine_update, as the batched kernels use it.  Same
@@ -20,10 +19,9 @@
 // [3, W, W, P] (template kRing); the tables are the pair's own or its plane
 // of a bucket's stack (ld).
 //
-// What bounds the bucket kernels that run it on an H100 80GB HBM3 at 700 W
-// (measured; PERF.md, Findings): as in csrc/affine_diag.cuh, one thread's
-// chain of dependent loads, each case's loads behind that case's guard: 25
-// positions x 13 cases, about 325 serial L2 round trips, 43-50 us a launch.
+// What bounds K6, which runs it (measured; PERF.md, Findings): as in
+// csrc/affine_diag.cuh, one thread's chain of dependent loads, each case's
+// loads behind that case's guard: 25 positions x 13 cases.
 //
 // Design: as csrc/affine_diag.cuh.  One thread per live lattice row, shift
 // positions in ascending t with each value written at once, so the

@@ -1,18 +1,21 @@
 // One diagonal of one pair's recurrence, a tile of rows a CTA: the kernel
 // of the single-pair fills K1 (affine) and K2 (non-affine), band and
-// score-only, and of the low-memory path's K9-K12 (csrc/ckpt_diag.cuh).
+// score-only, and of the low-memory path's K9-K12 (csrc/ckpt_diag.cuh); its
+// device function `fill_tile` also serves the bucket kernels K4/K5
+// (csrc/batch_diag.cuh) and K8 (csrc/conveyor.cuh), a pair's tile at a
+// time.
 //
 // Replaces bialign_tpu/ops/pallas_dp.py:_affine_kernel with its slab update
 // _make_update, and _nonaffine_kernel with _make_nonaffine_update (both
 // launched by _affine_pallas / _nonaffine_pallas; K9-K12 by
 // _affine_pallas_ckpt, _affine_pallas_block and their non-affine forms).
 // Same recurrence, same int32 value on every genuine cell as the row
-// functions of csrc/affine_diag.cuh and csrc/nonaffine_diag.cuh, which the
-// bucket kernels K4-K8 still run: group A (9 full columns, one a source
-// state), group C (seq-only half columns), group B (str-only half columns,
-// within the diagonal in ascending t = sk + sl), the INVALID mask of a
-// failed guard, INVALID -> NEG_INF, and the origin's values; non-affine,
-// the 13 columns, the 3 str-only ones within the diagonal.
+// functions of csrc/affine_diag.cuh and csrc/nonaffine_diag.cuh, which only
+// the one-CTA-a-pair kernel K6 still runs: group A (9 full columns, one a
+// source state), group C (seq-only half columns), group B (str-only half
+// columns, within the diagonal in ascending t = sk + sl), the INVALID mask
+// of a failed guard, INVALID -> NEG_INF, and the origin's values;
+// non-affine, the 13 columns, the 3 str-only ones within the diagonal.
 //
 // Where the slabs live: `slabs` is slab 0 of the pair, P its rows per line,
 // and diagonal d is slab d of a band [n+m+1, (9,) W, W, P] (kRing = false;
@@ -65,6 +68,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include <cuda_pipeline.h>
 
@@ -167,6 +171,18 @@ struct AffineTile {
                             v2 + cs.cst[q][FIRST_B + 2]);
     return agg + bit_of(kBMu2, q) * m2;  // (pallas_dp.py:270-299)
   }
+
+  // The optimal score from the slab of diagonal n+m (P rows a line): the
+  // max over the 9 states at (S, S, n).
+  __device__ __forceinline__ static int32_t score(const int32_t* slab, int P,
+                                                  int S, int n) {
+    const int W = 2 * S + 1;
+    const int centre = (S * W + S) * P + n;
+    int32_t best = slab[centre];
+    for (int q = 1; q < N_STATES; ++q)
+      best = max(best, slab[q * W * W * P + centre]);
+    return best;
+  }
 };
 
 // The non-affine recurrence's two phases for one value of a tile (q = 0).
@@ -217,6 +233,13 @@ struct NonaffineTile {
       }
     }
     return best;
+  }
+
+  // The optimal score from the slab of diagonal n+m: the value at (S, S, n).
+  __device__ __forceinline__ static int32_t score(const int32_t* slab, int P,
+                                                  int S, int n) {
+    const int W = 2 * S + 1;
+    return slab[(S * W + S) * P + n];
   }
 };
 
@@ -349,49 +372,61 @@ TileGeometry tile_geometry(int S) {
           sizeof(int32_t) * (cells * (3 * R + 2) + W2 * R + R)};
 }
 
+// int32 values of one slab of P rows at max_shift S
+template <class Tile>
+__host__ __device__ size_t slab_values(int P, int S) {
+  return static_cast<size_t>(Tile::kStates) * (2 * S + 1) * (2 * S + 1) * P;
+}
+
 // Shared memory one CTA can have on an H100, and the most without opting in.
 constexpr size_t kSharedLimit = 232448;
 constexpr size_t kSharedDefault = 48 * 1024;
 
-template <class Tile, int kS, bool kRing>
-cudaError_t launch_tile(int32_t* slabs, const int32_t* mu1, const int32_t* mu2,
-                        const typename Tile::Consts& cs, int n, int m, int S,
-                        int d, cudaStream_t st) {
-  const TileGeometry g = tile_geometry<Tile>(S);
-  const size_t slab = static_cast<size_t>(Tile::kStates) * (2 * S + 1) *
-                      (2 * S + 1) * (n + 1);
+// Before a tile kernel's first launch: refuses a tile beyond one CTA's
+// shared memory and a slab of 2^31 values or more (32-bit offsets inside a
+// slab), and opts the kernel in to more than the default shared memory.
+template <class Kernel>
+cudaError_t tile_ready(Kernel kernel, const TileGeometry& g, size_t slab) {
   if (g.bytes > kSharedLimit || slab >= (size_t{1} << 31))
     return cudaErrorInvalidValue;
-  const auto kernel = tile_diag<Tile, kS, kRing>;
-  if (g.bytes > kSharedDefault) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(g.bytes));
-    if (err != cudaSuccess) return err;
-  }
-  const int lo = std::max(0, d - m), hi = std::min(n, d);
-  kernel<<<(hi - lo + g.rows) / g.rows, g.threads, g.bytes, st>>>(
-      slabs, mu1, mu2, cs, n, m, S, d, lo, hi);
-  return cudaGetLastError();
+  if (g.bytes > kSharedDefault)
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(g.bytes));
+  return cudaSuccess;
 }
 
-// Diagonal d of one pair: the instantiation of max_shift S.
+// f(std::integral_constant<int, kS>{}) with the instantiation of max_shift
+// S: kS = S for 0-3, kS = -1 (S read at run time) above.
+template <class F>
+auto with_shift(int S, F&& f) {
+  static_assert(kStaticShifts == 3, "one case per instantiated max_shift");
+  switch (S) {
+    case 0: return f(std::integral_constant<int, 0>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    default: return f(std::integral_constant<int, -1>{});
+  }
+}
+
+// Diagonal d of one pair.
 template <class Tile, bool kRing>
 cudaError_t launch_diagonal(int32_t* slabs, const int32_t* mu1,
                             const int32_t* mu2,
                             const typename Tile::Consts& cs, int n, int m,
                             int S, int d, cudaStream_t st) {
-  static_assert(kStaticShifts == 3, "one case per instantiated max_shift");
-  const auto launch = [&](auto kernel) {
-    return kernel(slabs, mu1, mu2, cs, n, m, S, d, st);
-  };
-  switch (S) {
-    case 0: return launch(launch_tile<Tile, 0, kRing>);
-    case 1: return launch(launch_tile<Tile, 1, kRing>);
-    case 2: return launch(launch_tile<Tile, 2, kRing>);
-    case 3: return launch(launch_tile<Tile, 3, kRing>);
-    default: return launch(launch_tile<Tile, -1, kRing>);
-  }
+  return with_shift(S, [&](auto shift) {
+    const auto kernel = tile_diag<Tile, decltype(shift)::value, kRing>;
+    const TileGeometry g = tile_geometry<Tile>(S);
+    const cudaError_t err =
+        tile_ready(kernel, g, slab_values<Tile>(n + 1, S));
+    if (err != cudaSuccess) return err;
+    const int lo = std::max(0, d - m), hi = std::min(n, d);
+    kernel<<<(hi - lo + g.rows) / g.rows, g.threads, g.bytes, st>>>(
+        slabs, mu1, mu2, cs, n, m, S, d, lo, hi);
+    return cudaGetLastError();
+  });
 }
 
 // The constant terms as the host passed them, one int32 array.

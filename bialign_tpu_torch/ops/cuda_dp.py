@@ -107,9 +107,8 @@ MS0_REC = 7   # values of one live state's record; csrc/affine_ms0_diag.cuh
 CTA_SHARED_LIMIT = 232448
 ROUTES = ("grid", "cta", "conveyor")
 # Threads the card holds at once (132 SMs of 2048): a conveyor gets as many
-# lanes as fill it once, so that a step's launch is one wave.
+# lanes as fill it twice, so that a step's launch is about two waves.
 CARD_THREADS = 132 * 2048
-ROW_BLOCK = 128   # threads of a block of the per-step kernels; kRowBlock
 
 
 def affine_case_table(beta: int, gamma: int, delta: int) -> np.ndarray:
@@ -156,17 +155,26 @@ def nonaffine_kernel_consts(gamma: int, delta: int) -> np.ndarray:
     return np.ascontiguousarray(nonaffine_case_table(gamma, delta)[:, CST])
 
 
-# rows of a tile at max_shift 0-3 (affine, non-affine), 1 above: the
-# `rows` of AffineTile and NonaffineTile in csrc/tile_diag.cuh
+# rows of a tile at max_shift 0-3 (affine, non-affine), 1 above, and the
+# threads of its CTA: `rows` and `kThreads` of AffineTile and NonaffineTile
+# in csrc/tile_diag.cuh
 TILE_ROWS = ((32, 8, 4, 2), (128, 16, 8, 4))
+TILE_THREADS = (256, 128)
+
+
+def tile_rows(max_shift: int, affine: bool) -> int:
+    """Rows R of a tile kernel's CTA at ``max_shift``."""
+    rows = TILE_ROWS[0 if affine else 1]
+    return rows[max_shift] if max_shift < len(rows) else 1
 
 
 def tile_shared_bytes(max_shift: int, affine: bool) -> int:
-    """Shared memory of one CTA of the tile kernels K1, K2, K9-K12
-    (``csrc/tile_diag.cuh`` ``tile_geometry``): slabs d-1 and d-2 staged
-    over R + 1 rows, the tile of R rows, R rows of mu2 windows and of mu1."""
-    states, rows = (N_STATES, TILE_ROWS[0]) if affine else (1, TILE_ROWS[1])
-    R = rows[max_shift] if max_shift < len(rows) else 1
+    """Shared memory of one CTA of the tile kernels K1, K2, K4, K5, K8 and
+    K9-K12 (``csrc/tile_diag.cuh`` ``tile_geometry``): slabs d-1 and d-2
+    staged over R + 1 rows, the tile of R rows, R rows of mu2 windows and of
+    mu1."""
+    states = N_STATES if affine else 1
+    R = tile_rows(max_shift, affine)
     W2 = (2 * max_shift + 1) ** 2
     return 4 * (states * W2 * (3 * R + 2) + W2 * R + R)
 
@@ -886,13 +894,18 @@ def conveyor_T0(M: int) -> int:
     return M + 3
 
 
-def conveyor_lanes(B: int, N: int) -> int:
+def conveyor_lanes(B: int, N: int, max_shift: int, affine: bool) -> int:
     """Lanes of a bucket's conveyor: as many as fill the card's threads
-    once with N+1 rows each, at most one per pair.  More pairs than that
-    stream through the lanes one behind the other, so the rings' memory
-    and a step's launch stop growing with the bucket."""
-    row_blocks = (N + ROW_BLOCK) // ROW_BLOCK
-    return max(1, min(B, CARD_THREADS // (row_blocks * ROW_BLOCK)))
+    twice when each lane's diagonal covers its N+1 rows with tiles of the
+    tile kernel (``tile_rows`` rows, ``TILE_THREADS`` threads a CTA), at
+    most one per pair.  More pairs than that stream through the lanes one
+    behind the other, so the rings' memory and a step's launch stop growing
+    with the bucket.  Two waves, not one: a lane's tiles above its pairs'
+    live rows leave at once, and fewer lanes cost steps (PERF.md, the
+    conveyor's lanes on the realistic batch)."""
+    tiles = -(-(N + 1) // tile_rows(max_shift, affine))
+    threads = TILE_THREADS[0 if affine else 1]
+    return max(1, min(B, 2 * CARD_THREADS // (tiles * threads)))
 
 
 def _batch_ring_shape(mu1p, states: tuple, lanes=None) -> tuple:
@@ -922,7 +935,9 @@ def _device_cases(kind: str, params: tuple, dev: torch.device):
 
 def _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring, d_max,
                   *more):
-    """Launch bucket kernel ``name``; ``more`` are the kernel's arguments
+    """Launch bucket kernel ``name``; ``cases`` are the tile kernels' case
+    constants on the host (K4, K5, K8: :func:`_tile_consts`) or the packed
+    case table on the device (K6, K7); ``more`` are the kernel's arguments
     after M: max_shift (which K7 lacks), then the conveyor's lanes and T0.
     ``ring`` (any contents) is the carry of the grid and conveyor kernels,
     or the chunk band of the band-mode kernels, allocated here if None, and
@@ -947,7 +962,8 @@ def _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring, d_max,
     return out
 
 
-def _conveyor_plan(mu1p, route: str, lanes) -> tuple:
+def _conveyor_plan(mu1p, route: str, lanes, max_shift: int,
+                   affine: bool) -> tuple:
     """(lanes, T0) of a bucket on the conveyor, () on another route."""
     B, N, M = mu1p.shape[0], mu1p.shape[1] - 1, mu1p.shape[2] - 1
     if route != "conveyor":
@@ -955,7 +971,7 @@ def _conveyor_plan(mu1p, route: str, lanes) -> tuple:
             raise ValueError(f"lanes= is the conveyor's, route is {route!r}")
         return ()
     if lanes is None:
-        lanes = conveyor_lanes(B, N)
+        lanes = conveyor_lanes(B, N, max_shift, affine)
     if not 1 <= lanes <= max(B, 1):
         raise ValueError(f"lanes must be in 1..{max(B, 1)}, got {lanes}")
     return lanes, conveyor_T0(M)
@@ -978,11 +994,13 @@ def affine_batch_scores(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
 
     On a CUDA device the lengths' values are not checked (that would wait
     for the device): a pair whose n_b, m_b lie outside the bucket, or beyond
-    ``d_max``, comes back as INVALID."""
+    ``d_max``, comes back as INVALID.  K4 and K8 run the tile kernel's
+    device function and raise ``ValueError`` for a max_shift whose tile
+    does not fit one CTA's shared memory (above 17), as K1 does."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
     route = batch_route(mu1p.shape[1] - 1, S, True, route, B=mu1p.shape[0])
-    plan = _conveyor_plan(mu1p, route, lanes)
+    plan = _conveyor_plan(mu1p, route, lanes, S, True)
     ms0 = route == "cta" and S == 0
     states = (3,) if ms0 else (N_STATES, W, W)
     ring_shape = _batch_ring_shape(mu1p, states, *plan[:1])
@@ -1003,9 +1021,10 @@ def affine_batch_scores(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
             mu2p, ns, ms, ring_shape, ring, d_max)
     name = {"grid": "batch_affine", "cta": "cta_affine",
             "conveyor": "conveyor_affine"}[route]
-    return _batch_kernel(
-        name, _device_cases("affine", params, mu1p.device), mu1p, mu2p, ns,
-        ms, ring_shape, ring, d_max, S, *plan)
+    cases = (_device_cases("affine", params, mu1p.device) if route == "cta"
+             else _tile_consts(True, params, S))
+    return _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring,
+                         d_max, S, *plan)
 
 
 def nonaffine_batch_scores(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
@@ -1015,11 +1034,12 @@ def nonaffine_batch_scores(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
     ``_nonaffine_pallas_batched_dense`` with ``score_only=True``): K5 on
     route ``"grid"``, K8's non-affine form on ``"conveyor"``, K6's on
     ``"cta"``; as :func:`affine_batch_scores`, ``ring`` being
-    ``[B, 3, W, W, N+1]``, or ``[lanes, 3, W, W, N+1]`` on the conveyor."""
+    ``[B, 3, W, W, N+1]``, or ``[lanes, 3, W, W, N+1]`` on the conveyor;
+    K5 and K8 refuse a max_shift above 48 on a CUDA device."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
     route = batch_route(mu1p.shape[1] - 1, S, False, route, B=mu1p.shape[0])
-    plan = _conveyor_plan(mu1p, route, lanes)
+    plan = _conveyor_plan(mu1p, route, lanes, S, False)
     ring_shape = _batch_ring_shape(mu1p, (W, W), *plan[:1])
     if mu1p.device.type == "cpu":
         if plan:
@@ -1030,9 +1050,10 @@ def nonaffine_batch_scores(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
                                             delta, ring=ring)
     name = {"grid": "batch_nonaffine", "cta": "cta_nonaffine",
             "conveyor": "conveyor_nonaffine"}[route]
-    return _batch_kernel(
-        name, _device_cases("nonaffine", (gamma, delta), mu1p.device), mu1p,
-        mu2p, ns, ms, ring_shape, ring, d_max, S, *plan)
+    cases = (_device_cases("nonaffine", (gamma, delta), mu1p.device)
+             if route == "cta" else _tile_consts(False, (gamma, delta), S))
+    return _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring,
+                         d_max, S, *plan)
 
 
 def _batch_scores_plain(step, centre, mu1p, ns, ms, ring_shape, ring):
@@ -1124,7 +1145,7 @@ def affine_conveyor_scores_plain(mu1p, mu2p, ns, ms, max_shift, beta, gamma,
     ``[lanes, 3, 9, W, W, N+1]``."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
-    lanes, T0 = _conveyor_plan(mu1p, "conveyor", lanes)
+    lanes, T0 = _conveyor_plan(mu1p, "conveyor", lanes, S, True)
     g = _ConveyorGeometry(mu1p, mu2p, ns, ms, S, lanes, T0)
     return _conveyor_scores_plain(
         _affine_step(g, beta, gamma, delta), lambda val: val[:, :, S, S], g,
@@ -1139,7 +1160,7 @@ def nonaffine_conveyor_scores_plain(mu1p, mu2p, ns, ms, max_shift, gamma,
     ``[lanes, 3, W, W, N+1]``."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
-    lanes, T0 = _conveyor_plan(mu1p, "conveyor", lanes)
+    lanes, T0 = _conveyor_plan(mu1p, "conveyor", lanes, S, False)
     g = _ConveyorGeometry(mu1p, mu2p, ns, ms, S, lanes, T0)
     return _conveyor_scores_plain(
         _nonaffine_step(g, gamma, delta), lambda val: val[:, None, S, S], g,
@@ -1176,17 +1197,18 @@ def affine_batch_bands(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
     as in :func:`_batch_band_shape`: a pair with n_b + m_b > ``d_max`` gets
     neither its last diagonals nor a score (INVALID).  ``band``: the memory
     to fill, whatever it holds (default: fresh, uninitialised); only the
-    pairs' genuine cells are written, and nothing else is read."""
+    pairs' genuine cells are written, and nothing else is read.  On a CUDA
+    device a max_shift above 17 raises ``ValueError`` (the tile's shared
+    memory, as for K1)."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
     if mu1p.device.type == "cpu":
         return affine_batch_bands_plain(mu1p, mu2p, ns, ms, S, beta, gamma,
                                         delta, d_max=d_max, band=band)
     return _bands_kernel(
-        "batch_fill_affine",
-        _device_cases("affine", (beta, gamma, delta), mu1p.device), mu1p,
-        mu2p, ns, ms, _batch_band_shape(mu1p, (N_STATES, W, W), d_max), band,
-        d_max, S, True)
+        "batch_fill_affine", _tile_consts(True, (beta, gamma, delta), S),
+        mu1p, mu2p, ns, ms, _batch_band_shape(mu1p, (N_STATES, W, W), d_max),
+        band, d_max, S, True)
 
 
 def nonaffine_batch_bands(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
@@ -1200,9 +1222,9 @@ def nonaffine_batch_bands(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
         return nonaffine_batch_bands_plain(mu1p, mu2p, ns, ms, S, gamma,
                                            delta, d_max=d_max, band=band)
     return _bands_kernel(
-        "batch_fill_nonaffine",
-        _device_cases("nonaffine", (gamma, delta), mu1p.device), mu1p, mu2p,
-        ns, ms, _batch_band_shape(mu1p, (W, W), d_max), band, d_max, S, False)
+        "batch_fill_nonaffine", _tile_consts(False, (gamma, delta), S), mu1p,
+        mu2p, ns, ms, _batch_band_shape(mu1p, (W, W), d_max), band, d_max, S,
+        False)
 
 
 def _batch_bands_plain(step, centre, mu1p, ns, ms, S, shape, band, affine):

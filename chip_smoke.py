@@ -15,10 +15,12 @@ package.  Phases, one line each:
    kernels' CTAs (R-1, R, R+1 and 2R+1 live rows at max_shift 1 and 3) and
    max_shift 4 (bands, last slabs and traces exact; the band fills also on
    a band of garbage, the score-only kernels on a ring of garbage).
-   The bucket kernels K4-K8 on buckets of mixed lengths at max_shift 0-3,
-   B from 1 to 64, rings of garbage, every route forced ("cta" wherever the
-   bucket fits one CTA's shared memory, the conveyor on one lane, on a few
-   and on one per pair), all equal.  K4 and K5 in band mode and the batch
+   The bucket kernels K4-K8 on buckets of mixed lengths at max_shift 0-4,
+   B from 1 to 64, and on buckets at the tile's edges (pairs of R-1, R and
+   R+1 live rows, empty sequences) at max_shift 0-4, rings of garbage,
+   every route forced ("cta" wherever the bucket fits one CTA's shared
+   memory, the conveyor on one lane, on three and on one per pair), all
+   equal.  K4 and K5 in band mode and the batch
    walks on the same buckets, on bands pre-filled with garbage: the bands
    equal to their twins' cell for cell (so nothing but a pair's genuine
    cells is written), the scores equal to score mode's, every walk equal to
@@ -39,8 +41,8 @@ package.  Phases, one line each:
    at max_shift 0 (K3) and 2 and nonaffine_score at the CLI defaults equal
    to the band path's.  End-to-end times, kernel times against the plain
    twins', microseconds a launch, the score-only fills beside the bucket
-   kernels K4/K5 on the same pair as a batch of one (the row function, the
-   design K1 and K2 had before the tile kernels), band bytes, peak memory.
+   kernels K4/K5 on the same pair as a batch of one (the same tile under
+   the bucket's launch), band bytes, peak memory.
    Then a 4000x3990 pair of random tables, affine max_shift 1: score-only
    against the band kernel.
    The batched-scores path through bialign_tpu_torch.parallel.score_batch
@@ -55,7 +57,9 @@ package.  Phases, one line each:
    from host
    tables and from resident ones, cold and warm, kernel times against the
    twins' and against the pairs one at a time, the routes and the
-   conveyor's lanes against each other, peak memory.
+   conveyor's lanes against each other, peak memory; K4, K5 and K8 on the
+   64 windows (K5 and K8's non-affine form under the CLI defaults' costs),
+   in total and a launch.
    The batched-alignments path through parallel.align_batch: the same 64
    windows (every score equal to affine_score, every trace and complete
    flag equal to the single-pair BiAligner's), 512 toy pairs (48500 and the
@@ -140,6 +144,23 @@ def tile_edge_shapes() -> list:
 
 
 TILE_EDGE_SHAPES = tile_edge_shapes()
+
+
+def edge_lengths(N: int, M: int, S: int) -> list:
+    """(n, m) of a bucket at the tile's edges: pairs whose widest live
+    range, min(n, m) + 1 rows, is R-1, R and R+1 rows for the R of the
+    affine and of the non-affine tile at max_shift S, an empty sequence
+    each way and the bucket's own size."""
+    out = [(0, M), (N, 0), (N, M)]
+    for R in sorted({cuda_dp.tile_rows(S, True), cuda_dp.tile_rows(S, False)}):
+        out += [(w - 1, w + 1) for w in (R - 1, R, R + 1) if w >= 1]
+    return out
+
+
+# Buckets of phase 3 at the tile's edges (edge_lengths), max_shift 0-4:
+# (N, M, max_shift), N + 1 the rows of the larger tile and 2
+EDGE_BUCKETS = [(R + 1, R + 2, S) for S in range(5)
+                for R in [max(cuda_dp.tile_rows(S, a) for a in (True, False))]]
 AFFINE_PARAMS = (-150, -50, -150)       # beta, gamma, delta
 NONAFFINE_PARAMS = (-200, -250)         # gamma, delta
 
@@ -163,7 +184,7 @@ BLOCK_TWIN_DIAGONALS = 100
 
 # Buckets of phase 3: (N, M, B, the max_shifts to run).  Lengths are mixed
 # inside each bucket (mixed_lengths); the last has 150-300 rows.
-BUCKETS = [(8, 8, 1, (0, 1, 2, 3)), (8, 8, 7, (0, 1, 2, 3)),
+BUCKETS = [(8, 8, 1, (0, 1, 2, 3)), (8, 8, 7, (0, 1, 2, 3, 4)),
            (24, 40, 16, (1, 2)), (64, 64, 64, (0, 1, 2)),
            (200, 257, 5, (0, 1, 2))]
 # The conveyor's own twin walks every step in Python: it runs where the
@@ -705,6 +726,19 @@ def bucket_stacks(rng, N, M, lengths, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in stacks)
 
 
+def phase3_buckets():
+    """(N, M, B, max_shift, seed, lengths of rng) of phase 3's buckets:
+    BUCKETS with mixed lengths, then the buckets at the tile's edges."""
+    for N, M, B, shifts in BUCKETS:
+        for S in shifts:
+            yield (N, M, B, S, SEED + 1000 * N + 10 * B + S,
+                   functools.partial(mixed_lengths, N=N, M=M, B=B))
+    for N, M, S in EDGE_BUCKETS:
+        lengths = edge_lengths(N, M, S)
+        yield (N, M, len(lengths), S, SEED + 1000 * N + S + 3,
+               lambda rng, lengths=lengths: lengths)
+
+
 def score_err(a, b) -> int:
     check(a.shape == b.shape, f"score shapes {a.shape} {b.shape}")
     return int((a.long() - b.long()).abs().max())
@@ -723,74 +757,72 @@ def phase_batch_kernels(dev, errs: dict) -> list:
     beta, gamma, delta = AFFINE_PARAMS
     g2, d2 = NONAFFINE_PARAMS
     ran = []
-    for N, M, B, shifts in BUCKETS:
-        for S in shifts:
-            rng = np.random.default_rng(SEED + 1000 * N + 10 * B + S)
-            W = 2 * S + 1
-            stacks = bucket_stacks(rng, N, M, mixed_lengths(rng, N, M, B),
-                                   dev)
-            forms = (
-                ("affine", cuda_dp.affine_batch_scores,
-                 cuda_dp.affine_batch_scores_plain,
-                 cuda_dp.affine_conveyor_scores_plain, (beta, gamma, delta),
-                 (9, W, W), "batch_affine"),
-                ("nonaffine", cuda_dp.nonaffine_batch_scores,
-                 cuda_dp.nonaffine_batch_scores_plain,
-                 cuda_dp.nonaffine_conveyor_scores_plain, (g2, d2), (W, W),
-                 "batch_nonaffine"),
-            )
-            for form, kern, plain, conveyor_plain, params, cells, \
-                    grid_name in forms:
-                want = plain(*stacks, S, *params)
-                got = kern(*stacks, S, *params, route="grid",
-                           ring=garbage_ring(rng, (B, 3, *cells, N + 1), dev))
-                e = score_err(got, want)
-                check(e == 0, f"{grid_name} {N, M, B, S}: max |err| {e}")
-                errs[grid_name] = max(errs[grid_name], e)
-                routes = ["grid"]
-                affine = form == "affine"
+    for N, M, B, S, seed, lengths_of in phase3_buckets():
+        rng = np.random.default_rng(seed)
+        W = 2 * S + 1
+        stacks = bucket_stacks(rng, N, M, lengths_of(rng), dev)
+        forms = (
+            ("affine", cuda_dp.affine_batch_scores,
+             cuda_dp.affine_batch_scores_plain,
+             cuda_dp.affine_conveyor_scores_plain, (beta, gamma, delta),
+             (9, W, W), "batch_affine"),
+            ("nonaffine", cuda_dp.nonaffine_batch_scores,
+             cuda_dp.nonaffine_batch_scores_plain,
+             cuda_dp.nonaffine_conveyor_scores_plain, (g2, d2), (W, W),
+             "batch_nonaffine"),
+        )
+        for form, kern, plain, conveyor_plain, params, cells, \
+                grid_name in forms:
+            want = plain(*stacks, S, *params)
+            got = kern(*stacks, S, *params, route="grid",
+                       ring=garbage_ring(rng, (B, 3, *cells, N + 1), dev))
+            e = score_err(got, want)
+            check(e == 0, f"{grid_name} {N, M, B, S}: max |err| {e}")
+            errs[grid_name] = max(errs[grid_name], e)
+            routes = ["grid"]
+            affine = form == "affine"
 
-                for lanes in sorted({1, min(3, B), B}):
-                    routes.append(f"conveyor/{lanes}")
-                    belt = kern(*stacks, S, *params, route="conveyor",
-                                lanes=lanes, ring=garbage_ring(
-                                    rng, (lanes, 3, *cells, N + 1), dev))
-                    e = score_err(belt, want)
-                    if conveyor_steps(B, M, lanes, N + M) \
-                            <= CONVEYOR_TWIN_STEPS:
-                        e = max(e, score_err(belt, conveyor_plain(
-                            *stacks, S, *params, lanes=lanes)))
-                        routes[-1] += "+twin"
-                    check(e == 0, f"conveyor_scores {form} {N, M, B, S} on "
-                          f"{lanes} lanes: max |err| {e}")
-                    errs["conveyor_scores"] = max(errs["conveyor_scores"], e)
+            for lanes in sorted({1, min(3, B), B}):
+                routes.append(f"conveyor/{lanes}")
+                belt = kern(*stacks, S, *params, route="conveyor",
+                            lanes=lanes, ring=garbage_ring(
+                                rng, (lanes, 3, *cells, N + 1), dev))
+                e = score_err(belt, want)
+                if conveyor_steps(B, M, lanes, N + M) \
+                        <= CONVEYOR_TWIN_STEPS:
+                    e = max(e, score_err(belt, conveyor_plain(
+                        *stacks, S, *params, lanes=lanes)))
+                    routes[-1] += "+twin"
+                check(e == 0, f"conveyor_scores {form} {N, M, B, S} on "
+                      f"{lanes} lanes: max |err| {e}")
+                errs["conveyor_scores"] = max(errs["conveyor_scores"], e)
 
-                fits = (cuda_dp.cta_shared_bytes(N, S, affine)
-                        <= cuda_dp.CTA_SHARED_LIMIT)
-                if fits:
-                    routes.append("cta")
-                    ms0 = affine and S == 0                     # K7
-                    name = "cta_scores_ms0" if ms0 else "cta_scores"
-                    cells = (3,) if ms0 else cells
-                    for ring in (garbage_ring(rng, (B, 3, *cells, N + 1),
-                                              dev), None):
-                        cta = kern(*stacks, S, *params, route="cta",
-                                   ring=ring)
-                        e = max(score_err(cta, want), score_err(cta, got))
-                        check(e == 0, f"{name} {form} {N, M, B, S}: "
-                              f"max |err| {e}")
-                        errs[name] = max(errs[name], e)
-                    if ms0:
-                        twin = cuda_dp.affine_ms0_batch_scores_plain(
-                            *stacks, beta, gamma, delta)
-                        check(score_err(cta, twin) == 0,
-                              f"cta_scores_ms0 against its twin {N, M, B}")
-                own = ("cta" if fits else "conveyor" if B >= 2 else "grid")
-                check(cuda_dp.batch_route(N, S, affine, B=B) == own,
-                      f"route of {N, S, B, form}")
-                check(score_err(kern(*stacks, S, *params), want) == 0,
-                      f"{form} {N, M, B, S} on its own route {own}")
-                ran.append([N, M, B, S, form, routes, own])
+            fits = (cuda_dp.cta_shared_bytes(N, S, affine)
+                    <= cuda_dp.CTA_SHARED_LIMIT)
+            if fits:
+                routes.append("cta")
+                ms0 = affine and S == 0                     # K7
+                name = "cta_scores_ms0" if ms0 else "cta_scores"
+                cells = (3,) if ms0 else cells
+                for ring in (garbage_ring(rng, (B, 3, *cells, N + 1),
+                                          dev), None):
+                    cta = kern(*stacks, S, *params, route="cta",
+                               ring=ring)
+                    e = max(score_err(cta, want), score_err(cta, got))
+                    check(e == 0, f"{name} {form} {N, M, B, S}: "
+                          f"max |err| {e}")
+                    errs[name] = max(errs[name], e)
+                if ms0:
+                    twin = cuda_dp.affine_ms0_batch_scores_plain(
+                        *stacks, beta, gamma, delta)
+                    check(score_err(cta, twin) == 0,
+                          f"cta_scores_ms0 against its twin {N, M, B}")
+            own = ("cta" if fits else "conveyor" if B >= 2 else "grid")
+            check(cuda_dp.batch_route(N, S, affine, B=B) == own,
+                  f"route of {N, S, B, form}")
+            check(score_err(kern(*stacks, S, *params), want) == 0,
+                  f"{form} {N, M, B, S} on its own route {own}")
+            ran.append([N, M, B, S, form, routes, own])
     torch.cuda.synchronize()
     return ran
 
@@ -823,34 +855,33 @@ def phase_align_kernels(dev, errs: dict) -> list:
     Each bucket runs to its pairs' last diagonal, as the path does, the
     small ones also to the bucket's N + M."""
     ran = []
-    for N, M, B, shifts in BUCKETS:
-        for S in shifts:
-            rng = np.random.default_rng(SEED + 1000 * N + 10 * B + S + 7)
-            lengths = mixed_lengths(rng, N, M, B)
-            stacks = bucket_stacks(rng, N, M, lengths, dev)
-            own = max(n + m for n, m in lengths)
-            for form, fill, fill_plain, scores_plain, walk, walk_plain, \
-                    params, cells, fill_name, walk_name in align_forms(S):
-                want = scores_plain(*stacks, S, *params)
-                for d_max in ((own, None) if N <= 24 else (own,)):
-                    D = (N + M if d_max is None else d_max) + 1
-                    junk = garbage_band((B, D, *cells, N + 1), dev)
-                    bk, sk = fill(*stacks, S, *params, d_max=d_max,
-                                  band=junk.clone())
-                    bp, sp = fill_plain(*stacks, S, *params, d_max=d_max,
-                                        band=junk)
-                    e = max(batch_band_err(bk, bp), score_err(sk, sp),
-                            score_err(sk, want))
-                    check(e == 0, f"{fill_name} {N, M, B, S, d_max}: "
-                          f"max |err| {e}")
-                    errs[fill_name] = max(errs[fill_name], e)
-                    e, steps = walks_err(
-                        walk(bk, *params, *stacks[:2]),
-                        walk_plain(bp, *params, *stacks[:2]))
-                    check(e == 0, f"{walk_name} {N, M, B, S, d_max}: "
-                          f"max |err| {e}")
-                    errs[walk_name] = max(errs[walk_name], e)
-                    ran.append([N, M, B, S, form, D, steps])
+    for N, M, B, S, seed, lengths_of in phase3_buckets():
+        rng = np.random.default_rng(seed + 7)
+        lengths = lengths_of(rng)
+        stacks = bucket_stacks(rng, N, M, lengths, dev)
+        own = max(n + m for n, m in lengths)
+        for form, fill, fill_plain, scores_plain, walk, walk_plain, \
+                params, cells, fill_name, walk_name in align_forms(S):
+            want = scores_plain(*stacks, S, *params)
+            for d_max in ((own, None) if N <= 24 else (own,)):
+                D = (N + M if d_max is None else d_max) + 1
+                junk = garbage_band((B, D, *cells, N + 1), dev)
+                bk, sk = fill(*stacks, S, *params, d_max=d_max,
+                              band=junk.clone())
+                bp, sp = fill_plain(*stacks, S, *params, d_max=d_max,
+                                    band=junk)
+                e = max(batch_band_err(bk, bp), score_err(sk, sp),
+                        score_err(sk, want))
+                check(e == 0, f"{fill_name} {N, M, B, S, d_max}: "
+                      f"max |err| {e}")
+                errs[fill_name] = max(errs[fill_name], e)
+                e, steps = walks_err(
+                    walk(bk, *params, *stacks[:2]),
+                    walk_plain(bp, *params, *stacks[:2]))
+                check(e == 0, f"{walk_name} {N, M, B, S, d_max}: "
+                      f"max |err| {e}")
+                errs[walk_name] = max(errs[walk_name], e)
+                ran.append([N, M, B, S, form, D, steps])
     torch.cuda.synchronize()
     return ran
 
@@ -1169,12 +1200,17 @@ BATCH_TIMED = {"conveyor_scores": ("realistic", None, 15, 9),
                "cta_scores": ("toy_b512", None, 15, 9),
                "cta_scores_ms0": ("toy_b512_ms0", None, 3, 3),
                "batch_nonaffine": ("dnapol_nonaffine_x4", "grid", 13, 1)}
-# the second form of a kernel on the main path's shape, held to its twin and
-# timed like the first: name in the report -> (kernel, batch, cases, states)
+# the second form of a kernel on the main path's shape, or a kernel on
+# another batch, held to its twin and timed like the first: name in the
+# report -> (kernel, batch, route, cases, states)
 BATCH_TIMED_FORMS = {
-    "cta_scores_nonaffine": ("cta_scores", "toy_b512_nonaffine", 13, 1),
+    "cta_scores_nonaffine": ("cta_scores", "toy_b512_nonaffine", None, 13, 1),
     "conveyor_scores_nonaffine": ("conveyor_scores", "dnapol_nonaffine_x4",
-                                  13, 1)}
+                                  None, 13, 1),
+    "batch_nonaffine_realistic": ("batch_nonaffine", "realistic_nonaffine",
+                                  "grid", 13, 1),
+    "conveyor_scores_nonaffine_realistic": (
+        "conveyor_scores", "realistic_nonaffine", "conveyor", 13, 1)}
 
 
 def routed(batch, route=None, lanes_of=None):
@@ -1201,9 +1237,12 @@ def phase_batch_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
     resident, CUDA events around all of them; the twins through
     engine="torch" on the card.  Returns (times, bounds, more)."""
     times, bounds, more, twins = {}, {}, {}, {}
+    # the realistic windows' tables under the non-affine CLI defaults' costs
+    realistic, nonaffine = batches["realistic"], batches["dnapol_nonaffine_x4"]
+    batches = dict(batches, realistic_nonaffine=(
+        *realistic[:2], *nonaffine[2:4], False, realistic[5]))
     timed = {name: (name, *spec) for name, spec in BATCH_TIMED.items()}
-    timed.update({k: (v[0], v[1], None, *v[2:])
-                  for k, v in BATCH_TIMED_FORMS.items()})
+    timed.update(BATCH_TIMED_FORMS)
     for label, (name, batch, route, cases, states) in timed.items():
         tables, lengths, S, params, affine, quantum = batches[batch]
         dispatch, buckets = routed(batches[batch], route)
@@ -1226,11 +1265,13 @@ def phase_batch_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
             "batch": sum(d_max + 1 for _i, _st, d_max in buckets),
             "conve": sum(conveyor_steps(
                 st[0].shape[0], st[0].shape[2] - 1,
-                cuda_dp.conveyor_lanes(st[0].shape[0], st[0].shape[1] - 1),
+                cuda_dp.conveyor_lanes(st[0].shape[0], st[0].shape[1] - 1,
+                                       S, affine),
                 d_max) for _i, st, d_max in buckets),
             "cta_s": per_call}[name[:5]]
         found = dict(batch=batch, wrapper_calls_per_run=per_call,
-                     kernel_launches_per_run=launches)
+                     kernel_launches_per_run=launches,
+                     us_per_launch=ms_k * 1e3 / launches)
         if label == name:
             times[name] = (ms_k, ms_p)
             bounds[name] = batch_bound(lengths, S, cases, states)
@@ -1256,22 +1297,25 @@ def phase_batch_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
                   f"{batch}: {route} != {routes[0]}")
         more[f"{batch}_routes_ms"] = found
 
-    # the conveyor's lanes on the realistic buckets: a lane per pair (its
-    # own choice there), then half, a quarter and one lane for the bucket
+    # the conveyor's lanes on the realistic buckets: its own choice
+    # (conveyor_lanes), a lane per pair, half, a quarter and one lane for
+    # the bucket
     want = routed(batches["realistic"])[0]().get()
     lanes_ms = {}
-    for share in (1, 2, 4, None):
-        lanes_of = (lambda B: 1) if share is None else \
-            (lambda B, share=share: -(-B // share))
+    for share in ("own", 1, 2, 4, None):
+        lanes_of = {"own": None, None: lambda B: 1}.get(
+            share, lambda B, share=share: -(-B // share))
         run, buckets = routed(batches["realistic"], "conveyor", lanes_of)
         run()
         ms, pending = cuda_ms(run, reps=1)
-        check((pending.get() == want).all(), f"conveyor on 1/{share} lanes")
-        lanes_ms["1" if share is None else f"B/{share}"] = dict(
-            ms=ms, lanes=[lanes_of(st[0].shape[0]) for _i, st, _d in buckets],
-            launches=sum(conveyor_steps(
-                st[0].shape[0], st[0].shape[2] - 1, lanes_of(st[0].shape[0]),
-                d_max) for _i, st, d_max in buckets))
+        check((pending.get() == want).all(), f"conveyor on {share} lanes")
+        lanes = [lanes_of(st[0].shape[0]) if lanes_of else
+                 cuda_dp.conveyor_lanes(st[0].shape[0], st[0].shape[1] - 1,
+                                        1, True) for _i, st, _d in buckets]
+        key = {"own": "own", None: "1"}.get(share, f"B/{share}")
+        lanes_ms[key] = dict(ms=ms, lanes=lanes, launches=sum(
+            conveyor_steps(st[0].shape[0], st[0].shape[2] - 1, k, d_max)
+            for (_i, st, d_max), k in zip(buckets, lanes)))
     more["conveyor_lanes_realistic"] = lanes_ms
 
     # K6 alone on 1 pair, then one, three and four CTAs per SM's worth of
@@ -1930,36 +1974,36 @@ def batch_of_one(t1, t2):
     return (t1[None].contiguous(), t2[None].contiguous(), *lengths)
 
 
-def tile_against_row(score_slab, batch_scores, t1, t2, S, p) -> dict:
-    """The tile kernel's score-only fill (K1 or K2) in turns with the row
-    function's per-diagonal bucket kernel (K4 or K5, route "grid") on the
-    same pair as a batch of one: the design K1 and K2 had before the tile
-    kernels, on the same pair and the same card.  Both give the score; ms
-    by CUDA events, 3 runs a turn."""
+def tile_against_bucket(score_slab, batch_scores, t1, t2, S, p) -> dict:
+    """The single-pair tile kernel's score-only fill (K1 or K2) in turns
+    with the bucket kernel (K4 or K5, route "grid") on the same pair as a
+    batch of one: the same tile under the bucket's launch, on the same pair
+    and the same card.  Both give the score; ms by CUDA events, 3 runs a
+    turn."""
     n, m = t1.shape[0] - 1, t1.shape[1] - 1
     stacks = batch_of_one(t1, t2)
     runs = {"tile": lambda: score_slab(t1, t2, S, *p),
-            "row": lambda: batch_scores(*stacks, S, *p, route="grid")}
+            "bucket": lambda: batch_scores(*stacks, S, *p, route="grid")}
     turns = {name: [] for name in runs}
     for name in runs:
         runs[name]()                                          # warm-up
-    for name in ("tile", "row", "row", "tile"):
+    for name in ("tile", "bucket", "bucket", "tile"):
         turns[name].append(cuda_ms(runs[name], reps=3)[0])
     slab = runs["tile"]()
     want = int(slab[..., S, S, n].max())
-    check(int(runs["row"]()[0]) == want, "batch of one != score-only fill")
+    check(int(runs["bucket"]()[0]) == want, "batch of one != score-only fill")
     launches = n + m + 1
     return dict(turns_ms=turns, launches=launches,
                 tile_us_per_launch=min(turns["tile"]) * 1e3 / launches,
-                row_us_per_launch=min(turns["row"]) * 1e3 / launches,
-                row_over_tile=min(turns["row"]) / min(turns["tile"]))
+                bucket_us_per_launch=min(turns["bucket"]) * 1e3 / launches,
+                bucket_over_tile=min(turns["bucket"]) / min(turns["tile"]))
 
 
 def phase_full_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
     """Kernels against plain twins at the DNA-Pol-1 shapes (not counted);
     returns (times, bounds, more) by kernel name: ``more`` has the tile
-    kernels' microseconds a launch and their time beside the row function's
-    bucket kernel on the same pair."""
+    kernels' microseconds a launch and their time beside the bucket kernel
+    on the same pair as a batch of one."""
     seqA, strA, seqB, strB = mol
     times, bounds, more = {}, {}, {}
     for name, params in (("affine", DNAPOL_FULL),
@@ -2003,7 +2047,7 @@ def phase_full_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
         bounds[f"score_{name}"] = dp_bound(n, m, S, cases, states, band=False)
         more[f"score_{name}"] = dict(
             us_per_launch=ms_k * 1e3 / (n + m + 1),
-            beside_the_row_kernel=tile_against_row(
+            beside_the_bucket_kernel=tile_against_bucket(
                 kern, cuda_dp.affine_batch_scores if name == "affine"
                 else cuda_dp.nonaffine_batch_scores, t1, t2, S, p))
 
@@ -2198,8 +2242,8 @@ def profiled_batch(run, trace_path: Path) -> dict:
     """One batch ``run()`` under torch.profiler: the summary of
     :func:`traced` and the bucket kernels' count, mean time and gaps."""
     summary, dev = traced(run, trace_path)
-    spans, dur, gaps = dp_kernel_stats(dev, ("batch_diag", "cta_scores",
-                                            "conveyor_step"))
+    spans, dur, gaps = dp_kernel_stats(dev, ("batch_tile", "cta_scores",
+                                            "conveyor_tile"))
     check(len(spans) > 0, "no bucket kernel traced")
     return dict(
         summary,
@@ -2237,7 +2281,7 @@ def profiled_align(run, trace_path: Path) -> dict:
     """One batch of alignments under torch.profiler: the summary of
     :func:`traced`, the band-mode fill kernels and the batch walks."""
     summary, dev = traced(run, trace_path)
-    spans, dur, gaps = dp_kernel_stats(dev, ("batch_diag",))
+    spans, dur, gaps = dp_kernel_stats(dev, ("batch_tile",))
     _w, walks, _g = dp_kernel_stats(dev, ("walk_",))
     check(len(spans) > 0 and len(walks) > 0, "no fill or no walk traced")
     copies = {name: k for name, k in summary["kernels"].items()

@@ -350,11 +350,14 @@ def test_route_follows_shared_memory(N, S, affine, nbytes, route):
             cuda_dp.batch_route(N, S, affine, "cta", B=17)
 
 
-@pytest.mark.parametrize("B,N,lanes", [(1, 512, 1), (28, 512, 28),
-                                       (2048, 512, 422), (2048, 1024, 234),
-                                       (5000, 192, 1056)])
-def test_conveyor_lanes_fill_the_card_once(B, N, lanes):
-    assert cuda_dp.conveyor_lanes(B, N) == lanes
+# lanes x ceil((N+1) / R) tiles x threads a tile fill the card's 132 x 2048
+# threads twice: R = 8 and 256 threads affine at max_shift 1, R = 8 and 128
+# non-affine at 2, R = 1 at 4 (the run-time form)
+@pytest.mark.parametrize("B,N,S,affine,lanes", [
+    (1, 512, 1, True, 1), (28, 512, 1, True, 28), (2048, 512, 1, True, 32),
+    (2048, 1024, 2, False, 32), (5000, 192, 4, True, 10)])
+def test_conveyor_lanes_fill_the_card_once(B, N, S, affine, lanes):
+    assert cuda_dp.conveyor_lanes(B, N, S, affine) == lanes
     assert cuda_dp.conveyor_T0(N) == N + 3
 
 

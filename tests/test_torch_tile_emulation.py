@@ -1,15 +1,17 @@
 """The tile kernels' CUDA source, built for the host and run on the CPU.
 
 The kernels of K1, K2 and K9-K12 (``bialign_tpu_torch/csrc/tile_diag.cuh``
-and the entry points that launch it) run only on the card, where
-``chip_smoke.py`` holds them to their plain twins.  Here the same source is
-built with the host's C++20 compiler against ``tests/cuda_host/``, a
-stand-in for the few runtime pieces it uses (a CTA as std::threads meeting
-at a std::barrier for each ``__syncthreads()``), with two mechanical
-rewrites: the ``extern __shared__`` buffer and the ``<<<...>>>`` launch.  It
-then has to equal the twins in every cell: bands and windows of garbage
-keep their garbage off the live rows, rings of garbage give the twins' last
-slab, checkpoints the twins' slabs.  This checks the kernels' indexing,
+and the entry points that launch it) and the bucket kernels over its
+device function, K4/K5 (``csrc/batch_diag.cuh``, score and band mode) and
+K8 (``csrc/conveyor.cuh``), run only on the card, where ``chip_smoke.py``
+holds them to their plain twins.  Here the same source is built with the
+host's C++20 compiler against ``tests/cuda_host/``, a stand-in for the few
+runtime pieces it uses (a CTA as std::threads meeting at a std::barrier for
+each ``__syncthreads()``), with two mechanical rewrites: each kernel's
+``extern __shared__`` buffer and its ``<<<...>>>`` launch.  It then has to
+equal the twins in every cell: bands and windows of garbage keep their
+garbage off the live rows, rings of garbage give the twins' last slab and
+scores, checkpoints the twins' slabs.  This checks the kernels' indexing,
 staging and phases on the CPU; it says nothing of their speed, and it does
 not replace the card's check.
 """
@@ -41,23 +43,30 @@ SHAPES = [(0, 4, 1), (7, 10, 1), (8, 11, 1), (16, 19, 1), (5, 7, 0),
 BLOCK = 3
 
 
+# the headers that hold a kernel and its launch, and the entry points'
+# headers: a source that includes one of them is built
+KERNEL_HEADERS = ("tile_diag.cuh", "batch_diag.cuh", "conveyor.cuh")
+ENTRY_HEADERS = ("tile_diag", "ckpt_diag", "batch_diag", "conveyor")
+
+
 def _host_source(dst: Path) -> list:
-    """csrc copied to ``dst`` with the two rewrites; the sources that launch
-    the tile kernel."""
+    """csrc copied to ``dst`` with the two rewrites in every kernel's
+    header; the sources that launch a tile kernel."""
     shutil.copytree(CSRC, dst)
-    tile = dst / "tile_diag.cuh"
-    text = tile.read_text()
-    text, k = re.subn(r"extern __shared__ int32_t smem\[\];",
-                      "int32_t* smem = host_cta_shared;", text)
-    assert k == 1, "the tile kernel's shared buffer moved"
-    text, k = re.subn(r"(\w+)<<<(.*?)>>>\(",
-                      lambda mt: f"host_launch({mt[1]}, {mt[2]}, ", text,
-                      flags=re.S)
-    assert k == 1, "the tile kernel's launch moved"
-    tile.write_text(text)
+    for name in KERNEL_HEADERS:
+        header = dst / name
+        text = header.read_text()
+        text, k = re.subn(r"extern __shared__ int32_t smem\[\];",
+                          "int32_t* smem = host_cta_shared;", text)
+        assert k == 1, f"the shared buffer of {name} moved"
+        text, k = re.subn(r"(\w+)<<<(.*?)>>>\(",
+                          lambda mt: f"host_launch({mt[1]}, {mt[2]}, ", text,
+                          flags=re.S)
+        assert k == 1, f"the launch of {name} moved"
+        header.write_text(text)
+    pattern = r'#include "(%s)\.cuh"' % "|".join(ENTRY_HEADERS)
     return sorted(p for p in dst.glob("*.cu")
-                  if re.search(r'#include "(tile|ckpt)_diag.cuh"',
-                               p.read_text()))
+                  if re.search(pattern, p.read_text()))
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +76,7 @@ def lib(tmp_path_factory):
         pytest.skip("no host C++ compiler")
     work = tmp_path_factory.mktemp("tile_host")
     sources = _host_source(work / "csrc")
-    assert len(sources) == 8, [p.name for p in sources]
+    assert len(sources) == 11, [p.name for p in sources]
     jobs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-fPIC", "-w", "-I", str(HOST), "-I",
          str(work / "csrc"), "-x", "c++", "-c", str(src), "-o",
@@ -147,3 +156,113 @@ def test_tile_kernels_equal_the_twins(lib, n, m, S, affine):
         _call(lib, f"bialign_block_{kind}", window, twin.ckpts[b].contiguous(),
               t1, t2, consts, n, m, S, b * BLOCK, BLOCK)
         assert torch.equal(window, block_plain(twin, b, window=junk)), b
+
+
+def _bucket(affine: bool, S: int, seed: int):
+    """A bucket at the tile's edges for max_shift S: pairs whose widest live
+    range is R - 1, R and R + 1 rows, an empty first and an empty second
+    sequence, and (third) a pair whose first length lies outside the bucket.
+    Returns (stacks with the valid pairs only, the same with the outside
+    pair inserted, its index, N, M)."""
+    R = cuda_dp.TILE_ROWS[0 if affine else 1][S] if S <= 3 else 1
+    N, M = R + 1, R + 2
+    lengths = [(max(R - 2, 0), R + 2), (R - 1, R), (R + 1, R), (0, M),
+               (N, 0)]
+    rng = np.random.default_rng(seed)
+    mu1 = np.zeros((len(lengths), N + 1, M + 1), np.int32)
+    mu2 = np.zeros_like(mu1)
+    for b, (n, m) in enumerate(lengths):
+        mu1[b, 1:n + 1, 1:m + 1] = rng.integers(-4, 9, size=(n, m)) * 100
+        mu2[b, 1:n + 1, 1:m + 1] = rng.integers(-4, 9, size=(n, m)) * 100
+    ns = np.array([n for n, _m in lengths], np.int32)
+    ms = np.array([m for _n, m in lengths], np.int32)
+    valid = tuple(torch.from_numpy(a) for a in (mu1, mu2, ns, ms))
+    out_at = 2
+    with_out = (np.insert(mu1, out_at, 7, axis=0),
+                np.insert(mu2, out_at, 7, axis=0),
+                np.insert(ns, out_at, N + 3), np.insert(ms, out_at, 1))
+    return valid, tuple(torch.from_numpy(np.ascontiguousarray(a))
+                        for a in with_out), out_at, N, M
+
+
+def _without(t: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.cat([t[:b], t[b + 1:]])
+
+
+@pytest.mark.parametrize("affine", [True, False],
+                         ids=["affine", "nonaffine"])
+@pytest.mark.parametrize("S", [0, 1, 2, 3, 4])
+def test_bucket_kernels_equal_the_twins(lib, S, affine):
+    """K4 / K5 in score mode on rings of garbage and in band mode on bands
+    of garbage, to the pairs' last diagonal and to the bucket's N + M: the
+    twins' scores and, cell for cell, their bands; the pair outside the
+    bucket keeps the score the wrapper set and its band's garbage."""
+    valid, stacks, out_at, N, M = _bucket(affine, S, 10 * S + affine)
+    rng = np.random.default_rng(S)
+    kind = "affine" if affine else "nonaffine"
+    params = AFFINE_PARAMS if affine else NONAFFINE_PARAMS
+    consts = cuda_dp._tile_consts(affine, params, S)
+    cells = ((9,) if affine else ()) + (2 * S + 1, 2 * S + 1)
+    B = stacks[0].shape[0]
+    scores_plain, bands_plain = (
+        (cuda_dp.affine_batch_scores_plain, cuda_dp.affine_batch_bands_plain)
+        if affine else (cuda_dp.nonaffine_batch_scores_plain,
+                        cuda_dp.nonaffine_batch_bands_plain))
+    want = scores_plain(*valid, S, *params)
+    sentinel = torch.tensor([-12345], dtype=torch.int32)
+
+    out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
+    out[out_at] = sentinel
+    ring = _garbage(rng, (B, 3, *cells, N + 1))
+    _call(lib, f"bialign_batch_{kind}", ring, out, *stacks, consts, B, N, M,
+          S, N + M)
+    assert torch.equal(_without(out, out_at), want)
+    assert out[out_at] == sentinel
+
+    own = int((valid[2] + valid[3]).max())
+    for d_max in (own, N + M):
+        junk = _garbage(rng, (B, d_max + 1, *cells, N + 1))
+        band = junk.clone()
+        out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
+        out[out_at] = sentinel
+        _call(lib, f"bialign_batch_fill_{kind}", band, out, *stacks, consts, B,
+              N, M, S, d_max)
+        twin, twin_scores = bands_plain(*valid, S, *params, d_max=d_max,
+                                        band=_without(junk, out_at))
+        assert torch.equal(_without(band, out_at), twin.ys), d_max
+        assert torch.equal(band[out_at], junk[out_at])
+        assert torch.equal(_without(out, out_at), twin_scores)
+        assert torch.equal(twin_scores, want)
+        assert out[out_at] == sentinel
+
+
+@pytest.mark.parametrize("affine", [True, False],
+                         ids=["affine", "nonaffine"])
+@pytest.mark.parametrize("S", [0, 1, 2, 3, 4])
+def test_conveyor_equals_the_twins(lib, S, affine):
+    """K8 on 1, 3 and B lanes of garbage, the pair outside the bucket among
+    the others on its lane: the twins' scores, on 1 and 3 lanes also the
+    conveyor twin's; that pair keeps the score the wrapper set."""
+    valid, stacks, out_at, N, M = _bucket(affine, S, 10 * S + affine + 5)
+    rng = np.random.default_rng(S + 50)
+    kind = "affine" if affine else "nonaffine"
+    params = AFFINE_PARAMS if affine else NONAFFINE_PARAMS
+    consts = cuda_dp._tile_consts(affine, params, S)
+    cells = ((9,) if affine else ()) + (2 * S + 1, 2 * S + 1)
+    B = stacks[0].shape[0]
+    want = (cuda_dp.affine_batch_scores_plain if affine
+            else cuda_dp.nonaffine_batch_scores_plain)(*valid, S, *params)
+    conveyor_plain = (cuda_dp.affine_conveyor_scores_plain if affine
+                      else cuda_dp.nonaffine_conveyor_scores_plain)
+    T0 = cuda_dp.conveyor_T0(M)
+    for lanes in (1, 3, B):
+        out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
+        out[out_at] = -12345
+        ring = _garbage(rng, (lanes, 3, *cells, N + 1))
+        _call(lib, f"bialign_conveyor_{kind}", ring, out, *stacks, consts, B,
+              N, M, S, lanes, T0, N + M)
+        assert torch.equal(_without(out, out_at), want), lanes
+        assert out[out_at] == -12345
+        if lanes < B:
+            assert torch.equal(want, conveyor_plain(*valid, S, *params,
+                                                    lanes=lanes))
