@@ -40,8 +40,9 @@ _SIGNATURES = {
     "bialign_score_affine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_affine_ms0": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # rings, out, mu1, mu2, ns, ms, consts (host; the device case table of
-    # K6/K7), B, N, M, (S,) (lanes, T0,) (d_max,) device, stream
+    "bialign_score_affine_ms0_grid": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # rings, out, mu1, mu2, ns, ms, consts (host), B, N, M, (S,) (lanes, T0,
+    # or threads,) (d_max,) device, stream
     "bialign_batch_affine": [_P] * 7 + [_I] * 6 + [_P],
     "bialign_batch_nonaffine": [_P] * 7 + [_I] * 6 + [_P],
     # bands in place of rings: the same arguments
@@ -49,9 +50,9 @@ _SIGNATURES = {
     "bialign_batch_fill_nonaffine": [_P] * 7 + [_I] * 6 + [_P],
     "bialign_conveyor_affine": [_P] * 7 + [_I] * 8 + [_P],
     "bialign_conveyor_nonaffine": [_P] * 7 + [_I] * 8 + [_P],
-    "bialign_cta_affine": [_P] * 7 + [_I] * 5 + [_P],
-    "bialign_cta_nonaffine": [_P] * 7 + [_I] * 5 + [_P],
-    "bialign_cta_affine_ms0": [_P] * 7 + [_I] * 4 + [_P],
+    "bialign_cta_affine": [_P] * 7 + [_I] * 6 + [_P],
+    "bialign_cta_nonaffine": [_P] * 7 + [_I] * 6 + [_P],
+    "bialign_cta_affine_ms0": [_P] * 7 + [_I] * 5 + [_P],
     "bialign_walk_affine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "bialign_walk_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     # bands, mu1, mu2, cases, ns, ms, B, N, M, D, S, out, lmax, device, stream

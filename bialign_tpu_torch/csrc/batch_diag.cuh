@@ -52,9 +52,9 @@
 // (measured; PERF.md, Findings) an affine launch at max_shift 1 takes 9.3
 // us on the device with 17 to 28 pairs of 128-508 residues under it (64
 // such pairs in 23.8 ms in score mode, 24.3 ms in band mode, which writes
-// 7.0 GB; 154 and 168 ms with the row function), 5.8 us with one pair of
-// 929 rows, within 7% of the single-pair tile kernel.  The bound by bytes
-// and operations is 1.2 ms for those 64 pairs.
+// 7.0 GB; 154 and 168 ms in an earlier design, a thread a row), 5.8 us
+// with one pair of 929 rows, within 7% of the single-pair tile kernel.
+// The bound by bytes and operations is 1.2 ms for those 64 pairs.
 #pragma once
 
 #include <algorithm>

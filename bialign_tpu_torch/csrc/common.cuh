@@ -29,11 +29,10 @@ constexpr int FIRST_C = 12;
 enum Field { SRC = 0, X0, X1, X2, X3, MU1C, MU2C, CST, SRCA, SRCB, REC };
 
 // Offset of band cell (d, q, sk, sl, i) in the layout [D, nq, W, W, P]
-// (nq = 9 affine, 1 non-affine), in 64 bits, for the row functions and the
-// walks.  Rows are last, so the threads of a warp, which hold neighbouring
-// rows, touch neighbouring addresses.  The tile kernels
-// (csrc/tile_diag.cuh) take one 64-bit base a slab and 32-bit offsets
-// inside it instead.
+// (nq = 9 affine, 1 non-affine), in 64 bits, for the walks.  Rows are
+// last, so neighbouring rows lie at neighbouring addresses.  The tile
+// kernels (csrc/tile_diag.cuh) take one 64-bit base a slab and 32-bit
+// offsets inside it instead.
 __device__ __forceinline__ long long cell_offset(int d, int q, int sk, int sl,
                                                  int i, int nq, int W, int P) {
   return ((((long long)d * nq + q) * W + sk) * W + sl) * P + i;
@@ -53,30 +52,8 @@ __device__ __forceinline__ int slab_of(int d) {
 // with ld = m+1 for one pair, or one pair's [N+1, M+1] plane of a bucket's
 // zero-padded stack with ld = M+1.  A (k, l) outside the pair's own
 // [0, n] x [0, m] scores 0, as in the diagonal tables of the JAX engines
-// (xla_dp._diag_mu_tables) and as the stack's padding reads.
-__device__ __forceinline__ int32_t mu_at(const int32_t* mu, int k, int l,
-                                         int n, int m, int ld) {
-  return (k >= 0 && k <= n && l >= 0 && l <= m) ? mu[(long long)k * ld + l]
-                                                : 0;
-}
-
-// Threads of a block of the kernels that run one thread a row (K3, and the
-// row functions of csrc/affine_diag.cuh and csrc/nonaffine_diag.cuh under
-// K6 and K7): a block holds 128 consecutive rows of a diagonal, or walks a
-// pair's rows in strides of 128 (one CTA a pair).  The fills K1, K2, K4,
-// K5, K8 and K9-K12 size their CTAs by the tile of csrc/tile_diag.cuh
-// instead (`tile_geometry`).
-constexpr int kRowBlock = 128;
-
-// Copies a packed case table into a block's shared memory; every thread of
-// the block calls it (K3, K6 and K7; the tile kernels take their constants
-// by value and compile the rest in).
-__device__ __forceinline__ void load_table(int32_t* tab,
-                                           const int32_t* __restrict__ cases,
-                                           int count) {
-  for (int x = threadIdx.x; x < count; x += blockDim.x) tab[x] = cases[x];
-  __syncthreads();
-}
+// (xla_dp._diag_mu_tables) and as the stack's padding reads; the kernels
+// test the range and read no such value.
 
 // The kernels' launchers return 0 or the first CUDA error as an int.
 #define BIALIGN_TRY(call)                                   \

@@ -56,8 +56,9 @@
 // launch is about two waves of the card's threads.  On an H100 80GB HBM3
 // at 700 W (measured; PERF.md, Findings), 64 pairs of 128-508 residues in
 // buckets of 17 to 28, affine at max_shift 1: a lane a pair, 2251 steps,
-// 25.4 ms (136 ms with the row function); 16 lanes for the 28 pairs, 2766
-// steps of 9.2 us on the device, 28.7 ms; one lane a bucket 164 ms.
+// 25.4 ms (136 ms in an earlier design, a thread a row); 16 lanes for the
+// 28 pairs, 2766 steps of 9.2 us on the device, 28.7 ms; one lane a bucket
+// 164 ms.
 #pragma once
 
 #include <algorithm>

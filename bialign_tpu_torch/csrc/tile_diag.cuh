@@ -3,15 +3,16 @@
 // score-only, and of the low-memory path's K9-K12 (csrc/ckpt_diag.cuh); its
 // device function `fill_tile` also serves the bucket kernels K4/K5
 // (csrc/batch_diag.cuh) and K8 (csrc/conveyor.cuh), a pair's tile at a
-// time.
+// time.  Its per-value functions (`AffineTile`, `NonaffineTile`: outer and
+// inner) also serve the one-CTA-a-pair kernel K6 (csrc/cta_scores.cuh),
+// which reads its ring of slabs in shared memory in place.
 //
 // Replaces bialign_tpu/ops/pallas_dp.py:_affine_kernel with its slab update
 // _make_update, and _nonaffine_kernel with _make_nonaffine_update (both
 // launched by _affine_pallas / _nonaffine_pallas; K9-K12 by
 // _affine_pallas_ckpt, _affine_pallas_block and their non-affine forms).
-// Same recurrence, same int32 value on every genuine cell as the row
-// functions of csrc/affine_diag.cuh and csrc/nonaffine_diag.cuh, which only
-// the one-CTA-a-pair kernel K6 still runs: group A (9 full columns, one a
+// Same recurrence, same int32 value on every genuine cell as the plain
+// twins (bialign_tpu_torch/ops/cuda_dp.py): group A (9 full columns, one a
 // source state), group C (seq-only half columns), group B (str-only half
 // columns, within the diagonal in ascending t = sk + sl), the INVALID mask
 // of a failed guard, INVALID -> NEG_INF, and the origin's values;
@@ -110,24 +111,28 @@ struct AffineTile {
     return q == kStateBoth ? 0 : NEG_INF;
   }
 
-  // Groups A and C of state q at shift position (sk, sl) of row i (tile
-  // row r): `prev` is the staged slab of diagonal d-1, `lane` the values
-  // between two states there (positions x staged rows).
+  // Groups A and C of state q at shift position (sk, sl) of row i: `d1`
+  // and `d2` are the slabs of diagonals d-1 and d-2 as the caller holds
+  // them (staged rows of a tile, or a ring's slabs in place), `stride` the
+  // values between two shift positions there (a state is W*W strides), and
+  // row i lies at `at` in them.
   __device__ __forceinline__ static int32_t outer(
-      const int32_t* prev, int lane, int R1, const Consts& cs, int32_t m1,
-      int32_t m2, int q, int sk, int sl, int r, int i, int j, int S, int W) {
+      const int32_t* d1, const int32_t* d2, int stride, const Consts& cs,
+      int32_t m1, int32_t m2, int q, int sk, int sl, int at, int i, int j,
+      int S, int W) {
     const int a = bit_of(kX0, q), b = bit_of(kX1, q);
     const int c = bit_of(kX2, q), e = bit_of(kX3, q);
     const int k = i + sk - S, l = j + sl - S;
-    // diagonal d-a-b, row i-a: staged row r+1-a
-    const int32_t* pred = prev + (a + b - 1) * (N_STATES * lane) + r + 1 - a;
+    const int lane = W * W * stride;       // values between two states
+    // diagonal d-a-b, row i-a
+    const int32_t* pred = (a + b == 2 ? d2 : d1) + at - a;
     int32_t best = INVALID;
     {  // group A: column (a, b, c, e) from all 9 sources
        // (pallas_dp.py:208-226)
       const int psk = sk - c + a, psl = sl - e + b;
       if (i >= a && j >= b && k >= c && l >= e && psk >= 0 && psk < W &&
           psl >= 0 && psl < W) {
-        const int32_t* p = pred + (psk * W + psl) * R1;
+        const int32_t* p = pred + (psk * W + psl) * stride;
         int32_t v[N_STATES];
 #pragma unroll
         for (int s = 0; s < N_STATES; ++s) v[s] = p[s * lane];
@@ -140,7 +145,7 @@ struct AffineTile {
     {  // group C: column (a, b, 0, 0) (pallas_dp.py:228-240)
       const int psk = sk + a, psl = sl + b;
       if (i >= a && j >= b && psk < W && psl < W) {
-        const int32_t* p = pred + (psk * W + psl) * R1;
+        const int32_t* p = pred + (psk * W + psl) * stride;
         const int32_t v0 = p[nibble_of(kC0, q) * lane];
         const int32_t v1 = p[nibble_of(kC1, q) * lane];
         const int32_t v2 = p[nibble_of(kC2, q) * lane];
@@ -155,8 +160,9 @@ struct AffineTile {
 
   // Group B of state q at (sk, sl): the str-only column (0, 0, c, e) from
   // this diagonal at position (sk-c, sl-e), which lies at a lower t;
-  // `tile` points at row r of state 0, position (0, 0), `plane` is the
-  // values between two states (positions x R).  INVALID if guarded out.
+  // `tile` points at this row of diagonal d, state 0, position (0, 0) (in
+  // a tile, or in place in a ring), `R` is the values between two
+  // positions there, `plane` between two states.  INVALID if guarded out.
   __device__ __forceinline__ static int32_t inner(
       const int32_t* tile, int plane, int R, const Consts& cs, int32_t m2,
       int q, int sk, int sl, int k, int l, int W) {
@@ -195,10 +201,12 @@ struct NonaffineTile {
   }
   __device__ static int32_t origin(int) { return 0; }  // pyx:464-465
 
-  // The 10 columns that advance a sequence, from diagonals d-1 and d-2.
+  // The 10 columns that advance a sequence, from diagonals d-1 and d-2
+  // (arguments as AffineTile::outer).
   __device__ __forceinline__ static int32_t outer(
-      const int32_t* prev, int lane, int R1, const Consts& cs, int32_t m1,
-      int32_t m2, int, int sk, int sl, int r, int i, int j, int S, int W) {
+      const int32_t* d1, const int32_t* d2, int stride, const Consts& cs,
+      int32_t m1, int32_t m2, int, int sk, int sl, int at, int i, int j,
+      int S, int W) {
     const int k = i + sk - S, l = j + sl - S;
     int32_t best = INVALID;
 #pragma unroll
@@ -209,8 +217,8 @@ struct NonaffineTile {
       const int psk = sk - x2 + x0, psl = sl - x3 + x1;
       if (i >= x0 && j >= x1 && k >= x2 && l >= x3 && psk >= 0 && psk < W &&
           psl >= 0 && psl < W) {
-        const int32_t pred = prev[(x0 + x1 - 1) * lane + (psk * W + psl) * R1 +
-                                  r + 1 - x0];
+        const int32_t* p = x0 + x1 == 2 ? d2 : d1;
+        const int32_t pred = p[(psk * W + psl) * stride + at - x0];
         best = max(best, pred + cs.cst[ci] + bit_of(kNMu1, ci) * m1 +
                              bit_of(kNMu2, ci) * m2);
       }
@@ -257,7 +265,6 @@ __device__ __forceinline__ void fill_tile(
   const int S = kS >= 0 ? kS : S_arg;
   const int W = 2 * S + 1, W2 = W * W;
   const int cells = Tile::kStates * W2;
-  const int lane = W2 * R1;              // staged values between two states
   const int plane = W2 * R;              // tile values between two states
   int32_t* prev = smem;                  // [2][cells][R1]: d-1, d-2
   int32_t* tile = prev + 2 * cells * R1;  // [cells][R]
@@ -285,7 +292,7 @@ __device__ __forceinline__ void fill_tile(
     const int sk = pos / W, sl = pos - sk * W;
     const int k = i + sk - S, l = d - i + sl - S;
     if (i > i1) continue;
-    if (k >= 0 && k <= n && l >= 0 && l <= m)     // mu_at, asynchronously
+    if (k >= 0 && k <= n && l >= 0 && l <= m)     // else 0 (common.cuh)
       __pipeline_memcpy_async(m2s + x, mu2 + (long long)k * ld + l,
                               sizeof(int32_t));
     else
@@ -307,8 +314,8 @@ __device__ __forceinline__ void fill_tile(
     const int q = cell / W2, pos = cell - q * W2;
     const int sk = pos / W, sl = pos - sk * W;
     const int j = d - i;
-    int32_t v = Tile::outer(prev, lane, R1, cs, m1s[r], m2s[pos * R + r], q,
-                            sk, sl, r, i, j, S, W);
+    int32_t v = Tile::outer(prev, prev + cells * R1, R1, cs, m1s[r],
+                            m2s[pos * R + r], q, sk, sl, r + 1, i, j, S, W);
     if (d == 0 && i == 0 && sk == S && sl == S) v = Tile::origin(q);
     tile[x] = v;
   }

@@ -19,19 +19,25 @@ mode K6 ``_packed_batched_kernel``, K7 ``_packed_ms0_kernel`` and K8
   and, for ``affine_score`` at ``max_shift`` 0, ``csrc/score_affine_ms0.cu``)
   carry a ring of three diagonal slabs ``[3, (9,) W, W, n+1]``, diagonal
   ``d`` in slab ``d % 3``.  ``*_last_slab`` return the slab of the last
-  diagonal, from which the score is read outside the kernel.
+  diagonal, from which the score is read outside the kernel.  K3 has two
+  routes (``route=``, :func:`batch_route` at B = 1): ``"cta"``, one launch,
+  the ring in one CTA's shared memory, for every pair that fits one CTA
+  (up to 4096 rows); ``"grid"``, one launch per diagonal on the ring in
+  device memory, for the longer ones.
 * ``affine_batch_scores`` / ``nonaffine_batch_scores`` return the ``[B]``
   scores of a bucket: a zero-padded stack of tables ``[B, N+1, M+1]`` with
   the pairs' own lengths ``ns``, ``ms``.  Three routes
   (:func:`batch_route`): ``"cta"``, one launch per bucket, one CTA per pair
-  with the ring in shared memory (``csrc/cta_scores.cu`` K6; affine at
-  ``max_shift`` 0 ``csrc/cta_scores_ms0.cu`` K7), taken when the ring fits
-  one CTA's shared memory; ``"conveyor"``, for the other buckets of two
-  pairs or more: the pairs stream through a few rings in device memory
-  (``lanes``), one behind the other, one launch per step
-  (``csrc/conveyor_scores.cu`` K8); ``"grid"``, one launch per bucket
-  diagonal over all pairs, each on its own ring in device memory
-  (``csrc/batch_affine.cu`` K4, ``csrc/batch_nonaffine.cu`` K5).
+  with the ring in shared memory, the CTA computing each diagonal with the
+  tile kernels' per-value functions (``csrc/cta_scores.cu`` K6; affine at
+  ``max_shift`` 0 ``csrc/cta_scores_ms0.cu`` K7, K3's kernel, a thread a
+  row), taken when a pair fits one CTA (:func:`cta_fits`);
+  ``"conveyor"``, for the other buckets of two pairs or more: the pairs
+  stream through a few rings in device memory (``lanes``), one behind the
+  other, one launch per step (``csrc/conveyor_scores.cu`` K8); ``"grid"``,
+  one launch per bucket diagonal over all pairs, each on its own ring in
+  device memory (``csrc/batch_affine.cu`` K4, ``csrc/batch_nonaffine.cu``
+  K5).
 * ``affine_batch_bands`` / ``nonaffine_batch_bands`` return the bands of a
   bucket's pairs, a :class:`~bialign_tpu_torch.ops.band.DeviceBatchBand`
   ``[B, D, (9,) W, W, N+1]``, with the scores: K4 and K5 in band mode, the
@@ -87,24 +93,29 @@ from .cases import (
 )
 
 # Kernel launches per wrapper (one per fill, score or bucket), for run
-# reports; "cta_scores" counts both forms of K6, "conveyor_scores" of K8,
-# "batch_fill_*" K4 and K5 in band mode.
+# reports; "score_affine_ms0" counts K3 on route "cta", "_grid" on the
+# per-diagonal route, "cta_scores" both forms of K6, "conveyor_scores" of
+# K8, "batch_fill_*" K4 and K5 in band mode.
 LAUNCHES = {"fill_affine": 0, "fill_nonaffine": 0, "score_affine": 0,
             "score_nonaffine": 0, "score_affine_ms0": 0,
-            "batch_affine": 0, "batch_nonaffine": 0, "cta_scores": 0,
-            "cta_scores_ms0": 0, "conveyor_scores": 0,
-            "batch_fill_affine": 0, "batch_fill_nonaffine": 0}
+            "score_affine_ms0_grid": 0, "batch_affine": 0,
+            "batch_nonaffine": 0, "cta_scores": 0, "cta_scores_ms0": 0,
+            "conveyor_scores": 0, "batch_fill_affine": 0,
+            "batch_fill_nonaffine": 0}
 
 RING = 3      # slabs of the score-only carry; csrc/common.cuh RING
 
 # Field order of one packed recursion case; csrc/common.cuh `Field`.
 SRC, X0, X1, X2, X3, MU1C, MU2C, CST, SRCA, SRCB, REC = range(11)
 N_AFFINE_CASES = 15
-MS0_REC = 7   # values of one live state's record; csrc/affine_ms0_diag.cuh
 
 # Shared memory one CTA can have on an H100 (227 KB of the SM's 256 KB),
-# which decides the route of a bucket.
+# which decides the route of a bucket, and its most threads.
 CTA_SHARED_LIMIT = 232448
+CTA_MAX_THREADS = 1024
+# rows one CTA of K3/K7 holds: four a thread (csrc/cta_scores.cuh
+# kMs0RowsPerThread), whose table chunks sit in registers
+MS0_CTA_ROWS = 4 * CTA_MAX_THREADS
 ROUTES = ("grid", "cta", "conveyor")
 # Threads the card holds at once (132 SMs of 2048): a conveyor gets as many
 # lanes as fill it twice, so that a step's launch is about two waves.
@@ -155,6 +166,16 @@ def nonaffine_kernel_consts(gamma: int, delta: int) -> np.ndarray:
     return np.ascontiguousarray(nonaffine_case_table(gamma, delta)[:, CST])
 
 
+@functools.lru_cache(maxsize=64)
+def _kernel_consts(affine: bool, params: tuple) -> torch.Tensor:
+    """The case constants a kernel takes by value, a CPU tensor: its C
+    function reads them on the host (built once a cost set: the cases are
+    walked in Python)."""
+    consts = (affine_kernel_consts if affine else nonaffine_kernel_consts)(
+        *params)
+    return torch.from_numpy(consts)
+
+
 # rows of a tile at max_shift 0-3 (affine, non-affine), 1 above, and the
 # threads of its CTA: `rows` and `kThreads` of AffineTile and NonaffineTile
 # in csrc/tile_diag.cuh
@@ -189,9 +210,7 @@ def _tile_consts(affine: bool, params: tuple, max_shift: int) -> torch.Tensor:
         raise ValueError(
             f"max_shift {max_shift}: the {kind} tile kernel needs {need} "
             f"bytes of shared memory a CTA, one CTA has {CTA_SHARED_LIMIT}")
-    consts = (affine_kernel_consts if affine else nonaffine_kernel_consts)(
-        *params)
-    return torch.from_numpy(consts)
+    return _kernel_consts(affine, params)
 
 
 def _check_tables(mu1: torch.Tensor, mu2: torch.Tensor, max_shift: int,
@@ -237,12 +256,14 @@ def ms0_live_tables(beta: int, gamma: int, delta: int):
     return live, const, mu1c, mu2c
 
 
-def ms0_case_table(beta: int, gamma: int, delta: int) -> np.ndarray:
-    """int32 ``[3, 7]``: per live target state (a, b, mu1_coef, mu2_coef,
-    const[0..2]), for ``csrc/affine_ms0_diag.cuh`` (``Ms0Field``)."""
-    live, const, mu1c, mu2c = ms0_live_tables(beta, gamma, delta)
-    return np.array([[STATES[q][0], STATES[q][1], mu1c[t], mu2c[t], *const[t]]
-                     for t, q in enumerate(live)], dtype=np.int32)
+@functools.lru_cache(maxsize=64)
+def ms0_kernel_consts(beta: int, gamma: int, delta: int) -> torch.Tensor:
+    """int32 ``[3, 3]`` on the CPU: the constant of each live target state
+    from each live source state (``AffineMs0Consts``,
+    ``csrc/affine_ms0_diag.cuh``, which compiles in the rest: the live
+    states are STATES 0, 4 and 8)."""
+    return torch.from_numpy(np.ascontiguousarray(
+        ms0_live_tables(beta, gamma, delta)[1]))
 
 
 def _require_int32_safe(mu1, mu2, gamma, delta, beta=0):
@@ -356,31 +377,40 @@ def nonaffine_last_slab(mu1, mu2, max_shift, gamma, delta, *, ring=None):
                          mu2, _ring_shape(mu1, max_shift, ()), ring, max_shift)
 
 
-def affine_ms0_last_slab(mu1, mu2, beta, gamma, delta, *, ring=None):
+def affine_ms0_last_slab(mu1, mu2, beta, gamma, delta, *, ring=None,
+                         route=None):
     """Slab ``[3, n+1]`` (the three live states) of the last diagonal of
     the affine recurrence at ``max_shift`` 0 (K3); as
-    :func:`affine_last_slab`, ``ring`` being ``[3, 3, n+1]``."""
+    :func:`affine_last_slab`, ``ring`` being ``[3, 3, n+1]``.  ``route``:
+    None for the pair's own (:func:`batch_route` at B = 1: ``"cta"``, one
+    launch in one CTA, when the pair fits one (:func:`cta_fits`: up to
+    4096 rows), else ``"grid"``, a launch per diagonal), or a forced one; a
+    ``"cta"`` that does not fit raises.  On the CPU the route is checked,
+    then the plain twin runs."""
     _check_tables(mu1, mu2, 0)
+    if route not in (None, "cta", "grid"):
+        raise ValueError(f"K3's route must be 'cta', 'grid' or None, got "
+                         f"{route!r}")
+    route = batch_route(mu1.shape[0] - 1, 0, True, route, B=1)
     if mu1.device.type == "cpu":
         return affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta,
                                           ring=ring)
-    return _score_kernel("score_affine_ms0",
-                         _device_cases("ms0", (beta, gamma, delta),
-                                       mu1.device), mu1, mu2,
-                         (RING, 3, mu1.shape[0]), ring)
+    name = "score_affine_ms0" + ("" if route == "cta" else "_grid")
+    return _score_kernel(name, ms0_kernel_consts(beta, gamma, delta), mu1,
+                         mu2, (RING, 3, mu1.shape[0]), ring)
 
 
-def _score_kernel(name, cases, mu1, mu2, ring_shape, ring, *shift):
+def _score_kernel(name, consts, mu1, mu2, ring_shape, ring, *shift):
     """Launch score-only kernel ``name`` over ``ring`` (fresh memory if
-    None); ``cases``: the tile kernels' constants on the host, or K3's case
-    table on the device; ``shift`` is the kernel's max_shift argument, which
-    K3 lacks.  Returns the slab of the last diagonal, a view of the ring."""
+    None); ``consts``: its case constants on the host; ``shift`` is the
+    kernel's max_shift argument, which K3 lacks.  Returns the slab of the
+    last diagonal, a view of the ring."""
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
     dev = mu1.device
     _check_ring(ring, ring_shape, mu1)
     if ring is None:
         ring = torch.empty(ring_shape, dtype=torch.int32, device=dev)
-    _build.launch(f"bialign_{name}", dev, ring, mu1, mu2, cases, n, m,
+    _build.launch(f"bialign_{name}", dev, ring, mu1, mu2, consts, n, m,
                   *shift)
     LAUNCHES[name] += 1
     return ring[(n + m) % RING]
@@ -847,38 +877,48 @@ def _check_stacks(mu1p, mu2p, ns, ms, max_shift: int):
 
 def cta_shared_bytes(N: int, max_shift: int, affine: bool) -> int:
     """Dynamic shared memory of one CTA of the one-CTA-per-pair kernels on
-    a bucket of N+1 rows: the case table and a ring of three slabs
-    (``csrc/cta_scores.cuh`` ``cta_shared_bytes``)."""
-    W2 = (2 * max_shift + 1) ** 2
-    if affine and max_shift == 0:
-        table, cells = 3 * MS0_REC, 3                           # K7
-    elif affine:
-        table, cells = N_STATES * N_AFFINE_CASES * REC, N_STATES * W2
-    else:
-        table, cells = len(NONAFFINE_COLS) * REC, W2
-    return 4 * (table + RING * cells * (N + 1))
+    N+1 rows (``csrc/cta_scores.cuh``): K6 (``cta_shared_bytes``), a ring of
+    three slabs of ``cells`` values a row, a ring of 4S+2 anti-diagonals of
+    mu2 and a double buffer of mu1's; K7 and K3 (affine ``max_shift`` 0,
+    ``run_cta_ms0``), the ring of the three live states alone, whose table
+    values sit in registers."""
+    S = max_shift
+    if affine and S == 0:
+        return 4 * (N + 1) * RING * 3
+    cells = (N_STATES if affine else 1) * (2 * S + 1) ** 2
+    return 4 * (N + 1) * (RING * cells + 4 * S + 4)
+
+
+def cta_fits(N: int, max_shift: int, affine: bool) -> bool:
+    """Whether a pair of N+1 rows fits one CTA of the one-CTA-per-pair
+    kernels: :func:`cta_shared_bytes` in its shared memory, and for K3/K7
+    no more than ``MS0_CTA_ROWS`` rows in its threads' registers."""
+    rows_fit = N + 1 <= MS0_CTA_ROWS if affine and max_shift == 0 else True
+    return rows_fit and cta_shared_bytes(N, max_shift, affine) <= \
+        CTA_SHARED_LIMIT
 
 
 def batch_route(N: int, max_shift: int, affine: bool, route=None, *,
                 B: int) -> str:
     """The route of a bucket of B pairs and N+1 rows
-    (pallas_dp._route_batched): ``"cta"`` when the ring and the case table
-    fit one CTA's shared memory; else ``"conveyor"`` for two pairs or more
+    (pallas_dp._route_batched): ``"cta"`` when a pair fits one CTA
+    (:func:`cta_fits`); else ``"conveyor"`` for two pairs or more
     (pallas_dp._use_conveyor), ``"grid"`` for one.  A forced ``route`` is
     returned as it is, but a ``"cta"`` that does not fit raises: it does
     not give way."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES} or None, got "
                          f"{route!r}")
-    need = cta_shared_bytes(N, max_shift, affine)
-    if route == "cta" and need > CTA_SHARED_LIMIT:
+    fits = cta_fits(N, max_shift, affine)
+    if route == "cta" and not fits:
         raise ValueError(
-            f"route='cta' needs {need} bytes of shared memory per pair for "
-            f"a bucket of {N + 1} rows at max_shift {max_shift}; one CTA "
-            f"has {CTA_SHARED_LIMIT}; use route='grid' or 'conveyor'")
+            f"route='cta': {N + 1} rows at max_shift {max_shift} do not fit "
+            f"one CTA ({cta_shared_bytes(N, max_shift, affine)} bytes of "
+            f"shared memory of {CTA_SHARED_LIMIT}, at max_shift 0 "
+            f"{MS0_CTA_ROWS} rows at most); use route='grid'")
     if route is not None:
         return route
-    if need <= CTA_SHARED_LIMIT:
+    if fits:
         return "cta"
     return "conveyor" if B >= 2 else "grid"
 
@@ -923,8 +963,7 @@ _BATCH_COUNTER = {"batch_affine": "batch_affine",
                   "conveyor_affine": "conveyor_scores",
                   "conveyor_nonaffine": "conveyor_scores"}
 
-_CASE_TABLES = {"affine": affine_case_table, "nonaffine": nonaffine_case_table,
-                "ms0": ms0_case_table}
+_CASE_TABLES = {"affine": affine_case_table, "nonaffine": nonaffine_case_table}
 
 
 @functools.lru_cache(maxsize=64)
@@ -933,12 +972,11 @@ def _device_cases(kind: str, params: tuple, dev: torch.device):
     return torch.from_numpy(_CASE_TABLES[kind](*params)).to(dev)
 
 
-def _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring, d_max,
+def _batch_kernel(name, consts, mu1p, mu2p, ns, ms, ring_shape, ring, d_max,
                   *more):
-    """Launch bucket kernel ``name``; ``cases`` are the tile kernels' case
-    constants on the host (K4, K5, K8: :func:`_tile_consts`) or the packed
-    case table on the device (K6, K7); ``more`` are the kernel's arguments
-    after M: max_shift (which K7 lacks), then the conveyor's lanes and T0.
+    """Launch bucket kernel ``name``; ``consts`` are its case constants on
+    the host; ``more`` are the kernel's arguments after M: max_shift (which
+    K7 lacks), then those of :func:`_route_plan`.
     ``ring`` (any contents) is the carry of the grid and conveyor kernels,
     or the chunk band of the band-mode kernels, allocated here if None, and
     what the CTA kernels start their shared memory from, if given.
@@ -957,18 +995,28 @@ def _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring, d_max,
     else:
         extent = (N + M if d_max is None else min(int(d_max), N + M),)
     _build.launch(f"bialign_{name}", dev, ring, out, mu1p, mu2p, ns, ms,
-                  cases, B, N, M, *more, *extent)
+                  consts, B, N, M, *more, *extent)
     LAUNCHES[_BATCH_COUNTER[name]] += 1
     return out
 
 
-def _conveyor_plan(mu1p, route: str, lanes, max_shift: int,
-                   affine: bool) -> tuple:
-    """(lanes, T0) of a bucket on the conveyor, () on another route."""
+def _route_plan(mu1p, route: str, lanes, threads, max_shift: int,
+                affine: bool) -> tuple:
+    """The kernel arguments a bucket's route adds: (lanes, T0) on the
+    conveyor, (threads,) a CTA on "cta" (0: the kernel's own: K6 one a value
+    of the widest diagonal up to 512 affine, 256 non-affine, K7 one a row
+    up to 1024), () on "grid"."""
     B, N, M = mu1p.shape[0], mu1p.shape[1] - 1, mu1p.shape[2] - 1
-    if route != "conveyor":
-        if lanes is not None:
-            raise ValueError(f"lanes= is the conveyor's, route is {route!r}")
+    if lanes is not None and route != "conveyor":
+        raise ValueError(f"lanes= is the conveyor's, route is {route!r}")
+    if threads is not None and route != "cta":
+        raise ValueError(f"threads= is route 'cta''s, route is {route!r}")
+    if route == "cta":
+        if threads is not None and not 1 <= threads <= CTA_MAX_THREADS:
+            raise ValueError(f"threads must be in 1..{CTA_MAX_THREADS}, got "
+                             f"{threads}")
+        return (threads or 0,)
+    if route == "grid":
         return ()
     if lanes is None:
         lanes = conveyor_lanes(B, N, max_shift, affine)
@@ -978,7 +1026,7 @@ def _conveyor_plan(mu1p, route: str, lanes, max_shift: int,
 
 
 def affine_batch_scores(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
-                        route=None, ring=None, lanes=None,
+                        route=None, ring=None, lanes=None, threads=None,
                         d_max=None) -> torch.Tensor:
     """Affine scores ``[B]`` (int32) of a bucket (pallas_dp.py
     ``_affine_pallas_batched_dense`` with ``score_only=True``).  CUDA
@@ -988,7 +1036,8 @@ def affine_batch_scores(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
     :func:`batch_route`'s choice, or a forced one.  ``ring``: a carry to
     use, whatever it holds: ``[B, 3, 9, W, W, N+1]``, ``[B, 3, 3, N+1]``
     where K7 runs, ``[lanes, 3, 9, W, W, N+1]`` on the conveyor.  ``lanes``:
-    the conveyor's, None for :func:`conveyor_lanes`.  ``d_max``: the largest
+    the conveyor's, None for :func:`conveyor_lanes`; ``threads``: a CTA's
+    on route ``"cta"``, None for the kernel's own.  ``d_max``: the largest
     n_b + m_b of the bucket, where the caller knows it on the host; it saves
     the launches of diagonals no pair has (default: the bucket's N + M).
 
@@ -1000,35 +1049,36 @@ def affine_batch_scores(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
     route = batch_route(mu1p.shape[1] - 1, S, True, route, B=mu1p.shape[0])
-    plan = _conveyor_plan(mu1p, route, lanes, S, True)
+    plan = _route_plan(mu1p, route, lanes, threads, S, True)
+    lanes = plan[0] if route == "conveyor" else None
     ms0 = route == "cta" and S == 0
     states = (3,) if ms0 else (N_STATES, W, W)
-    ring_shape = _batch_ring_shape(mu1p, states, *plan[:1])
+    ring_shape = _batch_ring_shape(mu1p, states, lanes)
     params = (beta, gamma, delta)
     if mu1p.device.type == "cpu":
         if ms0:
             return affine_ms0_batch_scores_plain(mu1p, mu2p, ns, ms, *params,
                                                  ring=ring)
-        if plan:
+        if lanes:
             return affine_conveyor_scores_plain(mu1p, mu2p, ns, ms, S,
-                                                *params, lanes=plan[0],
+                                                *params, lanes=lanes,
                                                 ring=ring)
         return affine_batch_scores_plain(mu1p, mu2p, ns, ms, S, *params,
                                          ring=ring)
     if ms0:
-        return _batch_kernel(
-            "cta_affine_ms0", _device_cases("ms0", params, mu1p.device), mu1p,
-            mu2p, ns, ms, ring_shape, ring, d_max)
+        return _batch_kernel("cta_affine_ms0", ms0_kernel_consts(*params),
+                             mu1p, mu2p, ns, ms, ring_shape, ring, d_max,
+                             *plan)
     name = {"grid": "batch_affine", "cta": "cta_affine",
             "conveyor": "conveyor_affine"}[route]
-    cases = (_device_cases("affine", params, mu1p.device) if route == "cta"
-             else _tile_consts(True, params, S))
-    return _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring,
+    consts = (_kernel_consts(True, params) if route == "cta"
+              else _tile_consts(True, params, S))
+    return _batch_kernel(name, consts, mu1p, mu2p, ns, ms, ring_shape, ring,
                          d_max, S, *plan)
 
 
 def nonaffine_batch_scores(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
-                           route=None, ring=None, lanes=None,
+                           route=None, ring=None, lanes=None, threads=None,
                            d_max=None) -> torch.Tensor:
     """Non-affine scores ``[B]`` of a bucket (pallas_dp.py
     ``_nonaffine_pallas_batched_dense`` with ``score_only=True``): K5 on
@@ -1039,20 +1089,21 @@ def nonaffine_batch_scores(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
     route = batch_route(mu1p.shape[1] - 1, S, False, route, B=mu1p.shape[0])
-    plan = _conveyor_plan(mu1p, route, lanes, S, False)
-    ring_shape = _batch_ring_shape(mu1p, (W, W), *plan[:1])
+    plan = _route_plan(mu1p, route, lanes, threads, S, False)
+    lanes = plan[0] if route == "conveyor" else None
+    ring_shape = _batch_ring_shape(mu1p, (W, W), lanes)
     if mu1p.device.type == "cpu":
-        if plan:
+        if lanes:
             return nonaffine_conveyor_scores_plain(mu1p, mu2p, ns, ms, S,
-                                                   gamma, delta,
-                                                   lanes=plan[0], ring=ring)
+                                                   gamma, delta, lanes=lanes,
+                                                   ring=ring)
         return nonaffine_batch_scores_plain(mu1p, mu2p, ns, ms, S, gamma,
                                             delta, ring=ring)
     name = {"grid": "batch_nonaffine", "cta": "cta_nonaffine",
             "conveyor": "conveyor_nonaffine"}[route]
-    cases = (_device_cases("nonaffine", (gamma, delta), mu1p.device)
-             if route == "cta" else _tile_consts(False, (gamma, delta), S))
-    return _batch_kernel(name, cases, mu1p, mu2p, ns, ms, ring_shape, ring,
+    consts = (_kernel_consts(False, (gamma, delta)) if route == "cta"
+              else _tile_consts(False, (gamma, delta), S))
+    return _batch_kernel(name, consts, mu1p, mu2p, ns, ms, ring_shape, ring,
                          d_max, S, *plan)
 
 
@@ -1145,7 +1196,7 @@ def affine_conveyor_scores_plain(mu1p, mu2p, ns, ms, max_shift, beta, gamma,
     ``[lanes, 3, 9, W, W, N+1]``."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
-    lanes, T0 = _conveyor_plan(mu1p, "conveyor", lanes, S, True)
+    lanes, T0 = _route_plan(mu1p, "conveyor", lanes, None, S, True)
     g = _ConveyorGeometry(mu1p, mu2p, ns, ms, S, lanes, T0)
     return _conveyor_scores_plain(
         _affine_step(g, beta, gamma, delta), lambda val: val[:, :, S, S], g,
@@ -1160,7 +1211,7 @@ def nonaffine_conveyor_scores_plain(mu1p, mu2p, ns, ms, max_shift, gamma,
     ``[lanes, 3, W, W, N+1]``."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
-    lanes, T0 = _conveyor_plan(mu1p, "conveyor", lanes, S, False)
+    lanes, T0 = _route_plan(mu1p, "conveyor", lanes, None, S, False)
     g = _ConveyorGeometry(mu1p, mu2p, ns, ms, S, lanes, T0)
     return _conveyor_scores_plain(
         _nonaffine_step(g, gamma, delta), lambda val: val[:, None, S, S], g,

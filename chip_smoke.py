@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout
     python3 chip_smoke.py --kernels-only     # phases 1-3, then stop
     python3 chip_smoke.py --fills-only       # phases 1-2 and the fills' times
+    python3 chip_smoke.py --tile-times       # phases 1-2 and the tile kernels'
 
 Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
 package.  Phases, one line each:
@@ -19,8 +20,13 @@ package.  Phases, one line each:
    B from 1 to 64, and on buckets at the tile's edges (pairs of R-1, R and
    R+1 live rows, empty sequences) at max_shift 0-4, rings of garbage,
    every route forced ("cta" wherever the bucket fits one CTA's shared
-   memory, the conveyor on one lane, on three and on one per pair), all
-   equal.  K4 and K5 in band mode and the batch
+   memory, at three thread counts a CTA, every cell of the rings it leaves
+   equal to the single-pair twins' on buckets of up to 16 pairs; the
+   conveyor on one lane, on three and on one per pair), all equal.  K3 on
+   both routes (one CTA, a launch a diagonal) from the same ring of
+   garbage, every cell of the ring equal to the twin's, up to the DNA-Pol-1
+   shape; a pair beyond one CTA on the per-diagonal route, the one-CTA
+   route refused there.  K4 and K5 in band mode and the batch
    walks on the same buckets, on bands pre-filled with garbage: the bands
    equal to their twins' cell for cell (so nothing but a pair's genuine
    cells is written), the scores equal to score mode's, every walk equal to
@@ -38,13 +44,15 @@ package.  Phases, one line each:
    1 (SCORE 761500 and the six md5 row anchors of tests/test_dnapol.py),
    and the CLI defaults (non-affine, max_shift 2) against the plain twins.
    The score-only path through the port's tables: affine_score = 761500,
-   at max_shift 0 (K3) and 2 and nonaffine_score at the CLI defaults equal
-   to the band path's.  End-to-end times, kernel times against the plain
+   at max_shift 0 (K3, one CTA) and 2 and nonaffine_score at the CLI
+   defaults equal to the band path's; and a pair beyond one CTA at
+   max_shift 0 (K3 a launch a diagonal) equal to K1's score.  End-to-end
+   times, kernel times against the plain
    twins', microseconds a launch, the score-only fills beside the bucket
    kernels K4/K5 on the same pair as a batch of one (the same tile under
    the bucket's launch), band bytes, peak memory.
    Then a 4000x3990 pair of random tables, affine max_shift 1: score-only
-   against the band kernel.
+   against the band kernel; at max_shift 0, K3 on both routes against K1.
    The batched-scores path through bialign_tpu_torch.parallel.score_batch
    and PreparedBatch: 64 windows of 128-508 residues of the DNA-Pol-1 pair
    (affine max_shift 1, bucket_quantum 128; buckets beyond one CTA's shared
@@ -57,7 +65,8 @@ package.  Phases, one line each:
    from host
    tables and from resident ones, cold and warm, kernel times against the
    twins' and against the pairs one at a time, the routes and the
-   conveyor's lanes against each other, peak memory; K4, K5 and K8 on the
+   conveyor's lanes against each other, K6's threads a CTA (256, 512,
+   1024) against each other, peak memory; K4, K5 and K8 on the
    64 windows (K5 and K8's non-affine form under the CLI defaults' costs),
    in total and a launch.
    The batched-alignments path through parallel.align_batch: the same 64
@@ -84,8 +93,14 @@ package.  Phases, one line each:
    > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
-   (device busy and idle time, per-kernel times); traces and report in
-   build/profile/.
+   (device busy and idle time, per-kernel times; score-only K3 as its one
+   kernel); traces and report in build/profile/.
+
+--tile-times builds, then times the tile kernels K1, K2, K4, K5, K8 and
+K9-K12 alone at the DNA-Pol-1 shapes and on the realistic batch (no
+twins), through calls that every checkout since those kernels has: copied
+into an unpacked older checkout and run there, it times that checkout's
+kernels, so two checkouts compare in one chip call.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work), and last the line
@@ -172,6 +187,17 @@ DNAPOL_PREFIX = dict(type="Protein", shift_cost=-210, structure_weight=800,
                      gap_cost=-50, max_shift=1)     # tests/test_dnapol.py:15-23
 DNAPOL_CLI_DEFAULTS = dict(type="Protein")         # non-affine, max_shift 2
 MS0_SHAPES = [(7, 9), (1, 1), (0, 3), (5, 0), (20, 13)]   # (n, m) for K3
+DNAPOL_SHAPE = (928, 933)
+# the shortest pair that does not fit one CTA of K3 (4096 rows, four a
+# thread)
+MS0_BEYOND = (4096, 4090)
+# threads a CTA of the one-CTA kernels in phase 3: the kernel's own, two
+# warps, the most; the rings they leave are held to the single-pair twins'
+# on buckets of up to CTA_TWIN_PAIRS pairs
+CTA_THREADS = (None, 64, 1024)
+CTA_TWIN_PAIRS = 16
+# K6's threads a CTA timed against each other
+CTA_SWEEP = (256, 512, 1024)
 BIG_PAIR = (4000, 3990, 1)              # README: a synthetic protein pair
 # a pair whose band [n+m+1, 9, 3, 3, n+1] int32 (109 GB) no card holds
 HUGE_PAIR = (13000, 12990, 1)
@@ -220,6 +246,8 @@ KERNELS = {
                         "bialign_tpu/ops/pallas_dp.py:414"),
     "score_affine_ms0": ("bialign_tpu_torch/csrc/score_affine_ms0.cu",
                          "bialign_tpu/ops/pallas_dp.py:741"),
+    "score_affine_ms0_grid": ("bialign_tpu_torch/csrc/score_affine_ms0.cu",
+                              "bialign_tpu/ops/pallas_dp.py:741"),
     "batch_affine": ("bialign_tpu_torch/csrc/batch_affine.cu",
                      "bialign_tpu/ops/pallas_dp.py:1004"),
     "batch_nonaffine": ("bialign_tpu_torch/csrc/batch_nonaffine.cu",
@@ -260,7 +288,8 @@ KERNELS = {
 PATHS = {
     "band": ("fill_affine", "fill_nonaffine", "walk_affine",
              "walk_nonaffine"),
-    "score_only": ("score_affine", "score_nonaffine", "score_affine_ms0"),
+    "score_only": ("score_affine", "score_nonaffine", "score_affine_ms0",
+                   "score_affine_ms0_grid"),
     "batch": ("batch_affine", "batch_nonaffine", "cta_scores",
               "cta_scores_ms0", "conveyor_scores"),
     "align": ("batch_fill_affine", "batch_fill_nonaffine",
@@ -558,33 +587,72 @@ def phase_kernels(dev, errs: dict) -> None:
               == nonaffine_band.final_score(),
               f"score_nonaffine score {n, m, S}")
 
-    # K3 against its plain twin and against K1 score-only at max_shift 0
-    live = cuda_dp.ms0_live_tables(beta, gamma, delta)[0]
-    for n, m in MS0_SHAPES + [(150, 150), (300, 257)]:
-        rng = np.random.default_rng(SEED + 1000 * n + 10 * m)
-        t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
-        k3 = cuda_dp.affine_ms0_last_slab(
-            t1, t2, beta, gamma, delta,
-            ring=garbage_ring(rng, (3, 3, n + 1), dev))
-        p3 = cuda_dp.affine_ms0_last_slab_plain(t1, t2, beta, gamma, delta)
-        k1 = cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
-        e = max(row_err(k3, p3, n), row_err(k3, k1[live, 0, 0], n))
-        check(e == 0, f"score_affine_ms0 last slab ({n}, {m}): |err| {e}")
-        errs["score_affine_ms0"] = max(errs["score_affine_ms0"], e)
-        check(cuda_dp.affine_score(t1, t2, 0, beta, gamma, delta)
-              == int(k1[:, 0, 0, n].max()), f"score_affine_ms0 score {n, m}")
+    seconds = {"pairs": time.perf_counter() - START}
+    phase_k3_kernels(dev, errs)
+    seconds["k3"] = time.perf_counter() - START
     buckets = phase_batch_kernels(dev, errs)
+    seconds["buckets"] = time.perf_counter() - START
     bands = phase_align_kernels(dev, errs)
     torch.cuda.synchronize()
+    seconds["bands"] = time.perf_counter() - START
     say("3 kernels", shapes=SHAPES, tile_edge_shapes=TILE_EDGE_SHAPES,
-        ms0_shapes=MS0_SHAPES, bands_equal=True, garbage_bands_equal=True,
+        ms0_shapes=MS0_SHAPES + [(150, 150), (300, 257), DNAPOL_SHAPE],
+        ms0_beyond_one_cta=MS0_BEYOND, k3_rings_equal_on_both_routes=True,
+        bands_equal=True, garbage_bands_equal=True,
         last_slabs_equal=True, traces_equal=True,
         buckets_n_m_b_shift_form_routes_own=buckets, bucket_scores_equal=True,
         bands_n_m_b_shift_form_diagonals_steps=bands,
         bucket_bands_and_walks_equal=True,
         lowmem_n_m_shift_form_blocksizes_blocks_twinblocks=lowmem_ran,
         checkpoints_windows_block_walks_and_tracebacks_equal=True,
-        max_abs_err=errs)
+        max_abs_err=errs, t_s_at_the_end_of=seconds)
+
+
+def phase_k3_kernels(dev, errs: dict) -> None:
+    """K3 on both routes forced, from the same ring of garbage: the ring it
+    leaves equal to the twin's in every cell, the live states of the last
+    slab equal to K1's at max_shift 0.  A pair beyond one CTA: its own
+    route is the per-diagonal one, equal to K1, and the one-CTA route
+    refuses it."""
+    beta, gamma, delta = AFFINE_PARAMS
+    live = cuda_dp.ms0_live_tables(beta, gamma, delta)[0]
+    for n, m in MS0_SHAPES + [(150, 150), (300, 257), DNAPOL_SHAPE]:
+        rng = np.random.default_rng(SEED + 1000 * n + 10 * m)
+        t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
+        junk = garbage_ring(rng, (3, 3, n + 1), dev)
+        twin = junk.clone()
+        cuda_dp.affine_ms0_last_slab_plain(t1, t2, beta, gamma, delta,
+                                           ring=twin)
+        k1 = cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
+        for route, name in (("cta", "score_affine_ms0"),
+                            ("grid", "score_affine_ms0_grid")):
+            ring = junk.clone()
+            k3 = cuda_dp.affine_ms0_last_slab(t1, t2, beta, gamma, delta,
+                                              ring=ring, route=route)
+            e = max(tensor_err(ring, twin), row_err(k3, k1[live, 0, 0], n))
+            check(e == 0, f"{name} ring ({n}, {m}): max |err| {e}")
+            errs[name] = max(errs[name], e)
+        check(cuda_dp.batch_route(n, 0, True, B=1) == "cta",
+              f"K3's route at n = {n}")
+        check(cuda_dp.affine_score(t1, t2, 0, beta, gamma, delta)
+              == int(k1[:, 0, 0, n].max()), f"score_affine_ms0 score {n, m}")
+
+    n, m = MS0_BEYOND
+    rng = np.random.default_rng(SEED + n)
+    t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
+    check(cuda_dp.batch_route(n, 0, True, B=1) == "grid",
+          f"K3's route at n = {n}")
+    try:
+        cuda_dp.affine_ms0_last_slab(t1, t2, beta, gamma, delta, route="cta")
+        check(False, f"K3's one-CTA route took a pair of {n + 1} rows")
+    except ValueError:
+        pass
+    k3 = cuda_dp.affine_ms0_last_slab(t1, t2, beta, gamma, delta)
+    k1 = cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
+    e = row_err(k3, k1[live, 0, 0], n)
+    check(e == 0, f"score_affine_ms0_grid beyond one CTA ({n}, {m}): {e}")
+    errs["score_affine_ms0_grid"] = max(errs["score_affine_ms0_grid"], e)
+    torch.cuda.synchronize()
 
 
 def garbage_band_err(fill, plain) -> int:
@@ -739,6 +807,21 @@ def phase3_buckets():
                lambda rng, lengths=lengths: lengths)
 
 
+def cta_rings_want(stacks, junk, ring_twin):
+    """The rings [B, 3, cells, N+1] the one-CTA kernel leaves when started
+    from ``junk``: pair b's ring is its own single-pair twin's
+    (``ring_twin(mu1, mu2, ring)`` on the pair's own tables) run on the same
+    garbage, its rows beyond n_b untouched."""
+    mu1p, mu2p, ns, ms = stacks
+    want = junk.clone()
+    for b, (n, m) in enumerate(zip(ns.tolist(), ms.tolist())):
+        own = want[b, ..., :n + 1].contiguous()
+        ring_twin(mu1p[b, :n + 1, :m + 1].contiguous(),
+                  mu2p[b, :n + 1, :m + 1].contiguous(), own)
+        want[b, ..., :n + 1] = own
+    return want
+
+
 def score_err(a, b) -> int:
     check(a.shape == b.shape, f"score shapes {a.shape} {b.shape}")
     return int((a.long() - b.long()).abs().max())
@@ -752,8 +835,9 @@ def conveyor_steps(B, M, lanes, d_max) -> int:
 def phase_batch_kernels(dev, errs: dict) -> list:
     """K4-K8 against their plain twins on buckets of mixed lengths, on
     rings of garbage, every route forced: "cta" on every bucket that fits
-    one CTA's shared memory, the conveyor on one lane, a few and one per
-    pair."""
+    one CTA's shared memory, at CTA_THREADS threads a CTA (the rings it
+    leaves equal to the single-pair twins' on small buckets), the conveyor
+    on one lane, a few and one per pair."""
     beta, gamma, delta = AFFINE_PARAMS
     g2, d2 = NONAFFINE_PARAMS
     ran = []
@@ -765,14 +849,21 @@ def phase_batch_kernels(dev, errs: dict) -> list:
             ("affine", cuda_dp.affine_batch_scores,
              cuda_dp.affine_batch_scores_plain,
              cuda_dp.affine_conveyor_scores_plain, (beta, gamma, delta),
-             (9, W, W), "batch_affine"),
+             (9, W, W), "batch_affine", (
+                 lambda mu1, mu2, ring: cuda_dp.affine_ms0_last_slab_plain(
+                     mu1, mu2, beta, gamma, delta, ring=ring))
+             if S == 0 else (
+                 lambda mu1, mu2, ring: cuda_dp.affine_last_slab_plain(
+                     mu1, mu2, S, beta, gamma, delta, ring=ring))),
             ("nonaffine", cuda_dp.nonaffine_batch_scores,
              cuda_dp.nonaffine_batch_scores_plain,
              cuda_dp.nonaffine_conveyor_scores_plain, (g2, d2), (W, W),
-             "batch_nonaffine"),
+             "batch_nonaffine",
+             lambda mu1, mu2, ring: cuda_dp.nonaffine_last_slab_plain(
+                 mu1, mu2, S, g2, d2, ring=ring)),
         )
         for form, kern, plain, conveyor_plain, params, cells, \
-                grid_name in forms:
+                grid_name, ring_twin in forms:
             want = plain(*stacks, S, *params)
             got = kern(*stacks, S, *params, route="grid",
                        ring=garbage_ring(rng, (B, 3, *cells, N + 1), dev))
@@ -797,21 +888,28 @@ def phase_batch_kernels(dev, errs: dict) -> list:
                       f"{lanes} lanes: max |err| {e}")
                 errs["conveyor_scores"] = max(errs["conveyor_scores"], e)
 
-            fits = (cuda_dp.cta_shared_bytes(N, S, affine)
-                    <= cuda_dp.CTA_SHARED_LIMIT)
+            fits = cuda_dp.cta_fits(N, S, affine)
             if fits:
                 routes.append("cta")
                 ms0 = affine and S == 0                     # K7
                 name = "cta_scores_ms0" if ms0 else "cta_scores"
                 cells = (3,) if ms0 else cells
-                for ring in (garbage_ring(rng, (B, 3, *cells, N + 1),
-                                          dev), None):
-                    cta = kern(*stacks, S, *params, route="cta",
-                               ring=ring)
+                junk = garbage_ring(rng, (B, 3, *cells, N + 1), dev)
+                rings_want = (cta_rings_want(stacks, junk, ring_twin)
+                              if B <= CTA_TWIN_PAIRS else None)
+                for threads in CTA_THREADS:
+                    ring = junk.clone()
+                    cta = kern(*stacks, S, *params, route="cta", ring=ring,
+                               threads=threads)
                     e = max(score_err(cta, want), score_err(cta, got))
-                    check(e == 0, f"{name} {form} {N, M, B, S}: "
-                          f"max |err| {e}")
+                    if rings_want is not None:
+                        e = max(e, tensor_err(ring, rings_want))
+                    check(e == 0, f"{name} {form} {N, M, B, S} on "
+                          f"{threads} threads: max |err| {e}")
                     errs[name] = max(errs[name], e)
+                cta = kern(*stacks, S, *params, route="cta")
+                e = score_err(cta, want)
+                check(e == 0, f"{name} {form} {N, M, B, S}: max |err| {e}")
                 if ms0:
                     twin = cuda_dp.affine_ms0_batch_scores_plain(
                         *stacks, beta, gamma, delta)
@@ -1018,6 +1116,21 @@ def phase_full_score(mol) -> dict:
         found[name] = dict(
             score=score, band_score=band_score, seconds=seconds,
             max_memory_allocated=peak, band_bytes=ba._band.ys.numel() * 4)
+
+    # K3 beyond one CTA: affine_score at max_shift 0 on a pair of random
+    # tables whose ring does not fit, against K1's score at max_shift 0
+    n, m = MS0_BEYOND
+    beta, gamma, delta = AFFINE_PARAMS
+    t1, t2 = tables_to_torch(
+        *rand_tables(np.random.default_rng(SEED + 1), n, m), "cuda")
+    t0 = time.perf_counter()
+    score = cuda_dp.affine_score(t1, t2, 0, beta, gamma, delta)
+    seconds = time.perf_counter() - t0
+    want = int(cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
+               [:, 0, 0, n].max())
+    check(score == want, f"K3 beyond one CTA {n, m}: {score} != K1 {want}")
+    found["affine_ms0_beyond_one_cta"] = dict(n=n, m=m, score=score,
+                                              k1_score=want, seconds=seconds)
     return found
 
 
@@ -1049,7 +1162,25 @@ def phase_big_pair(dev) -> dict:
             peak_bytes_above_tables=torch.cuda.max_memory_allocated() - base)
     check(found["score_only"]["score"] == found["band"]["score"],
           f"{n}x{m} scores differ: {found}")
-    return dict(n=n, m=m, max_shift=S, **found)
+
+    # K3 at max_shift 0 on the same pair: one CTA against a launch a
+    # diagonal, in turns, both against K1 at max_shift 0
+    k3 = {route: lambda route=route: int(cuda_dp.affine_ms0_last_slab(
+        t1, t2, beta, gamma, delta, route=route)[:, n].max())
+        for route in ("cta", "grid")}
+    want = int(cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
+               [:, 0, 0, n].max())
+    ms0 = {route: dict(ms=[]) for route in k3}
+    for route in k3:
+        k3[route]()                                           # warm-up
+    for route in ("cta", "grid", "grid", "cta"):
+        ms, score = cuda_ms(k3[route], reps=1)
+        check(score == want, f"K3 {route} on {n}x{m}: {score} != K1 {want}")
+        ms0[route]["ms"].append(ms)
+    for route, found_r in ms0.items():
+        found_r["us_per_diagonal"] = min(found_r["ms"]) * 1e3 / (n + m + 1)
+    return dict(n=n, m=m, max_shift=S, **found,
+                k3_max_shift_0=dict(ms0, score=want))
 
 
 def host_tables(mol, params):
@@ -1335,6 +1466,27 @@ def phase_batch_timing(batches, errs: dict) -> tuple[dict, dict, dict]:
         check(bool((got == TOY_SCORE).all()), f"K6 on {B} toy pairs")
         scaling[B] = dict(ms=ms, us_per_diagonal=ms * 1e3 / diagonals)
     more["cta_scores_pairs_ms"] = scaling
+
+    # K6's threads a CTA on the toy bucket, both forms, in turns
+    sweep = {}
+    for batch in ("toy_b512", "toy_b512_nonaffine"):
+        tables, lengths, S, params, affine, quantum = batches[batch]
+        (_idx, stacks, _d_max), = pbatch._device_buckets(
+            tables, quantum, torch.device("cuda"))
+        kern = (cuda_dp.affine_batch_scores if affine
+                else cuda_dp.nonaffine_batch_scores)
+        runs = {threads: lambda threads=threads: kern(
+            *stacks, S, *params, route="cta", threads=threads)
+            for threads in CTA_SWEEP}
+        want = runs[CTA_SWEEP[0]]()                           # warm-up
+        found = {threads: [] for threads in CTA_SWEEP}
+        for threads in (*CTA_SWEEP, *reversed(CTA_SWEEP)):
+            runs[threads]()
+            ms, got = cuda_ms(runs[threads], reps=3)
+            check(bool((got == want).all()), f"K6 on {threads} threads")
+            found[threads].append(ms)
+        sweep[batch] = found
+    more["cta_scores_threads_ms"] = sweep
     return times, bounds, more
 
 
@@ -2051,18 +2203,28 @@ def phase_full_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
                 kern, cuda_dp.affine_batch_scores if name == "affine"
                 else cuda_dp.nonaffine_batch_scores, t1, t2, S, p))
 
-        if name == "affine":                                  # K3
-            k3 = lambda: cuda_dp.affine_ms0_last_slab(t1, t2, *p)  # noqa
-            k3()
-            ms_k, sk = cuda_ms(k3, reps=5)
+        if name == "affine":             # K3 on both routes, in turns
+            k3 = {route: lambda route=route: cuda_dp.affine_ms0_last_slab(
+                t1, t2, *p, route=route) for route in ("cta", "grid")}
+            turns = {route: [] for route in k3}
+            for route in k3:
+                k3[route]()                                   # warm-up
+            for route in ("cta", "grid", "grid", "cta"):
+                turns[route].append(cuda_ms(k3[route], reps=5)[0])
             ms_p, sp = cuda_ms(
                 lambda: cuda_dp.affine_ms0_last_slab_plain(t1, t2, *p), reps=1)
-            e = row_err(sk, sp, n)
-            check(e == 0, f"score_affine_ms0 DNA-Pol last slab: |err| {e}")
-            errs["score_affine_ms0"] = max(errs["score_affine_ms0"], e)
-            times["score_affine_ms0"] = (ms_k, ms_p)
-            # three live states, three sources each, no shift axes
-            bounds["score_affine_ms0"] = dp_bound(n, m, 0, 3, 3, band=False)
+            for route, key in (("cta", "score_affine_ms0"),
+                               ("grid", "score_affine_ms0_grid")):
+                e = row_err(k3[route](), sp, n)
+                check(e == 0, f"{key} DNA-Pol last slab: |err| {e}")
+                errs[key] = max(errs[key], e)
+                times[key] = (min(turns[route]), ms_p)
+                # three live states, three sources each, no shift axes
+                bounds[key] = dp_bound(n, m, 0, 3, 3, band=False)
+                more[key] = dict(
+                    turns_ms=turns[route],
+                    launches=1 if route == "cta" else n + m + 1,
+                    us_per_diagonal=min(turns[route]) * 1e3 / (n + m + 1))
 
         if name == "affine":
             walk = lambda: dtb.affine_traceback(bk, *p, t1, t2)[0]  # noqa
@@ -2081,6 +2243,60 @@ def phase_full_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
         times[f"walk_{name}"] = (ms_w, ms_wp)
         bounds[f"walk_{name}"] = walk_bound(len(tk), cases)
     return times, bounds, more
+
+
+def tile_times(mol) -> dict:
+    """Milliseconds (CUDA events, 5 runs after a warm-up) of the tile
+    kernels alone, no twins: K1, K2 band and score-only, K4/K5 as a batch
+    of one, K9/K11 and one block of K10/K12 at the DNA-Pol-1 shapes; K4
+    score and band mode and K8 on the realistic batch.  Every checkout of
+    the port since its tile kernels makes these calls the same way
+    (--tile-times)."""
+    seqA, strA, seqB, strB = mol
+    dev = torch.device("cuda")
+    found = {}
+    for affine, params in ((True, DNAPOL_FULL), (False, DNAPOL_CLI_DEFAULTS)):
+        kind = "affine" if affine else "nonaffine"
+        ba = BiAligner(seqA, seqB, strA, strB, engine="torch", device="cuda",
+                       **params)
+        t1, t2 = tables_to_torch(ba.mu1, ba.mu2, dev)
+        S = ba.max_shift
+        p = (ba.beta, ba.gamma, ba.delta) if affine else (ba.gamma, ba.delta)
+        fill, _fp, block, *_rest = lowmem_forms(affine)
+        cb = fill(t1, t2, S, *p)
+        stacks = batch_of_one(t1, t2)
+        runs = {
+            f"fill_{kind}": (cuda_dp.fill_affine_device if affine
+                             else cuda_dp.fill_nonaffine_device),
+            f"score_{kind}": (cuda_dp.affine_last_slab if affine
+                              else cuda_dp.nonaffine_last_slab),
+            f"ckpt_{kind}": fill}
+        runs = {name: lambda fn=fn: fn(t1, t2, S, *p)
+                for name, fn in runs.items()}
+        runs[f"block_{kind}"] = lambda: block(cb, cb.n_blocks // 2)
+        runs[f"batch_{kind}_one_pair"] = lambda: (
+            cuda_dp.affine_batch_scores if affine
+            else cuda_dp.nonaffine_batch_scores)(*stacks, S, *p, route="grid")
+        for name, run in runs.items():
+            run()                                             # warm-up
+            found[name] = cuda_ms(run, reps=5)[0]
+        del cb
+
+    pairs = [host_tables(w, DNAPOL_FULL) for w in realistic_windows(mol, SEED)]
+    costs = (DNAPOL_FULL["gap_opening_cost"], DNAPOL_FULL["gap_cost"],
+             DNAPOL_FULL["shift_cost"])
+    batch = ([q[:2] for q in pairs], [q[2] for q in pairs], 1, costs, True,
+             REALISTIC_QUANTUM)
+    runs = {"batch_affine_realistic": routed(batch, "grid")[0],
+            "conveyor_scores_realistic": routed(batch, "conveyor")[0]}
+    buckets = pbatch._device_buckets(batch[0], REALISTIC_QUANTUM, dev)
+    runs["batch_fill_affine_realistic"] = lambda: [
+        cuda_dp.affine_batch_bands(*st, 1, *costs, d_max=d_max)[1]
+        for _idx, st, d_max in buckets]
+    for name, run in runs.items():
+        run()                                                 # warm-up
+        found[name] = cuda_ms(run, reps=3)[0]
+    return found
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")   # device activity
@@ -2185,6 +2401,20 @@ def profiled_run(run, n: int, m: int, trace_path: Path) -> dict:
                   mean_us_rows_le_128=dur[rows <= 128].mean(),
                   mean_us_rows_ge_800=dur[rows >= 800].mean()),
     )
+
+
+def profiled_one_kernel(run, trace_path: Path) -> dict:
+    """One ``run()`` whose DP is one launch of the one-CTA kernel (score-only
+    K3) under torch.profiler: the summary of :func:`traced` and that
+    kernel's time."""
+    summary, dev = traced(run, trace_path)
+    spans, dur, _gaps = dp_kernel_stats(dev, ("cta_ms0",))
+    check(len(spans) == 1, f"{len(spans)} one-CTA kernels traced")
+    check(not dp_kernel_stats(dev, ("_diag",))[0],
+          "a per-diagonal kernel ran beside the one-CTA kernel")
+    return dict(summary, fill=dict(kernels=1, us=float(dur[0]),
+                                   share_of_window=float(dur[0])
+                                   / summary["window_us"]))
 
 
 def profiled_lowmem(run, n: int, m: int, trace_path: Path) -> dict:
@@ -2334,10 +2564,12 @@ def phase_profile(mol, batches, aligners, out: Path) -> None:
     for name, params, _want in SCORED:
         score = lambda: score_only(*port_tables(mol, params))  # noqa: E731
         score()
+        trace = out / f"trace_score_only_{name}.json"
         report[f"score_only_{name}"] = dict(
             staged=[staged_score(mol, params) for _ in range(3)],
-            profile=profiled_run(score, n, m,
-                                 out / f"trace_score_only_{name}.json"))
+            profile=(profiled_one_kernel(score, trace)
+                     if params.get("max_shift") == 0 else
+                     profiled_run(score, n, m, trace)))
     for name in ("realistic", "toy_b512"):
         tables, _lengths, S, params, affine, quantum = batches[name]
         kw = dict(affine=affine, bucket_quantum=quantum)
@@ -2373,6 +2605,11 @@ def main() -> int:
         "and hold each against its plain twin at small shapes (a new "
         "kernel's first run on a card)")
     parser.add_argument(
+        "--tile-times", action="store_true",
+        help="build, then only time the tile kernels K1, K2, K4, K5, K8 and "
+        "K9-K12 (no twins); run from an older checkout it times that "
+        "checkout's kernels")
+    parser.add_argument(
         "--fills-only", action="store_true",
         help="build, then only time the single-pair fills, score-only fills "
         "and walks at the DNA-Pol-1 shapes against their twins (phase 5's "
@@ -2402,6 +2639,10 @@ def main() -> int:
     say("2 build", seconds=time.perf_counter() - t0,
         library=str(_build.LIB_PATH), ptxas=resources)
 
+    if args.tile_times:
+        say("5 tile kernel times", nvidia_smi=smi, root=str(ROOT),
+            ms=tile_times(dnapol_pair()))
+        return 0
     errs = dict.fromkeys(KERNELS, 0)
     if args.fills_only:
         times, bounds, more = phase_full_timing(dnapol_pair(), errs)

@@ -321,21 +321,28 @@ def test_defaults_are_the_cuda_engine_on_the_card(monkeypatch):
         TB.PreparedBatch(_pairs()[:1], 1, AFFINE, affine=True)
 
 
+# bytes: the ring of three slabs, 3 x cells x (N+1) x 4, then mu2's 4S+2
+# anti-diagonals and mu1's two, (4S+4) x (N+1) x 4; K7 the ring alone
 @pytest.mark.parametrize("N,S,affine,nbytes,route", [
-    (64, 1, True, 5400 + 63180, "cta"),
-    (64, 2, True, 5400 + 175500, "cta"),
-    (64, 3, True, 5400 + 343980, "conveyor"),
-    (127, 1, True, 5400 + 124416, "cta"),
-    (127, 2, True, 5400 + 345600, "conveyor"),
-    (512, 1, True, 5400 + 498636, "conveyor"),
-    (512, 0, True, 84 + 18468, "cta"),          # K7: three live states
-    (512, 2, False, 520 + 153900, "cta"),
-    (1024, 2, False, 520 + 307500, "conveyor"),
+    (64, 1, True, 63180 + 2080, "cta"),
+    (64, 2, True, 175500 + 3120, "cta"),
+    (64, 3, True, 343980 + 4160, "conveyor"),
+    (127, 1, True, 124416 + 4096, "cta"),
+    (127, 2, True, 345600 + 6144, "conveyor"),
+    (230, 1, True, 224532 + 7392, "cta"),       # the last that fits
+    (231, 1, True, 225504 + 7424, "conveyor"),
+    (512, 1, True, 498636 + 16416, "conveyor"),
+    (512, 0, True, 18468, "cta"),               # K7: three live states
+    (4095, 0, True, 147456, "cta"),             # K7: 4096 rows at most
+    (4096, 0, True, 147492, "conveyor"),
+    (512, 2, False, 153900 + 24624, "cta"),
+    (1024, 2, False, 307500 + 49200, "conveyor"),
 ])
 def test_route_follows_shared_memory(N, S, affine, nbytes, route):
-    """The route rule: the case table and three slabs of N+1 rows against
-    the 227 KB of one CTA; beyond it the conveyor for two pairs or more,
-    the per-diagonal kernel for one."""
+    """The route rule: three slabs of N+1 rows and the tables' buffers
+    against the 227 KB of one CTA (at affine max_shift 0 also 4096 rows,
+    four a thread); beyond it the conveyor for two pairs or more, the
+    per-diagonal kernel for one."""
     assert cuda_dp.cta_shared_bytes(N, S, affine) == nbytes
     assert cuda_dp.batch_route(N, S, affine, B=17) == route
     assert cuda_dp.batch_route(N, S, affine, B=2) == route

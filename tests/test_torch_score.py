@@ -143,10 +143,14 @@ def test_ms0_live_tables_equal_the_jax_package():
         jlive, jconst, jmu1c, jmu2c = pallas_dp._ms0_live_tables(params)
         assert live == jlive and (mu1c, mu2c) == (jmu1c, jmu2c)
         assert np.array_equal(const, jconst) and const.dtype == jconst.dtype
-        packed = cuda_dp.ms0_case_table(*params)
-        assert packed.shape == (3, 7) and packed.dtype == np.int32
-        assert packed[:, :2].tolist() == [[0, 1], [1, 0], [1, 1]]
-        assert np.array_equal(packed[:, 4:], const)
+        # what the kernels take by value, and what they compile in: the
+        # live states are STATES 4t, their constants group A's between them
+        packed = cuda_dp.ms0_kernel_consts(*params)
+        assert packed.shape == (3, 3) and packed.dtype == torch.int32
+        assert np.array_equal(packed.numpy(), const)
+        assert live == [0, 4, 8]
+        affine = cuda_dp.affine_kernel_consts(*params)
+        assert np.array_equal(affine[np.ix_(live, live)], const)
 
 
 @pytest.mark.parametrize("n,m,S", SHAPES)
@@ -245,6 +249,43 @@ def test_affine_score_at_max_shift_0_goes_through_k3(monkeypatch):
     monkeypatch.setattr(cuda_dp, "affine_last_slab", None)   # must not run
     assert cuda_dp.affine_score(t1, t2, 0, -150, -50, -150) == want
     assert len(called) == 1
+
+
+# K3's route by the pair's rows: one CTA while it holds them, four rows a
+# thread of 1024 (n <= 4095; the ring, 36 bytes a row, fits shared memory
+# up to there)
+@pytest.mark.parametrize("n,route", [
+    (0, "cta"), (928, "cta"), (4000, "cta"), (4095, "cta"), (4096, "grid"),
+    (13000, "grid")])
+def test_k3_route_follows_one_ctas_capacity(n, route):
+    assert cuda_dp.cta_shared_bytes(n, 0, True) == 36 * (n + 1)
+    assert cuda_dp.cta_fits(n, 0, True) == (route == "cta")
+    assert cuda_dp.batch_route(n, 0, True, B=1) == route
+    assert cuda_dp.batch_route(n, 0, True, "grid", B=1) == "grid"
+    if route == "cta":
+        assert cuda_dp.batch_route(n, 0, True, "cta", B=1) == "cta"
+    else:
+        with pytest.raises(ValueError, match="one CTA"):
+            cuda_dp.batch_route(n, 0, True, "cta", B=1)
+
+
+def test_k3_forced_routes():
+    """Either route forced on a pair that fits gives the twin's slab; a
+    forced one-CTA route on a pair beyond one CTA raises before anything
+    runs (it does not give way to the other route), and the conveyor is no
+    route of one pair."""
+    t1, t2 = _tables(*_pair(7, 9, 0))
+    want = cuda_dp.affine_ms0_last_slab_plain(t1, t2, -150, -50, -150)
+    for route in ("cta", "grid", None):
+        assert torch.equal(cuda_dp.affine_ms0_last_slab(
+            t1, t2, -150, -50, -150, route=route), want)
+    long = torch.zeros((4097, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CTA"):
+        cuda_dp.affine_ms0_last_slab(long, long, -150, -50, -150,
+                                     route="cta")
+    with pytest.raises(ValueError, match="route"):
+        cuda_dp.affine_ms0_last_slab(t1, t2, -150, -50, -150,
+                                     route="conveyor")
 
 
 def test_score_entry_points_refuse_unsafe_scores():

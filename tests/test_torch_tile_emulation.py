@@ -1,9 +1,12 @@
 """The tile kernels' CUDA source, built for the host and run on the CPU.
 
 The kernels of K1, K2 and K9-K12 (``bialign_tpu_torch/csrc/tile_diag.cuh``
-and the entry points that launch it) and the bucket kernels over its
+and the entry points that launch it), the bucket kernels over its
 device function, K4/K5 (``csrc/batch_diag.cuh``, score and band mode) and
-K8 (``csrc/conveyor.cuh``), run only on the card, where ``chip_smoke.py``
+K8 (``csrc/conveyor.cuh``), and the one-CTA-a-pair kernel over its
+per-value functions (``csrc/cta_scores.cuh``: K6, and K7 and K3 with the
+max_shift 0 recurrence of ``csrc/affine_ms0_diag.cuh``, which also holds
+K3's per-diagonal kernel) run only on the card, where ``chip_smoke.py``
 holds them to their plain twins.  Here the same source is built with the
 host's C++20 compiler against ``tests/cuda_host/``, a stand-in for the few
 runtime pieces it uses (a CTA as std::threads meeting at a std::barrier for
@@ -11,7 +14,9 @@ each ``__syncthreads()``), with two mechanical rewrites: each kernel's
 ``extern __shared__`` buffer and its ``<<<...>>>`` launch.  It then has to
 equal the twins in every cell: bands and windows of garbage keep their
 garbage off the live rows, rings of garbage give the twins' last slab and
-scores, checkpoints the twins' slabs.  This checks the kernels' indexing,
+scores, checkpoints the twins' slabs.  A CTA's thread count is an argument
+of the one-CTA kernels, so they also run here on fewer threads than values
+(strides of the CTA).  This checks the kernels' indexing,
 staging and phases on the CPU; it says nothing of their speed, and it does
 not replace the card's check.
 """
@@ -43,27 +48,31 @@ SHAPES = [(0, 4, 1), (7, 10, 1), (8, 11, 1), (16, 19, 1), (5, 7, 0),
 BLOCK = 3
 
 
-# the headers that hold a kernel and its launch, and the entry points'
-# headers: a source that includes one of them is built
-KERNEL_HEADERS = ("tile_diag.cuh", "batch_diag.cuh", "conveyor.cuh")
-ENTRY_HEADERS = ("tile_diag", "ckpt_diag", "batch_diag", "conveyor")
+# the files that hold a kernel and its launch, with their count of dynamic
+# shared buffers and of launches, and the entry points' headers: a source
+# that includes one of them is built
+KERNEL_FILES = {"tile_diag.cuh": (1, 1), "batch_diag.cuh": (1, 1),
+                "conveyor.cuh": (1, 1), "cta_scores.cuh": (2, 2),
+                "score_affine_ms0.cu": (0, 1)}
+ENTRY_HEADERS = ("tile_diag", "ckpt_diag", "batch_diag", "conveyor",
+                 "cta_scores")
 
 
 def _host_source(dst: Path) -> list:
-    """csrc copied to ``dst`` with the two rewrites in every kernel's
-    header; the sources that launch a tile kernel."""
+    """csrc copied to ``dst`` with the two rewrites in every kernel's file;
+    the sources that launch a kernel of those files."""
     shutil.copytree(CSRC, dst)
-    for name in KERNEL_HEADERS:
-        header = dst / name
-        text = header.read_text()
+    for name, (buffers, launches) in KERNEL_FILES.items():
+        path = dst / name
+        text = path.read_text()
         text, k = re.subn(r"extern __shared__ int32_t smem\[\];",
                           "int32_t* smem = host_cta_shared;", text)
-        assert k == 1, f"the shared buffer of {name} moved"
+        assert k == buffers, f"the shared buffers of {name} moved"
         text, k = re.subn(r"(\w+)<<<(.*?)>>>\(",
                           lambda mt: f"host_launch({mt[1]}, {mt[2]}, ", text,
                           flags=re.S)
-        assert k == 1, f"the launch of {name} moved"
-        header.write_text(text)
+        assert k == launches, f"the launches of {name} moved"
+        path.write_text(text)
     pattern = r'#include "(%s)\.cuh"' % "|".join(ENTRY_HEADERS)
     return sorted(p for p in dst.glob("*.cu")
                   if re.search(pattern, p.read_text()))
@@ -76,7 +85,7 @@ def lib(tmp_path_factory):
         pytest.skip("no host C++ compiler")
     work = tmp_path_factory.mktemp("tile_host")
     sources = _host_source(work / "csrc")
-    assert len(sources) == 11, [p.name for p in sources]
+    assert len(sources) == 14, [p.name for p in sources]
     jobs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-fPIC", "-w", "-I", str(HOST), "-I",
          str(work / "csrc"), "-x", "c++", "-c", str(src), "-o",
@@ -266,3 +275,136 @@ def test_conveyor_equals_the_twins(lib, S, affine):
         if lanes < B:
             assert torch.equal(want, conveyor_plain(*valid, S, *params,
                                                     lanes=lanes))
+
+
+# (n, m) of K3's pairs: the shapes chip_smoke.py runs on the card, and a
+# pair longer than a CTA's default threads
+MS0_SHAPES = [(7, 9), (1, 1), (0, 3), (5, 0), (20, 13), (40, 35)]
+# a CTA's threads: the kernel's own (one a value up to its cap), one warp,
+# and a count that is not a whole number of warps; for K7 also 9, which
+# gives a thread four rows of the bucket's 34
+CTA_THREADS = (0, 32, 100)
+MS0_THREADS = (0, 9, 32, 100)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """The same values at an address one int32 past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+def _rings_of_pairs(stacks, junk, ring_plain, out_at):
+    """The rings [B, 3, cells, N+1] that the one-CTA kernel leaves: pair b's
+    ring is its own twin's (``ring_plain(mu1, mu2, ring=...)`` on the pair's
+    own tables) run on the same garbage, the rows beyond n_b untouched; the
+    pair outside the bucket keeps its garbage."""
+    mu1p, mu2p, ns, ms = stacks
+    want = junk.clone()
+    for b in range(mu1p.shape[0]):
+        if b == out_at:
+            continue
+        n, m = int(ns[b]), int(ms[b])
+        own = want[b, ..., :n + 1].contiguous()
+        ring_plain(mu1p[b, :n + 1, :m + 1].contiguous(),
+                   mu2p[b, :n + 1, :m + 1].contiguous(), ring=own)
+        want[b, ..., :n + 1] = own
+    return want
+
+
+@pytest.mark.parametrize("affine,S", [(True, 1), (True, 2), (True, 3),
+                                      (True, 4), (False, 0), (False, 1),
+                                      (False, 2), (False, 3), (False, 4)],
+                         ids=lambda v: str(v))
+def test_cta_kernel_equals_the_twins(lib, S, affine):
+    """K6 on the bucket at the tile's edges (empty and full-length pairs),
+    on rings of garbage, at several thread counts: the twins' scores, and
+    every cell of the rings it leaves equal to the single-pair twin's ring
+    on the same garbage (so each value, INVALID and NEG_INF apart, and
+    nothing else was written); the pair outside the bucket keeps the score
+    the wrapper set and its garbage.  Affine max_shift 0 on route "cta" is
+    K7 (below)."""
+    valid, stacks, out_at, N, M = _bucket(affine, S, 10 * S + affine + 7)
+    rng = np.random.default_rng(S + 70)
+    kind = "affine" if affine else "nonaffine"
+    params = AFFINE_PARAMS if affine else NONAFFINE_PARAMS
+    consts = cuda_dp._kernel_consts(affine, params)
+    cells = ((9,) if affine else ()) + (2 * S + 1, 2 * S + 1)
+    B = stacks[0].shape[0]
+    want = (cuda_dp.affine_batch_scores_plain if affine
+            else cuda_dp.nonaffine_batch_scores_plain)(*valid, S, *params)
+    last_slab = (cuda_dp.affine_last_slab_plain if affine
+                 else cuda_dp.nonaffine_last_slab_plain)
+
+    def ring_plain(mu1, mu2, ring):
+        last_slab(mu1, mu2, S, *params, ring=ring)
+    for threads in CTA_THREADS:
+        out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
+        out[out_at] = -12345
+        junk = _garbage(rng, (B, 3, *cells, N + 1))
+        ring = junk.clone()
+        _call(lib, f"bialign_cta_{kind}", ring, out, *stacks, consts, B, N, M,
+              S, threads)
+        assert torch.equal(_without(out, out_at), want), threads
+        assert out[out_at] == -12345
+        assert torch.equal(ring, _rings_of_pairs(stacks, junk, ring_plain,
+                                                 out_at)), threads
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "misaligned"])
+def test_cta_ms0_kernel_equals_the_twin(lib, aligned):
+    """K7 on the max_shift 0 bucket at the tile's edges, rings of garbage:
+    the twin's scores and, cell for cell, the single-pair twin's rings at
+    every thread count (up to four rows a thread); also with mu1's stack
+    off a 16-byte boundary and mu2's on one (the kernel reads aligned
+    16-byte chunks of each table)."""
+    valid, stacks, out_at, N, M = _bucket(True, 0, 77)
+    if not aligned:
+        stacks = (_misaligned(stacks[0]), *stacks[1:])
+    rng = np.random.default_rng(77)
+    consts = cuda_dp.ms0_kernel_consts(*AFFINE_PARAMS)
+    B = stacks[0].shape[0]
+    want = cuda_dp.affine_ms0_batch_scores_plain(*valid, *AFFINE_PARAMS)
+    assert torch.equal(want, cuda_dp.affine_batch_scores_plain(
+        *valid, 0, *AFFINE_PARAMS))
+
+    def ring_plain(mu1, mu2, ring):
+        cuda_dp.affine_ms0_last_slab_plain(mu1, mu2, *AFFINE_PARAMS,
+                                           ring=ring)
+    for threads in MS0_THREADS:
+        out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
+        out[out_at] = -12345
+        junk = _garbage(rng, (B, 3, 3, N + 1))
+        ring = junk.clone()
+        _call(lib, "bialign_cta_affine_ms0", ring, out, *stacks, consts, B, N,
+              M, threads)
+        assert torch.equal(_without(out, out_at), want), threads
+        assert out[out_at] == -12345
+        assert torch.equal(ring, _rings_of_pairs(stacks, junk, ring_plain,
+                                                 out_at)), threads
+
+
+@pytest.mark.parametrize("n,m", MS0_SHAPES)
+def test_k3_routes_equal_the_twin(lib, n, m):
+    """K3 on both routes, on the same ring of garbage: each leaves the ring,
+    cell for cell, as the twin does (a diagonal's live rows written, the
+    rest as it was), so row n of the last slab is the twin's."""
+    rng = np.random.default_rng(3000 + 10 * n + m)
+    mu1 = np.zeros((n + 1, m + 1), np.int32)
+    mu2 = np.zeros((n + 1, m + 1), np.int32)
+    mu1[1:, 1:] = rng.integers(-4, 9, size=(n, m)) * 100
+    mu2[1:, 1:] = rng.integers(-4, 9, size=(n, m)) * 100
+    t1, t2 = tables_to_torch(mu1, mu2, "cpu")
+    consts = cuda_dp.ms0_kernel_consts(*AFFINE_PARAMS)
+    junk = _garbage(rng, (3, 3, n + 1))
+    twin = junk.clone()
+    cuda_dp.affine_ms0_last_slab_plain(t1, t2, *AFFINE_PARAMS, ring=twin)
+    for name, tables in (("bialign_score_affine_ms0", (t1, t2)),
+                         ("bialign_score_affine_ms0", (_misaligned(t1), t2)),
+                         ("bialign_score_affine_ms0_grid", (t1, t2))):
+        ring = junk.clone()
+        _call(lib, name, ring, *tables, consts, n, m)
+        assert torch.equal(ring, twin), name
