@@ -68,6 +68,8 @@ _SIGNATURES = {
     # stream
     "bialign_walk_affine_block": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
     "bialign_walk_nonaffine_block": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    # next, hops, sink, device, stream (csrc/probe.cu, for chip_smoke.py)
+    "bialign_probe_chase": [_P, _I, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

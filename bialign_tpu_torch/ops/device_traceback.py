@@ -1,8 +1,9 @@
 """Traceback walks over a filled band: CUDA kernel wrappers and plain twins.
 
 Counterpart of :mod:`bialign_tpu.ops.device_traceback`.  The walk runs on
-the device that holds the band (``csrc/walk.cu``, one thread a pair), so
-only the trace, O(n+m) column codes, crosses to the host.  Its plain twin is
+the device that holds the band (``csrc/walk.cu``, one warp a pair: a lane a
+case of each step, the step's cases read at once), so only the trace,
+O(n+m) column codes, crosses to the host.  Its plain twin is
 the host walk :mod:`bialign_tpu_torch.ops.traceback`, which the kernel must
 match trace for trace, over ``band.to_numpy()``.
 
@@ -26,12 +27,7 @@ from .. import _build
 from . import traceback as host_tb
 from .band import DeviceBand, DeviceBatchBand
 from .cases import N_STATES
-from .cuda_dp import (
-    INVALID,
-    _device_cases,
-    affine_case_table,
-    nonaffine_case_table,
-)
+from .cuda_dp import INVALID, _device_cases
 
 # Kernel launches per wrapper, for run reports.
 LAUNCHES = {"walk_affine": 0, "walk_nonaffine": 0, "walk_affine_batch": 0,
@@ -47,8 +43,10 @@ def decode_codes(codes) -> list:
             for c in reversed(np.asarray(codes).tolist())]
 
 
-def _walk_kernel(name, band: DeviceBand, cases, mu1, mu2):
-    """Launch walk ``name``; return (codes, done) on the host."""
+def _walk_kernel(kind, band: DeviceBand, params, mu1, mu2):
+    """Launch the ``kind`` ("affine" or "nonaffine") walk with the case
+    table of ``params``, cached on the device; return (codes, done) on the
+    host."""
     ys = band.ys
     n, m = band.n, band.m
     for mu in (mu1, mu2):
@@ -63,10 +61,10 @@ def _walk_kernel(name, band: DeviceBand, cases, mu1, mu2):
         raise ValueError("the band must be a contiguous int32 tensor")
     lmax = 2 * (n + m) + 1
     out = torch.empty(_HEADER + lmax, dtype=torch.int32, device=ys.device)
-    cases_t = torch.from_numpy(cases).to(ys.device)
-    _build.launch(f"bialign_{name}", ys.device, ys, mu1, mu2, cases_t, n, m,
+    _build.launch(f"bialign_walk_{kind}", ys.device, ys, mu1, mu2,
+                  _device_cases(kind, params, ys.device), n, m,
                   band.max_shift, out, lmax)
-    LAUNCHES[name] += 1
+    LAUNCHES[f"walk_{kind}"] += 1
     res = out.cpu().numpy()
     steps, done = int(res[0]), int(res[1])
     return res[_HEADER:_HEADER + steps], done
@@ -78,9 +76,8 @@ def affine_traceback(band: DeviceBand, beta, gamma, delta, mu1, mu2):
     Returns (trace, complete)."""
     if band.ys.device.type == "cpu":
         return affine_traceback_plain(band, beta, gamma, delta, mu1, mu2)
-    codes, done = _walk_kernel(
-        "walk_affine", band, affine_case_table(beta, gamma, delta), mu1, mu2
-    )
+    codes, done = _walk_kernel("affine", band, (beta, gamma, delta), mu1,
+                               mu2)
     return decode_codes(codes), done == 1
 
 
@@ -89,9 +86,7 @@ def nonaffine_traceback(band: DeviceBand, gamma, delta, mu1, mu2):
     host walk for a band on the CPU.  Returns the trace."""
     if band.ys.device.type == "cpu":
         return nonaffine_traceback_plain(band, gamma, delta, mu1, mu2)
-    codes, _done = _walk_kernel(
-        "walk_nonaffine", band, nonaffine_case_table(gamma, delta), mu1, mu2
-    )
+    codes, _done = _walk_kernel("nonaffine", band, (gamma, delta), mu1, mu2)
     return decode_codes(codes)
 
 
@@ -155,7 +150,7 @@ def _walk_batch_kernel(name, bband: DeviceBatchBand, cases, mu1p, mu2p):
 
 def affine_walk_batch(bband: DeviceBatchBand, beta, gamma, delta, mu1p, mu2p):
     """Affine walks of all pairs of a chunk band: the CUDA kernel (one
-    block a pair) for a band on a CUDA device, the host walk pair by pair
+    warp a pair) for a band on a CUDA device, the host walk pair by pair
     for a band on the CPU.  ``mu1p``/``mu2p``: the fill's stacks."""
     if bband.ys.device.type == "cpu":
         return affine_walk_batch_plain(bband, beta, gamma, delta, mu1p, mu2p)

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only     # phases 1-3, then stop
     python3 chip_smoke.py --fills-only       # phases 1-2 and the fills' times
     python3 chip_smoke.py --tile-times       # phases 1-2 and the tile kernels'
+    python3 chip_smoke.py --walk-times       # phases 1-2 and the walks' times
 
 Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
 package.  Phases, one line each:
@@ -37,7 +38,11 @@ package.  Phases, one line each:
    equal to the twin's in every cell, every block's window equal to what
    the twin's band gives (and to the block twin itself), every block walk's
    state and codes equal to the host walk's over the same window, and the
-   blockwise traceback equal to the full-band device walk;
+   blockwise traceback equal to the full-band device walk.  The walks
+   again on tie-heavy tables (values in {0, +-100}, costs of the same
+   grain: many co-optimal cases a step, the first-minimum rule deciding),
+   single-pair, block by block and batched, each equal to the host walk
+   over the same device memory;
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -100,7 +105,14 @@ package.  Phases, one line each:
 K9-K12 alone at the DNA-Pol-1 shapes and on the realistic batch (no
 twins), through calls that every checkout since those kernels has: copied
 into an unpacked older checkout and run there, it times that checkout's
-kernels, so two checkouts compare in one chip call.
+kernels, so two checkouts compare in one chip call.  --walk-times does the
+same for the walk kernels (csrc/walk.cu, through their C functions): the
+single-pair walks at the DNA-Pol-1 shapes and at 4000x3990, the realistic
+batch's batch walks and the DNA-Pol-1 low-memory traceback's block walks,
+ms and microseconds a step; where the checkout has csrc/probe.cu, also the
+pointer-chase probe's ns a dependent load (device memory, L2) and each
+walk's chain floor, steps x that latency.  The whole run prints the probe
+too, after phase 5's kernel times.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work), and last the line
@@ -207,6 +219,21 @@ SMALL_BLOCKS = (1, 7)
 # phase 3 runs the block twins on every block up to this many diagonals,
 # beyond it on the first, the middle and the last block
 BLOCK_TWIN_DIAGONALS = 100
+# Tie-heavy walks of phase 3: tables of values in {0, +-100} and costs of
+# the same grain, so that many cases of a step are co-optimal and the
+# first-minimum rule decides it; (n, m, max_shift) of the single-pair and
+# blockwise walks, and the (N, M, B) bucket of the batch walks
+TIE_AFFINE_PARAMS = (-200, -100, -100)  # beta, gamma, delta
+TIE_NONAFFINE_PARAMS = (-100, -100)     # gamma, delta
+TIE_VALUES = (-1, 2)                    # x 100, numpy's half-open range
+TIE_SHAPES = [(7, 10, 1), (16, 19, 1), (5, 7, 0), (8, 8, 2), (33, 40, 3),
+              (5, 6, 4), (150, 150, 1), (300, 257, 2)]
+TIE_BUCKET = (64, 64, 16)
+# The pointer-chase probe (csrc/probe.cu): a buffer the size of the
+# DNA-Pol-1 band at max_shift 1 (its lines cold) and one inside the L2
+# (warm), one 128-byte line a hop
+PROBE_BYTES = {"hbm": 560 << 20, "l2": 8 << 20}
+PROBE_HOPS = 100_000
 
 # Buckets of phase 3: (N, M, B, the max_shifts to run).  Lengths are mixed
 # inside each bucket (mixed_lengths); the last has 150-300 rows.
@@ -375,12 +402,13 @@ def dnapol_md5() -> dict:
     raise RuntimeError("FULL_MD5 not found in tests/test_dnapol.py")
 
 
-def rand_tables(rng, n, m, scale=100):
-    """Random score tables in the style of tests/test_pallas.py:13-18."""
+def rand_tables(rng, n, m, scale=100, values=(-4, 9)):
+    """Random score tables in the style of tests/test_pallas.py:13-18;
+    ``values=TIE_VALUES`` gives the tie-heavy ones."""
     mu1 = np.zeros((n + 1, m + 1), dtype=np.int32)
     mu2 = np.zeros((n + 1, m + 1), dtype=np.int32)
-    mu1[1:, 1:] = rng.integers(-4, 9, size=(n, m)) * scale
-    mu2[1:, 1:] = rng.integers(-4, 9, size=(n, m)) * scale
+    mu1[1:, 1:] = rng.integers(*values, size=(n, m)) * scale
+    mu2[1:, 1:] = rng.integers(*values, size=(n, m)) * scale
     return mu1, mu2
 
 
@@ -595,6 +623,8 @@ def phase_kernels(dev, errs: dict) -> None:
     bands = phase_align_kernels(dev, errs)
     torch.cuda.synchronize()
     seconds["bands"] = time.perf_counter() - START
+    ties = phase_tie_walks(dev, errs)
+    seconds["tie_walks"] = time.perf_counter() - START
     say("3 kernels", shapes=SHAPES, tile_edge_shapes=TILE_EDGE_SHAPES,
         ms0_shapes=MS0_SHAPES + [(150, 150), (300, 257), DNAPOL_SHAPE],
         ms0_beyond_one_cta=MS0_BEYOND, k3_rings_equal_on_both_routes=True,
@@ -603,6 +633,7 @@ def phase_kernels(dev, errs: dict) -> None:
         buckets_n_m_b_shift_form_routes_own=buckets, bucket_scores_equal=True,
         bands_n_m_b_shift_form_diagonals_steps=bands,
         bucket_bands_and_walks_equal=True,
+        tie_walks_n_m_shift_form_steps=ties, tie_walks_equal=True,
         lowmem_n_m_shift_form_blocksizes_blocks_twinblocks=lowmem_ran,
         checkpoints_windows_block_walks_and_tracebacks_equal=True,
         max_abs_err=errs, t_s_at_the_end_of=seconds)
@@ -784,9 +815,9 @@ def mixed_lengths(rng, N, M, B):
     return (fixed + rest)[-B:]
 
 
-def bucket_stacks(rng, N, M, lengths, dev):
+def bucket_stacks(rng, N, M, lengths, dev, values=(-4, 9)):
     """A bucket's stacks and lengths on the card, from random tables."""
-    tables = [rand_tables(rng, n, m) for n, m in lengths]
+    tables = [rand_tables(rng, n, m, values=values) for n, m in lengths]
     stacks = (pbatch.stack_padded([t[0] for t in tables], N, M),
               pbatch.stack_padded([t[1] for t in tables], N, M),
               np.asarray([n for n, _m in lengths], dtype=np.int32),
@@ -980,6 +1011,75 @@ def phase_align_kernels(dev, errs: dict) -> list:
                       f"max |err| {e}")
                 errs[walk_name] = max(errs[walk_name], e)
                 ran.append([N, M, B, S, form, D, steps])
+    torch.cuda.synchronize()
+    return ran
+
+
+def phase_tie_walks(dev, errs: dict) -> list:
+    """The six walks on tie-heavy tables, each held to the host walk over
+    the same device memory with max |err| 0: the single-pair walks over the
+    band kernel's band; the blockwise walks block by block over the block
+    kernel's windows at C = 7 and the default C, the walk tensors compared
+    after every block, and the whole blockwise traceback against the
+    single-pair walk; the batch walks over a bucket's band-mode fill at
+    max_shift 0-3."""
+    ran = []
+    for n, m, S in TIE_SHAPES:
+        rng = np.random.default_rng(SEED + 7000 + 1000 * n + 10 * m + S)
+        t1, t2 = tables_to_torch(*rand_tables(rng, n, m, values=TIE_VALUES),
+                                 dev)
+        for affine in (True, False):
+            (fill, _fp, block, _bp, walk, walk_plain, traceback, _costs,
+             (_ckpt, _block, walk_name)) = lowmem_forms(affine)
+            if affine:
+                params = TIE_AFFINE_PARAMS
+                band = cuda_dp.fill_affine_device(t1, t2, S, *params)
+                got = dtb.affine_traceback(band, *params, t1, t2)
+                want = dtb.affine_traceback_plain(band, *params, t1, t2)
+                e = max(trace_err(got[0], want[0]), int(got[1] != want[1]))
+                name, steps = "walk_affine", len(got[0])
+            else:
+                params = TIE_NONAFFINE_PARAMS
+                band = cuda_dp.fill_nonaffine_device(t1, t2, S, *params)
+                got = dtb.nonaffine_traceback(band, *params, t1, t2)
+                want = dtb.nonaffine_traceback_plain(band, *params, t1, t2)
+                e = trace_err(got, want)
+                name, steps = "walk_nonaffine", len(got)
+            check(e == 0, f"{name} on tie-heavy tables {n, m, S}")
+            errs[name] = max(errs[name], e)
+            for C in sorted({7, ckp.default_block(n + m + 1)}):
+                cb = fill(t1, t2, S, *params, block=C)
+                walk_k, walk_p = ckp.new_walk(cb), ckp.new_walk(cb, "cpu")
+                for b in range(cb.n_blocks - 1, -1, -1):
+                    window = block(cb, b)
+                    walk(cb, b, window, walk_k)
+                    walk_plain(cb, b, window, walk_p)
+                    e = tensor_err(walk_k.cpu(), walk_p)
+                    check(e == 0, f"{walk_name} on tie-heavy tables "
+                          f"{n, m, S} C {C} block {b}: max |err| {e}")
+                errs[walk_name] = max(errs[walk_name], e)
+                check(traceback(cb, *params) == got,
+                      f"blockwise traceback on tie-heavy tables {n, m, S} "
+                      f"C {C} differs from the single-pair walk")
+            ran.append([n, m, S, "affine" if affine else "nonaffine", steps])
+
+    N, M, B = TIE_BUCKET
+    for S in (0, 1, 2, 3):
+        rng = np.random.default_rng(SEED + 7500 + S)
+        lengths = mixed_lengths(rng, N, M, B)
+        stacks = bucket_stacks(rng, N, M, lengths, dev, values=TIE_VALUES)
+        d_max = max(n + m for n, m in lengths)
+        for form, fill, _fp, _sp, walk, walk_plain, _params, _cells, _fn, \
+                walk_name in align_forms(S):
+            params = (TIE_AFFINE_PARAMS if form == "affine"
+                      else TIE_NONAFFINE_PARAMS)
+            bband, _scores = fill(*stacks, S, *params, d_max=d_max)
+            e, steps = walks_err(walk(bband, *params, *stacks[:2]),
+                                 walk_plain(bband, *params, *stacks[:2]))
+            check(e == 0, f"{walk_name} on tie-heavy tables {N, M, B, S}: "
+                  f"max |err| {e}")
+            errs[walk_name] = max(errs[walk_name], e)
+            ran.append([N, M, B, S, form, steps])
     torch.cuda.synchronize()
     return ran
 
@@ -1719,25 +1819,38 @@ def replay_affine(trace, mu1, mu2, beta, gamma, delta) -> tuple:
     return total, tuple(idx)
 
 
-def timed_traceback(cb) -> tuple:
+# a device sleep (cycles, about 1 ms) between a block's fill and its walk,
+# longer than the host takes to queue the walk (a whole traceback's
+# launches do not fit the stream's queue ahead of one long sleep)
+HEAD_START_CYCLES = 2_000_000
+
+
+def timed_traceback(cb, head_start: int = 0) -> tuple:
     """The blockwise traceback of ``cb`` as checkpoint_dp._traceback queues
     it, with CUDA events around every block's fill and every block's walk
-    (nothing is waited for until the last): (trace or (trace, complete),
-    ms of all block fills, ms of all block walks, seconds on the host clock
-    with the one copy back)."""
+    (nothing is waited for until the last).  With ``head_start`` cycles of
+    device sleep after every block's fill, the walks' events hold the
+    device's time for the walks, not its waits for the host.  Returns
+    (trace or (trace, complete), ms of all block fills, ms of all block
+    walks, seconds on the host clock with the one copy back, whether the
+    host had queued every walk before the device reached it)."""
     (_fill, _fp, block, _bp, walk_fn, _wp, _tb, _costs, _names) = \
         lowmem_forms(cb.affine)
-    marks = []
+    marks, behind = [], 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     walk, window = ckp.new_walk(cb), None
     for b in range(cb.n_blocks - 1, -1, -1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         window = block(cb, b, window=window)
         ev[1].record()
-        walk_fn(cb, b, window, walk)
+        if head_start:
+            torch.cuda._sleep(head_start)
         ev[2].record()
+        walk_fn(cb, b, window, walk)
+        ev[3].record()
+        behind += ev[2].query()
         marks.append(ev)
     res = walk.cpu().numpy()
     seconds = time.perf_counter() - t0
@@ -1745,8 +1858,9 @@ def timed_traceback(cb) -> tuple:
     codes = res[ckp.STATE + 3:ckp.STATE + 3 + steps]
     result = (ckp._affine_result if cb.affine else ckp._nonaffine_result)(
         codes, done, res[:ckp.STATE])
-    return (result, sum(a.elapsed_time(b) for a, b, _c in marks),
-            sum(b.elapsed_time(c) for _a, b, c in marks), seconds)
+    return (result, sum(ev[0].elapsed_time(ev[1]) for ev in marks),
+            sum(ev[2].elapsed_time(ev[3]) for ev in marks), seconds,
+            behind == 0)
 
 
 def lowmem_stages(fill, what: str) -> tuple:
@@ -1756,7 +1870,7 @@ def lowmem_stages(fill, what: str) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     fill_ms, cb = cuda_ms(fill, reps=1)
-    result, blocks_ms, walks_ms, seconds = timed_traceback(cb)
+    result, blocks_ms, walks_ms, seconds, _ahead = timed_traceback(cb)
     launches = cb.n + cb.m + 1
     return cb, result, dict(
         what=what, block=cb.block, blocks=cb.n_blocks,
@@ -1947,8 +2061,9 @@ def phase_lowmem_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
     score-only fill (what saving costs), and once from a ring and a
     checkpoint buffer of garbage beside the twin from the same garbage: all
     equal.  One block (the middle one) beside its twin, into the same
-    garbage.  The traceback with events around every block's fill and walk;
-    the host walk block by block over the kernel's windows, on the host
+    garbage.  The traceback with events around every block's fill and walk
+    (the kernels line), and again with a device sleep after every fill
+    (the walks' own time, in the details); the host walk block by block over the kernel's windows, on the host
     clock, its tensor equal to the kernel's.  Returns (times, bounds,
     more)."""
     seqA, strA, seqB, strB = mol
@@ -2004,7 +2119,7 @@ def phase_lowmem_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
         del junk, want
 
         timed_traceback(cb)                                   # warm-up
-        result, blocks_ms, walks_ms, seconds = timed_traceback(cb)
+        result, blocks_ms, walks_ms, seconds, _ahead = timed_traceback(cb)
         walk_k, walk_p = ckp.new_walk(cb), ckp.new_walk(cb, "cpu")
         host_ms = 0.0
         for b in range(cb.n_blocks - 1, -1, -1):
@@ -2019,6 +2134,7 @@ def phase_lowmem_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
               "state and codes")
         errs[walk_name] = max(errs[walk_name], e)
         steps = int(walk_p[ckp.STATE])
+        _r, _b, queued_ms, _s, ahead = timed_traceback(cb, HEAD_START_CYCLES)
         times[walk_name] = (walks_ms, host_ms)
         bounds[walk_name] = walk_bound(steps, cases)
         launches = n + m + 1
@@ -2038,7 +2154,8 @@ def phase_lowmem_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
             us_per_launch=blocks_ms * 1e3 / launches)
         more[walk_name] = dict(columns=steps, launches=cb.n_blocks,
                                all_block_walks_ms=walks_ms,
-                               traceback_s=seconds)
+                               walks_ms_after_a_head_start=queued_ms,
+                               host_ahead=ahead, traceback_s=seconds)
     return times, bounds, more
 
 
@@ -2296,6 +2413,130 @@ def tile_times(mol) -> dict:
     for name, run in runs.items():
         run()                                                 # warm-up
         found[name] = cuda_ms(run, reps=3)[0]
+    return found
+
+
+def chain_latency(dev) -> dict:
+    """ns a dependent load from device memory and from the L2: the
+    pointer-chase probe (csrc/probe.cu) over a random cycle through the
+    128-byte lines of a buffer of PROBE_BYTES, PROBE_HOPS loads.  The
+    device-memory run is timed once after a one-load warm-up, so its lines
+    are cold; the L2 run three times after a full warm-up pass."""
+    found = {}
+    for where, nbytes in PROBE_BYTES.items():
+        lines = nbytes // 128
+        order = torch.randperm(lines, device=dev)
+        nxt = torch.zeros(lines * 32, dtype=torch.int32, device=dev)
+        nxt[order * 32] = (torch.roll(order, -1) * 32).to(torch.int32)
+        sink = torch.zeros(1, dtype=torch.int32, device=dev)
+        del order
+        if where == "hbm":          # writes that push the chain out of L2
+            torch.empty(256 << 20, dtype=torch.uint8, device=dev).fill_(1)
+        warm, reps = (1, 1) if where == "hbm" else (PROBE_HOPS, 3)
+        _build.launch("bialign_probe_chase", dev, nxt, warm, sink)
+        ms, _ = cuda_ms(lambda: _build.launch(
+            "bialign_probe_chase", dev, nxt, PROBE_HOPS, sink), reps=reps)
+        found[f"ns_per_load_{where}"] = ms * 1e6 / PROBE_HOPS
+        found[f"buffer_bytes_{where}"] = nbytes
+        del nxt
+    return found
+
+
+def walk_times(mol) -> dict:
+    """The walk kernels alone, no twins, through the C functions of
+    csrc/walk.cu, whose signatures every checkout since the walks shares:
+    ms by CUDA events (5 runs after a warm-up; the block walks as the
+    traceback queues them, after a warm-up traceback), steps, and
+    microseconds a step of the longest chain a launch.  The single-pair
+    walks at the DNA-Pol-1 shapes (affine max_shift 1, the non-affine CLI
+    defaults) and of the 4000x3990 pair, the realistic batch's batch walks
+    (one launch a bucket), the DNA-Pol-1 low-memory traceback's block walks
+    with a device sleep after every block's fill, so that the host is
+    ahead at every walk (and inside the traceback as phase 5 times them).
+    Where the checkout has csrc/probe.cu, also the probe's latencies and
+    each walk's chain floor: its longest chains' steps x the ns a
+    dependent load."""
+    seqA, strA, seqB, strB = mol
+    dev = torch.device("cuda", torch.cuda.current_device())
+    found = {}
+
+    def single(key, band, t1, t2, kind, p):
+        n, m = band.n, band.m
+        lmax = 2 * (n + m) + 1
+        out = torch.empty(3 + lmax, dtype=torch.int32, device=dev)
+        cases = cuda_dp._device_cases(kind, tuple(p), dev)
+        run = lambda: _build.launch(  # noqa: E731
+            f"bialign_walk_{kind}", dev, band.ys, t1, t2, cases, n, m,
+            band.max_shift, out, lmax)
+        run()                                                 # warm-up
+        ms = cuda_ms(run, reps=5)[0]
+        steps = int(out[0])
+        found[key] = dict(ms=ms, steps=steps, longest_chains=steps,
+                          launches=1, us_per_step=ms * 1e3 / max(steps, 1))
+
+    for affine, params in ((True, DNAPOL_FULL), (False, DNAPOL_CLI_DEFAULTS)):
+        kind = "affine" if affine else "nonaffine"
+        ba = BiAligner(seqA, seqB, strA, strB, engine="torch", device="cuda",
+                       **params)
+        t1, t2 = tables_to_torch(ba.mu1, ba.mu2, dev)
+        S = ba.max_shift
+        p = (ba.beta, ba.gamma, ba.delta) if affine else (ba.gamma, ba.delta)
+        fill = (cuda_dp.fill_affine_device if affine
+                else cuda_dp.fill_nonaffine_device)
+        band = fill(t1, t2, S, *p)
+        single(f"walk_{kind}_dnapol", band, t1, t2, kind, p)
+        del band
+        lowmem_fill = lowmem_forms(affine)[0]
+        cb = lowmem_fill(t1, t2, S, *p)
+        timed_traceback(cb)                                   # warm-up
+        inside_ms = timed_traceback(cb)[2]
+        result, _b, walks_ms, _s, ahead = timed_traceback(
+            cb, HEAD_START_CYCLES)
+        steps = len(result[0] if cb.affine else result)
+        found[f"walk_{kind}_block_dnapol"] = dict(
+            ms=walks_ms, steps=steps, longest_chains=steps,
+            launches=cb.n_blocks, block=cb.block, host_ahead=ahead,
+            ms_inside_the_traceback=inside_ms,
+            us_per_step=walks_ms * 1e3 / max(steps, 1))
+        del cb
+
+    n, m, S = BIG_PAIR
+    t1, t2 = tables_to_torch(
+        *rand_tables(np.random.default_rng(SEED), n, m), dev)
+    band = cuda_dp.fill_affine_device(t1, t2, S, *AFFINE_PARAMS)
+    single("walk_affine_4000x3990", band, t1, t2, "affine", AFFINE_PARAMS)
+    del band, t1, t2
+
+    pairs = [host_tables(w, DNAPOL_FULL) for w in realistic_windows(mol, SEED)]
+    costs = (DNAPOL_FULL["gap_opening_cost"], DNAPOL_FULL["gap_cost"],
+             DNAPOL_FULL["shift_cost"])
+    total = dict(ms=0.0, steps=0, longest_chains=0, launches=0)
+    for _idx, st, d_max in pbatch._device_buckets(
+            [q[:2] for q in pairs], REALISTIC_QUANTUM, dev):
+        bband, _sc = cuda_dp.affine_batch_bands(*st, 1, *costs, d_max=d_max)
+        run = lambda: dtb.affine_walk_batch(  # noqa: E731
+            bband, *costs, *st[:2])
+        run()                                                 # warm-up
+        ms, out = cuda_ms(run, reps=5)
+        chains = out[:, 0].cpu()
+        total["ms"] += ms
+        total["steps"] += int(chains.sum())
+        total["longest_chains"] += int(chains.max())
+        total["launches"] += 1
+        del bband
+    total["us_per_step"] = total["ms"] * 1e3 / total["longest_chains"]
+    found["walk_affine_batch_realistic"] = total
+
+    if (_build.CSRC / "probe.cu").exists():
+        chain = chain_latency(dev)
+        found["chain"] = chain
+        for key, row in found.items():
+            if key != "chain":
+                for where in PROBE_BYTES:
+                    floor = (row["longest_chains"]
+                             * chain[f"ns_per_load_{where}"] * 1e-6)
+                    row[f"floor_ms_{where}"] = floor
+                    row[f"share_of_floor_{where}"] = floor / row["ms"]
     return found
 
 
@@ -2610,6 +2851,11 @@ def main() -> int:
         "K9-K12 (no twins); run from an older checkout it times that "
         "checkout's kernels")
     parser.add_argument(
+        "--walk-times", action="store_true",
+        help="build, then only time the walk kernels (single-pair, batch, "
+        "block; no twins) and, where the checkout has it, the chain probe; "
+        "run from an older checkout it times that checkout's walks")
+    parser.add_argument(
         "--fills-only", action="store_true",
         help="build, then only time the single-pair fills, score-only fills "
         "and walks at the DNA-Pol-1 shapes against their twins (phase 5's "
@@ -2642,6 +2888,10 @@ def main() -> int:
     if args.tile_times:
         say("5 tile kernel times", nvidia_smi=smi, root=str(ROOT),
             ms=tile_times(dnapol_pair()))
+        return 0
+    if args.walk_times:
+        say("5 walk times", nvidia_smi=smi, root=str(ROOT),
+            **walk_times(dnapol_pair()))
         return 0
     errs = dict.fromkeys(KERNELS, 0)
     if args.fills_only:
@@ -2705,6 +2955,7 @@ def main() -> int:
                             for k, v in times.items()},
         details=more)
     say("5 big pair", nvidia_smi=smi, **phase_big_pair(dev))
+    say("5 chain latency", nvidia_smi=smi, **chain_latency(dev))
 
     say("6 launches", **launches)
     for name in KERNELS:

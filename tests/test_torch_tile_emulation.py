@@ -21,23 +21,17 @@ staging and phases on the CPU; it says nothing of their speed, and it does
 not replace the card's check.
 """
 
-import ctypes
 import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from cuda_host import emulation as emu
 
 from bialign_tpu_torch.convert import tables_to_torch
 from bialign_tpu_torch.ops import checkpoint_dp as ckp
 from bialign_tpu_torch.ops import cuda_dp
-
-ROOT = Path(__file__).resolve().parents[1]
-CSRC = ROOT / "bialign_tpu_torch" / "csrc"
-HOST = Path(__file__).resolve().parent / "cuda_host"
 
 AFFINE_PARAMS, NONAFFINE_PARAMS = (-150, -50, -150), (-200, -250)
 # tile edges (the live rows of a middle diagonal around R = 8 at affine
@@ -58,21 +52,10 @@ ENTRY_HEADERS = ("tile_diag", "ckpt_diag", "batch_diag", "conveyor",
                  "cta_scores")
 
 
-def _host_source(dst: Path) -> list:
+def _host_sources(dst: Path) -> list:
     """csrc copied to ``dst`` with the two rewrites in every kernel's file;
     the sources that launch a kernel of those files."""
-    shutil.copytree(CSRC, dst)
-    for name, (buffers, launches) in KERNEL_FILES.items():
-        path = dst / name
-        text = path.read_text()
-        text, k = re.subn(r"extern __shared__ int32_t smem\[\];",
-                          "int32_t* smem = host_cta_shared;", text)
-        assert k == buffers, f"the shared buffers of {name} moved"
-        text, k = re.subn(r"(\w+)<<<(.*?)>>>\(",
-                          lambda mt: f"host_launch({mt[1]}, {mt[2]}, ", text,
-                          flags=re.S)
-        assert k == launches, f"the launches of {name} moved"
-        path.write_text(text)
+    emu.copy_csrc(dst, KERNEL_FILES)
     pattern = r'#include "(%s)\.cuh"' % "|".join(ENTRY_HEADERS)
     return sorted(p for p in dst.glob("*.cu")
                   if re.search(pattern, p.read_text()))
@@ -80,38 +63,11 @@ def _host_source(dst: Path) -> list:
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
+    cxx = emu.compiler()
     work = tmp_path_factory.mktemp("tile_host")
-    sources = _host_source(work / "csrc")
+    sources = _host_sources(work / "csrc")
     assert len(sources) == 14, [p.name for p in sources]
-    jobs = [subprocess.Popen(
-        [cxx, "-std=c++20", "-O1", "-fPIC", "-w", "-I", str(HOST), "-I",
-         str(work / "csrc"), "-x", "c++", "-c", str(src), "-o",
-         str(work / (src.stem + ".o"))],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in sources]
-    for job in jobs:
-        out = job.communicate()[0]
-        assert job.returncode == 0, out
-    so = work / "libtile_host.so"
-    subprocess.run([cxx, "-shared", "-o", str(so),
-                    *[str(work / (s.stem + ".o")) for s in sources],
-                    "-lpthread"], check=True)
-    return ctypes.CDLL(str(so))
-
-
-def _call(lib, name, *args):
-    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-             else ctypes.c_int(a) for a in args]
-    assert getattr(lib, name)(*cargs, ctypes.c_int(0),
-                              ctypes.c_void_p(None)) == 0, name
-
-
-def _garbage(rng, shape):
-    return torch.from_numpy(
-        rng.integers(-2 ** 31, 2 ** 31, size=shape).astype(np.int32))
+    return emu.build(cxx, sources, work / "libtile_host.so")
 
 
 @pytest.mark.parametrize("affine", [True, False],
@@ -132,9 +88,9 @@ def test_tile_kernels_equal_the_twins(lib, n, m, S, affine):
              else cuda_dp.fill_nonaffine_plain)(t1, t2, S, *params)
 
     # K1 / K2 band mode on a band of garbage: the live rows, nothing else
-    junk = _garbage(rng, (n + m + 1, *slab))
+    junk = emu.garbage(rng, (n + m + 1, *slab))
     band = junk.clone()
-    _call(lib, f"bialign_fill_{kind}", band, t1, t2, consts, n, m, S)
+    emu.call(lib, f"bialign_fill_{kind}", band, t1, t2, consts, n, m, S)
     d = torch.arange(n + m + 1)[:, None]
     i = torch.arange(n + 1)[None, :]
     live = ((i <= d) & (d - i <= m)).reshape(n + m + 1, *[1] * (len(slab) - 1),
@@ -142,8 +98,8 @@ def test_tile_kernels_equal_the_twins(lib, n, m, S, affine):
     assert torch.equal(band, torch.where(live, plain.ys, junk))
 
     # score-only on a ring of garbage: the last slab's live row
-    ring = _garbage(rng, (3, *slab))
-    _call(lib, f"bialign_score_{kind}", ring, t1, t2, consts, n, m, S)
+    ring = emu.garbage(rng, (3, *slab))
+    emu.call(lib, f"bialign_score_{kind}", ring, t1, t2, consts, n, m, S)
     assert torch.equal(ring[(n + m) % 3][..., n], plain.ys[n + m][..., n])
 
     # K9 / K11 on a ring and checkpoints of garbage, against the twin on
@@ -152,17 +108,17 @@ def test_tile_kernels_equal_the_twins(lib, n, m, S, affine):
         (ckp.fill_affine_checkpoint_plain, ckp.affine_block_plain) if affine
         else (ckp.fill_nonaffine_checkpoint_plain, ckp.nonaffine_block_plain))
     blocks = (n + m) // BLOCK + 1
-    ring, ckpts = _garbage(rng, (3, *slab)), _garbage(rng, (blocks, 2, *slab))
+    ring, ckpts = emu.garbage(rng, (3, *slab)), emu.garbage(rng, (blocks, 2, *slab))
     twin = fill_plain(t1, t2, S, *params, block=BLOCK, ring=ring.clone(),
                       ckpts=ckpts.clone())
-    _call(lib, f"bialign_ckpt_{kind}", ring, ckpts, t1, t2, consts, n, m, S,
+    emu.call(lib, f"bialign_ckpt_{kind}", ring, ckpts, t1, t2, consts, n, m, S,
           BLOCK)
     assert torch.equal(ckpts, twin.ckpts)
     assert torch.equal(ring[(n + m) % 3], twin.final)
     for b in range(blocks):
-        junk = _garbage(rng, twin.window_shape)
+        junk = emu.garbage(rng, twin.window_shape)
         window = junk.clone()
-        _call(lib, f"bialign_block_{kind}", window, twin.ckpts[b].contiguous(),
+        emu.call(lib, f"bialign_block_{kind}", window, twin.ckpts[b].contiguous(),
               t1, t2, consts, n, m, S, b * BLOCK, BLOCK)
         assert torch.equal(window, block_plain(twin, b, window=junk)), b
 
@@ -222,19 +178,19 @@ def test_bucket_kernels_equal_the_twins(lib, S, affine):
 
     out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
     out[out_at] = sentinel
-    ring = _garbage(rng, (B, 3, *cells, N + 1))
-    _call(lib, f"bialign_batch_{kind}", ring, out, *stacks, consts, B, N, M,
+    ring = emu.garbage(rng, (B, 3, *cells, N + 1))
+    emu.call(lib, f"bialign_batch_{kind}", ring, out, *stacks, consts, B, N, M,
           S, N + M)
     assert torch.equal(_without(out, out_at), want)
     assert out[out_at] == sentinel
 
     own = int((valid[2] + valid[3]).max())
     for d_max in (own, N + M):
-        junk = _garbage(rng, (B, d_max + 1, *cells, N + 1))
+        junk = emu.garbage(rng, (B, d_max + 1, *cells, N + 1))
         band = junk.clone()
         out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
         out[out_at] = sentinel
-        _call(lib, f"bialign_batch_fill_{kind}", band, out, *stacks, consts, B,
+        emu.call(lib, f"bialign_batch_fill_{kind}", band, out, *stacks, consts, B,
               N, M, S, d_max)
         twin, twin_scores = bands_plain(*valid, S, *params, d_max=d_max,
                                         band=_without(junk, out_at))
@@ -267,8 +223,8 @@ def test_conveyor_equals_the_twins(lib, S, affine):
     for lanes in (1, 3, B):
         out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
         out[out_at] = -12345
-        ring = _garbage(rng, (lanes, 3, *cells, N + 1))
-        _call(lib, f"bialign_conveyor_{kind}", ring, out, *stacks, consts, B,
+        ring = emu.garbage(rng, (lanes, 3, *cells, N + 1))
+        emu.call(lib, f"bialign_conveyor_{kind}", ring, out, *stacks, consts, B,
               N, M, S, lanes, T0, N + M)
         assert torch.equal(_without(out, out_at), want), lanes
         assert out[out_at] == -12345
@@ -343,9 +299,9 @@ def test_cta_kernel_equals_the_twins(lib, S, affine):
     for threads in CTA_THREADS:
         out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
         out[out_at] = -12345
-        junk = _garbage(rng, (B, 3, *cells, N + 1))
+        junk = emu.garbage(rng, (B, 3, *cells, N + 1))
         ring = junk.clone()
-        _call(lib, f"bialign_cta_{kind}", ring, out, *stacks, consts, B, N, M,
+        emu.call(lib, f"bialign_cta_{kind}", ring, out, *stacks, consts, B, N, M,
               S, threads)
         assert torch.equal(_without(out, out_at), want), threads
         assert out[out_at] == -12345
@@ -377,9 +333,9 @@ def test_cta_ms0_kernel_equals_the_twin(lib, aligned):
     for threads in MS0_THREADS:
         out = torch.full((B,), cuda_dp.INVALID, dtype=torch.int32)
         out[out_at] = -12345
-        junk = _garbage(rng, (B, 3, 3, N + 1))
+        junk = emu.garbage(rng, (B, 3, 3, N + 1))
         ring = junk.clone()
-        _call(lib, "bialign_cta_affine_ms0", ring, out, *stacks, consts, B, N,
+        emu.call(lib, "bialign_cta_affine_ms0", ring, out, *stacks, consts, B, N,
               M, threads)
         assert torch.equal(_without(out, out_at), want), threads
         assert out[out_at] == -12345
@@ -399,12 +355,12 @@ def test_k3_routes_equal_the_twin(lib, n, m):
     mu2[1:, 1:] = rng.integers(-4, 9, size=(n, m)) * 100
     t1, t2 = tables_to_torch(mu1, mu2, "cpu")
     consts = cuda_dp.ms0_kernel_consts(*AFFINE_PARAMS)
-    junk = _garbage(rng, (3, 3, n + 1))
+    junk = emu.garbage(rng, (3, 3, n + 1))
     twin = junk.clone()
     cuda_dp.affine_ms0_last_slab_plain(t1, t2, *AFFINE_PARAMS, ring=twin)
     for name, tables in (("bialign_score_affine_ms0", (t1, t2)),
                          ("bialign_score_affine_ms0", (_misaligned(t1), t2)),
                          ("bialign_score_affine_ms0_grid", (t1, t2))):
         ring = junk.clone()
-        _call(lib, name, ring, *tables, consts, n, m)
+        emu.call(lib, name, ring, *tables, consts, n, m)
         assert torch.equal(ring, twin), name
