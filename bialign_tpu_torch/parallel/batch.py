@@ -29,7 +29,8 @@ bytes each, and the tables are built on the device from a 256 x 256 table
 
 ``engine="cuda"`` runs the CUDA kernels and needs a CUDA device;
 ``engine="torch"`` runs their plain PyTorch twins on any device.  Neither
-gives way to the other.  Not ported yet: a device mesh (``mesh=``).
+gives way to the other.  Not ported yet: a device mesh (``mesh=``, ROADMAP.md
+Queue 1 P15).
 """
 
 from __future__ import annotations
@@ -151,8 +152,8 @@ def _require_int32_safe(tables, params, affine: bool):
             raise ValueError(
                 "scoring parameters/tables exceed the certified int32 "
                 f"range for pair {idx} (value drift bound {bound}); the "
-                "batched engines have no int64 path, and the single-pair "
-                "int64 engine is not ported yet (ROADMAP.md Queue 1 P2)"
+                "batched engines have no int64 path: align such a pair "
+                "alone with BiAligner, which runs the int64 engine"
             )
 
 
@@ -504,8 +505,8 @@ def _require_int32_safe_codes(lut, sw, buckets, params, affine):
         raise ValueError(
             "scoring parameters/LUT exceed the certified int32 range "
             f"(value drift bound {bound}); the batched engines have no "
-            "int64 path, and the single-pair int64 engine is not ported "
-            "yet (ROADMAP.md Queue 1 P2)"
+            "int64 path: align such a pair alone with BiAligner, which "
+            "runs the int64 engine"
         )
 
 

@@ -1,8 +1,7 @@
-"""Rendering of a trace: the text decode.  The plot of the JAX package
-(``bialign_tpu/render/plot.py``) is not ported yet (ROADMAP.md Queue 1 P17).
-"""
+"""Rendering of a trace: the text decode (:mod:`.decode`) and the plot
+(:mod:`.plot`, matplotlib imported only when a plot is drawn)."""
 
-from . import decode
+from . import decode, plot
 from .decode import (
     NL_ROW,
     OUTMODES,
@@ -12,9 +11,11 @@ from .decode import (
     shift_string,
     transfer_gaps,
 )
+from .plot import breaklines, fourway_from_full, plot_alignment, runs
 
 __all__ = [
     "decode",
+    "plot",
     "NL_ROW",
     "OUTMODES",
     "auto_complete",
@@ -22,4 +23,8 @@ __all__ = [
     "decode_trace_full",
     "shift_string",
     "transfer_gaps",
+    "breaklines",
+    "fourway_from_full",
+    "plot_alignment",
+    "runs",
 ]

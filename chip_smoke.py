@@ -6,6 +6,8 @@
     python3 chip_smoke.py --fills-only       # phases 1-2 and the fills' times
     python3 chip_smoke.py --tile-times       # phases 1-2 and the tile kernels'
     python3 chip_smoke.py --walk-times       # phases 1-2 and the walks' times
+    python3 chip_smoke.py --stream-only      # phases 1-2 and the stream,
+                                             # its double buffer measured
 
 Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
 package.  Phases, one line each:
@@ -93,13 +95,35 @@ package.  Phases, one line each:
    memories; and a 13000x12990 pair whose band (109 GB) the card cannot
    hold: score equal to affine_score, trace complete and replayed on the
    host to that score.  Times of the checkpointed fill beside the
-   score-only fill, of the block fills and block walks, peak bytes;
-6. launch counts of the five paths, counted apart, each of which must be
-   > 0;
+   score-only fill, of the block fills and block walks, peak bytes.
+   The stream (run after phase 7's traces, so that nothing of it comes
+   before them): 1024 windows of the DNA-Pol-1 pair (seeds 0-15) with a copy
+   of the whole pair before every 128th, through
+   parallel.StreamingAligner in chunks of 256 pairs (affine max_shift 1):
+   scores and alignments, from tables and from codes, every score, trace,
+   complete flag and spool record equal to score_batch / align_batch on
+   the same records, every whole copy 761500 with the md5 anchors, the
+   alignments' peak memory, with two chunks in flight, between the largest
+   band of one dispatch and that band with its bucket's tables (+ 1 GiB);
+   256 windows at the non-affine CLI defaults (scores, alignments); 512 toy
+   pairs at max_shift 1 and 0; a resume after the spool's last line is cut
+   in half (every id once, equal to a one-shot run's spool); the batch CLI
+   in two processes on the card (RANK 0/1, disjoint shards whose merge is
+   one process's spool); --render on 16 windows, equal to BiAligner's
+   lines; the warmup in a fresh process; the triplet aligner on the
+   DNA-Pol-1 pair on the card against the CPU, and its fill on a 200 x 200
+   window against the oracle in every banded cell.  Rates, RunStats, peak
+   memory.  With --stream-only also the alignments serial and
+   double-buffered in turns (the share of the host's work the double
+   buffer hides);
+6. launch counts of the six paths (the five above and the stream),
+   counted apart, each of which must be > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
    (device busy and idle time, per-kernel times; score-only K3 as its one
-   kernel); traces and report in build/profile/.
+   kernel), and last the device's busy time in one double-buffered run of
+   the stream's alignments from codes; traces and report in
+   build/profile/.
 
 --tile-times builds, then times the tile kernels K1, K2, K4, K5, K8 and
 K9-K12 alone at the DNA-Pol-1 shapes and on the realistic batch (no
@@ -124,11 +148,15 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import functools
 import hashlib
 import importlib.util
+import io
 import json
+import os
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -138,14 +166,18 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from bialign_tpu_torch import BiAligner, _build
+from bialign_tpu_torch import BiAligner, BiAlignerTriplet, _build
 from bialign_tpu_torch.convert import tables_to_torch
 from bialign_tpu_torch.data import dnapol_pair
 from bialign_tpu_torch.ops import checkpoint_dp as ckp
 from bialign_tpu_torch.ops import cuda_dp
 from bialign_tpu_torch.ops import device_traceback as dtb
+from bialign_tpu_torch.models.triplet import fill_oracle, fill_torch
 from bialign_tpu_torch.ops.cases import affine_score_multiplicities
 from bialign_tpu_torch.parallel import batch as pbatch
+from bialign_tpu_torch.parallel import batch_cli
+from bialign_tpu_torch.parallel.driver import (PairRecord, StreamingAligner,
+                                               merge_spools, trace_to_codes)
 from bialign_tpu_torch.scoring.tables import _sim_lut
 
 ROOT = Path(__file__).resolve().parent
@@ -324,6 +356,11 @@ PATHS = {
     "lowmem": ("ckpt_affine", "ckpt_nonaffine", "block_affine",
                "block_nonaffine", "walk_affine_block",
                "walk_nonaffine_block"),
+    # the streaming driver (phase 5, stream): the bucket kernels on the
+    # routes its chunks take, in score and band mode, and the batch walks
+    "stream": ("conveyor_scores", "cta_scores", "cta_scores_ms0",
+               "batch_fill_affine", "batch_fill_nonaffine",
+               "walk_affine_batch", "walk_nonaffine_batch"),
 }
 
 # The goldens at max_shift 3 (computed with the JAX package, engines "xla"
@@ -352,6 +389,22 @@ MS3_GOLDENS = {
         "B shifts        ....>>....................................<<..."]),
 }
 TPU_SIZED_BUDGET = 2 << 30     # the band budget of the JAX package's chunks
+
+# The stream phase: 16 x 64 realistic windows (seeds 0-15) with a copy of
+# the whole DNA-Pol-1 pair before every 128th, through StreamingAligner in
+# chunks of 256 pairs and buckets of 64 rows; the first 256 windows at the
+# non-affine CLI defaults and through two batch CLI processes, 16 through
+# --render; the triplet aligner's fill on a window of 200 x 200 residues
+STREAM_SEEDS = 16
+STREAM_FULL_EVERY = 128
+STREAM_CHUNK, STREAM_QUANTUM = 256, 64
+STREAM_SUBSET = 256
+STREAM_RENDER = 16
+TRIPLET_WINDOW = 200
+# what an alignment stream's peak may hold beyond the band and tables of
+# one dispatch: the walks' outputs of the chunks in flight, the codes, the
+# LUT, the allocator's rounding (3 MB in the runs of PERF.md)
+PEAK_MARGIN = 1 << 30
 
 
 def check(cond, what: str) -> None:
@@ -2838,6 +2891,463 @@ def phase_profile(mol, batches, aligners, out: Path) -> None:
         for name, r in report.items()})
 
 
+# -- phase 5, stream: the streaming driver and its batch CLI -----------------
+
+def stream_corpus(mol) -> list:
+    """The 1024 realistic windows of seeds 0-15 (ids w<seed>-<k>) with a
+    copy of the whole pair (full-<k>) before every 128th window."""
+    seqA, strA, seqB, strB = mol
+    windows = [w for seed in range(STREAM_SEEDS)
+               for w in realistic_windows(mol, seed)]
+    out = []
+    for idx, w in enumerate(windows):
+        if idx % STREAM_FULL_EVERY == 0:
+            out.append(PairRecord(f"full-{idx // STREAM_FULL_EVERY}", seqA,
+                                  seqB, strA, strB))
+        out.append(PairRecord(f"w{idx // REALISTIC_PAIRS}-"
+                              f"{idx % REALISTIC_PAIRS}", **w))
+    return out
+
+
+def record_tables(recs, params) -> list:
+    """(mu1, mu2) of each record through BiAligner's host layers, each
+    distinct pair built once."""
+    built = {}
+    for r in recs:
+        key = (r.seqA, r.seqB, r.strA, r.strB)
+        if key not in built:
+            built[key] = host_tables(dict(seqA=r.seqA, seqB=r.seqB,
+                                          strA=r.strA, strB=r.strB),
+                                     params)[:2]
+    return [built[r.seqA, r.seqB, r.strA, r.strB] for r in recs]
+
+
+def read_spool(path) -> list:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def dispatch_bytes(recs, S: int, affine: bool) -> list:
+    """(band bytes, table bytes) of each fill-and-walk dispatch that
+    dispatch_align_batch[_codes] makes of one chunk ``recs``: buckets of
+    STREAM_QUANTUM rows cut into _auto_chunk's pairs, each a band [B,
+    d_max + 1, states, W, W, N+1] and its bucket's two tables [B, N+1,
+    M+1], int32 (the tables path uploads a bucket's at once)."""
+    buckets = {}
+    for r in recs:
+        n, m = len(r.seqA), len(r.seqB)
+        key = (pbatch.quantize(n, STREAM_QUANTUM),
+               pbatch.quantize(m, STREAM_QUANTUM))
+        buckets.setdefault(key, []).append(n + m)
+    W = 2 * S + 1
+    states = pbatch.N_STATES if affine else 1
+    out = []
+    for (N, M), last in buckets.items():
+        per = pbatch._auto_chunk(N, M, S, affine)
+        for lo in range(0, len(last), per):
+            part = last[lo:lo + per]
+            out.append((len(part) * (max(part) + 1) * states * W * W
+                        * (N + 1) * 4, 2 * len(last) * (N + 1) * (M + 1) * 4))
+    return out
+
+
+def peak_bounds(recs, S: int, affine: bool) -> dict:
+    """The bytes an alignment stream of ``recs`` should hold at its peak.
+    A dispatch drops its band once the walk is queued behind the fill, and
+    the allocator hands the block on in stream order, so with two chunks in
+    flight one band lives at a time: the peak lies between the largest band
+    (``least``) and the largest band with its bucket's tables plus
+    PEAK_MARGIN (``most``); ``two_chunks`` is what the bands and tables of
+    two chunks would take if all of them lived at once."""
+    chunks = [dispatch_bytes(recs[lo:lo + STREAM_CHUNK], S, affine)
+              for lo in range(0, len(recs), STREAM_CHUNK)]
+    each = [sum(band + tables for band, tables in c) for c in chunks]
+    return dict(
+        least=max(band for c in chunks for band, _tables in c),
+        most=max(band + tables for c in chunks for band, tables in c)
+        + PEAK_MARGIN,
+        two_chunks=max(a + b for a, b in zip(each, each[1:] + [0])))
+
+
+def stream_run(recs, params, spool: Path, *, alignments: bool,
+               codes) -> tuple:
+    """``recs`` through StreamingAligner on the card into a fresh ``spool``,
+    double-buffered as it runs; returns (what run() yielded, report)."""
+    if spool.exists():
+        spool.unlink()
+    sa = StreamingAligner(params, spool_path=str(spool),
+                          chunk_pairs=STREAM_CHUNK,
+                          bucket_quantum=STREAM_QUANTUM,
+                          alignments=alignments, codes=codes)
+    if codes != "auto":
+        check((sa._codes_lut is not None) == codes, f"codes={codes} not taken")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = list(sa.run(recs))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sa.spool.close()
+    peak = torch.cuda.max_memory_allocated()
+    bounds = {}
+    if alignments:
+        bounds = peak_bounds(recs, sa.max_shift, sa.affine)
+        check(bounds["least"] <= peak <= bounds["most"],
+              f"stream peak {peak} B outside the predicted {bounds} B")
+        bounds = {"peak_predicted_" + k: v for k, v in bounds.items()}
+    rate = "alignments_per_s" if alignments else "pairs_per_s"
+    return results, {
+        "pairs": len(results), rate: len(results) / seconds,
+        "seconds": seconds, "dispatch_host_s": sa.dispatch_seconds,
+        "codes": sa._codes_lut is not None, "stats": json.loads(
+            sa.stats.to_json()),
+        "max_memory_allocated": peak, **bounds,
+        "card_memory": torch.cuda.get_device_properties(0).total_memory}
+
+
+def buffer_seconds(recs, params, *, alignments: bool, codes,
+                   serial: bool) -> tuple:
+    """StreamingAligner's chunks without a spool, double-buffered as run()
+    takes them or ``serial``: run() on one chunk at a time, so each is
+    waited for and harvested before the next is built.  Returns (seconds,
+    host seconds of the dispatches)."""
+    sa = StreamingAligner(params, chunk_pairs=STREAM_CHUNK,
+                          bucket_quantum=STREAM_QUANTUM,
+                          alignments=alignments, codes=codes)
+    parts = ([recs[lo:lo + STREAM_CHUNK]
+              for lo in range(0, len(recs), STREAM_CHUNK)]
+             if serial else [recs])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for part in parts:
+        for _ in sa.run(part):
+            pass
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, sa.dispatch_seconds
+
+
+def check_stream(results, spooled, recs, want, what: str) -> None:
+    """A run's results and spool against score_batch (``want`` = scores)
+    or align_batch (``want`` = (scores, traces, complete)), pair by pair in
+    stream order."""
+    aligned = isinstance(want, tuple)
+    scores = want[0] if aligned else want
+    check([r[0] for r in results] == [r.id for r in recs],
+          f"{what}: ids out of stream order")
+    check([r[1] for r in results] == np.asarray(scores).tolist(),
+          f"{what}: scores differ from the batch path's")
+    check([(x["id"], x["score"]) for x in spooled]
+          == [(r.id, int(s)) for r, s in zip(recs, scores)],
+          f"{what}: spool differs")
+    if aligned:
+        for idx, (res, rec) in enumerate(zip(results, spooled)):
+            check(res[2] == want[1][idx], f"{what}: trace of {res[0]}")
+            check(rec["trace"] == trace_to_codes(want[1][idx]),
+                  f"{what}: spooled trace of {res[0]}")
+            check(rec["complete"] == bool(want[2][idx]),
+                  f"{what}: complete flag of {res[0]}")
+
+
+def check_full_copies(results, full_aligner, md5, what: str) -> int:
+    """Every full-<k> record: SCORE 761500 and, for alignments, the six md5
+    anchors of its lines; returns how many there were."""
+    found = [r for r in results if r[0].startswith("full-")]
+    for r in found:
+        check(r[1] == 761500, f"{what}: {r[0]} scored {r[1]}")
+        if len(r) == 3:
+            got = md5_anchors(full_aligner.decode_trace(r[2]))
+            check(got == md5, f"{what}: {r[0]} md5 anchors {got}")
+    return len(found)
+
+
+def write_tsv(path: Path, recs) -> None:
+    path.write_text("".join(
+        f"{r.id}\t{r.seqA}\t{r.seqB}\t{r.strA}\t{r.strB}\n" for r in recs))
+
+
+def cli_args(params) -> list:
+    """The batch CLI's flags for ``params``."""
+    return [x for k, v in params.items() for x in (f"--{k}", str(v))]
+
+
+def run_module(args, env=None) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish(proc, what: str, timeout=300) -> str:
+    """Wait for ``proc``; its standard output, or raise with its errors."""
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"{what}: rc {proc.returncode}\n"
+          f"{err[-3000:]}")
+    return out
+
+
+def stream_two_processes(recs, params, where: Path) -> dict:
+    """The batch CLI in two processes on the one card (RANK 0/1,
+    WORLD_SIZE 2) over a TSV of ``recs``: disjoint shards whose merge is
+    the one-process spool."""
+    tsv = where / "two.tsv"
+    write_tsv(tsv, recs)
+    spool = where / "two.jsonl"
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    t0 = time.perf_counter()
+    procs = [run_module(["bialign_tpu_torch.parallel.batch_cli", str(tsv),
+                         "--spool", str(spool), "--distributed",
+                         *cli_args(params)],
+                        env=dict(env, RANK=str(rank), WORLD_SIZE="2"))
+             for rank in range(2)]
+    for rank, proc in enumerate(procs):
+        finish(proc, f"batch_cli RANK {rank}")
+    seconds = time.perf_counter() - t0
+    shards = [Path(f"{spool}.shard{rank}") for rank in range(2)]
+    ids = [{x["id"] for x in read_spool(p)} for p in shards]
+    check(not ids[0] & ids[1], "the two processes' shards overlap")
+    check(ids[0] | ids[1] == {r.id for r in recs}, "the shards miss pairs")
+    one = where / "one.jsonl"
+    stream_run(recs, params, one, alignments=False, codes="auto")
+    check(merge_spools([str(p) for p in shards]) == merge_spools([str(one)]),
+          "the merged shards differ from one process's spool")
+    return dict(pairs=len(recs), shard_pairs=[len(x) for x in ids],
+                seconds_both=seconds,
+                device_count=torch.cuda.device_count(),
+                merged_equal_to_one_process=True)
+
+
+def stream_render(recs, params, where: Path) -> dict:
+    """batch_cli --alignments --render: every line equal to BiAligner's
+    decode of the same pair."""
+    tsv = where / "render.tsv"
+    write_tsv(tsv, recs)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = batch_cli.main([str(tsv), "--alignments", "--render",
+                             *cli_args(params)])
+    check(rc == 0, f"batch_cli --render rc {rc}")
+    want = []
+    for r in recs:
+        ba = BiAligner(r.seqA, r.seqB, r.strA, r.strB, nameA=f"{r.id}.A",
+                       nameB=f"{r.id}.B", **params)
+        score = ba.optimize()
+        want.append(json.dumps({"id": r.id, "score": score,
+                                "trace": trace_to_codes(ba.traceback())}))
+        want += list(ba.decode_trace())
+    check(out.getvalue().splitlines() == want,
+          "batch_cli --render differs from BiAligner's lines")
+    return dict(pairs=len(recs), lines=len(want), equal_to_bialigner=True)
+
+
+def stream_warmup() -> dict:
+    """The warmup module in a fresh process: rc 0 and its timings."""
+    t0 = time.perf_counter()
+    out = finish(run_module([
+        "bialign_tpu_torch.utils.warmup", "--lengths", "512x512", "960x960",
+        "--max-shift", "1", "--traceback", "--streaming",
+        "--streaming-batch", str(STREAM_CHUNK), "--gap_opening_cost",
+        str(DNAPOL_FULL["gap_opening_cost"]), "--gap_cost",
+        str(DNAPOL_FULL["gap_cost"]), "--shift_cost",
+        str(DNAPOL_FULL["shift_cost"]), "--structure_weight",
+        str(DNAPOL_FULL["structure_weight"])]), "warmup")
+    lines = out.splitlines()
+    check(lines and lines[-1].startswith("prewarm total"),
+          f"warmup printed {lines[-3:]}")
+    return dict(process_s=time.perf_counter() - t0, lines=lines)
+
+
+def stream_triplet(mol) -> dict:
+    """BiAlignerTriplet on the DNA-Pol-1 pair at max_shift 1, the plain
+    PyTorch wavefront on the card against the same on the CPU; fill_torch
+    on a 200 x 200 window against fill_oracle in every banded cell."""
+    seqA, strA, seqB, strB = mol
+    params = {k: v for k, v in DNAPOL_FULL.items()
+              if k != "gap_opening_cost"}             # flat gaps only
+    found = {}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ba = BiAlignerTriplet(seqA, seqB, strA, strB, engine="torch",
+                              device=dev, **params)
+        seconds, score = timed(ba.optimize)
+        trace = ba.traceback()
+        runs[dev] = (score, trace)
+        found[f"dnapol_fill_{dev}_s"] = seconds
+    check(runs["cuda"] == runs["cpu"],
+          f"triplet on the card {runs['cuda'][0]} differs from the CPU's "
+          f"{runs['cpu'][0]}")
+    found.update(dnapol_score=runs["cuda"][0], trace_columns=len(
+        runs["cuda"][1]), equal_to_cpu=True)
+    w = TRIPLET_WINDOW
+    ba = BiAlignerTriplet(seqA[100:100 + w], seqB[100:100 + w],
+                          strA[100:100 + w], strB[100:100 + w],
+                          engine="torch", device="cuda", **params)
+    S = ba.max_shift
+    seconds, got = timed(lambda: fill_torch(ba.mu1, ba.mu2, S, ba.gamma,
+                                            ba.delta, device="cuda"))
+    t0 = time.perf_counter()
+    want = fill_oracle(ba.mu1, ba.mu2, S, ba.gamma, ba.delta)
+    oracle_s = time.perf_counter() - t0
+    j = np.arange(w + 1)
+    band = np.broadcast_to(np.abs(j[None, :] - j[:, None]) <= S,
+                           (w + 1, w + 1, w + 1))
+    check(np.array_equal(got[band], want[band]),
+          "triplet fill_torch differs from fill_oracle")
+    found.update(window=f"{w}x{w}", window_cells=int(band.sum()),
+                 window_fill_cuda_s=seconds, window_oracle_s=oracle_s,
+                 window_equal_to_oracle=True)
+    return found
+
+
+def stream_double_buffer(mol) -> dict:
+    """The share of a chunk's host work that the double buffer hides: the
+    corpus's alignments without a spool, serial and double-buffered in
+    turns (from tables once each: the host's table build, about eight times
+    the device's work, decides those).  Run with --stream-only."""
+    corpus = stream_corpus(mol)
+    hidden = {}
+    for codes in (False, True):
+        got = {"serial": [], "double": []}
+        host = []
+        for serial in (True, False, False, True)[:4 if codes else 2]:
+            seconds, dispatch_s = buffer_seconds(
+                corpus, DNAPOL_FULL, alignments=True, codes=codes,
+                serial=serial)
+            got["serial" if serial else "double"].append(seconds)
+            host.append(dispatch_s)
+        saved = min(got["serial"]) - min(got["double"])
+        hidden["codes" if codes else "tables"] = dict(
+            serial_s=got["serial"], double_buffered_s=got["double"],
+            dispatch_host_s=host, hidden_s=saved,
+            hidden_share_of_host=saved / min(host),
+            alignments_per_s=len(corpus) / min(got["double"]))
+    return hidden
+
+
+def profiled_stream(mol, out: Path) -> dict:
+    """Where the codes stream's time goes: the device's busy time in the
+    window of one double-buffered run of the corpus's alignments (after
+    the other profiles: its trace is the largest)."""
+    out.mkdir(parents=True, exist_ok=True)
+    summary, _dev = traced(
+        lambda: buffer_seconds(stream_corpus(mol), DNAPOL_FULL,
+                               alignments=True, codes=True, serial=False),
+        out / "trace_stream_alignments_codes.json")
+    return {k: v for k, v in summary.items() if k != "kernels"}
+
+
+def phase_stream(mol, md5, smi) -> tuple[dict, dict]:
+    """The streaming driver on the card: the corpus's four runs (scores and
+    alignments, from tables and from codes; the alignments' peak memory
+    against peak_bounds), the non-affine CLI defaults, 512 toy
+    pairs at max_shift 1 and 0, and a resume after a cut spool, all
+    counted; then each against score_batch / align_batch, two batch CLI
+    processes, --render, the warmup and the triplet aligner.  Returns
+    (report, launches of the StreamingAligner runs)."""
+    t_phase = time.perf_counter()
+    where = ROOT / "build" / "stream"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    seqA, strA, seqB, strB = mol
+    full_aligner = BiAligner(seqA, seqB, strA, strB, **DNAPOL_FULL)
+    corpus = stream_corpus(mol)
+    windows = [r for r in corpus if not r.id.startswith("full-")]
+    subset = windows[:STREAM_SUBSET]
+    toy = [PairRecord(f"toy-{k}", **TOY) for k in range(TOY_PAIRS)]
+    toy_ms0 = dict(DNAPOL_FULL, max_shift=0)
+    runs, found = {}, {}
+
+    def run(name, recs, params, **kw):
+        results, report = stream_run(recs, params, where / f"{name}.jsonl",
+                                     **kw)
+        runs[name] = results
+        say("5 stream run", nvidia_smi=smi, run=name, **report,
+            phase_s=time.perf_counter() - t_phase)
+        found[name] = report
+
+    # the StreamingAligner runs, counted apart
+    reset_counts()
+    for alignments in (False, True):
+        for codes in (False, True):
+            name = (("alignments" if alignments else "scores")
+                    + ("_codes" if codes else "_tables"))
+            run(name, corpus, DNAPOL_FULL, alignments=alignments, codes=codes)
+    for alignments in (False, True):
+        run("nonaffine_" + ("alignments" if alignments else "scores"), subset,
+            DNAPOL_CLI_DEFAULTS, alignments=alignments, codes="auto")
+    run("toy_ms1", toy, DNAPOL_FULL, alignments=False, codes="auto")
+    run("toy_ms0", toy, toy_ms0, alignments=False, codes="auto")
+    # resume: half the corpus, the spool's last line cut in half, the whole
+    resumed = where / "resume.jsonl"
+    half = corpus[:len(corpus) // 2]
+    stream_run(half, DNAPOL_FULL, resumed, alignments=False, codes=True)
+    data = resumed.read_bytes()
+    last = data.rstrip(b"\n").rfind(b"\n") + 1
+    cut = last + (len(data) - last) // 2
+    resumed.write_bytes(data[:cut])
+    sa = StreamingAligner(DNAPOL_FULL, spool_path=str(resumed),
+                          chunk_pairs=STREAM_CHUNK,
+                          bucket_quantum=STREAM_QUANTUM, codes=True)
+    again = list(sa.run(corpus))
+    sa.spool.close()
+    launches = path_counts("stream")
+
+    # against the batch path on the same records
+    costs = (DNAPOL_FULL["gap_opening_cost"], DNAPOL_FULL["gap_cost"],
+             DNAPOL_FULL["shift_cost"])
+    tables = record_tables(corpus, DNAPOL_FULL)
+    kw = dict(affine=True, bucket_quantum=STREAM_QUANTUM)
+    want_scores = pbatch.score_batch(tables, 1, costs, **kw)
+    want_aligned = pbatch.align_batch(tables, 1, costs, **kw)
+    check(want_aligned[0].tolist() == want_scores.tolist(),
+          "align_batch scores differ from score_batch's")
+    for name in ("scores_tables", "scores_codes", "alignments_tables",
+                 "alignments_codes"):
+        want = want_aligned if name.startswith("alignments") else want_scores
+        check_stream(runs[name], read_spool(where / f"{name}.jsonl"), corpus,
+                     want, name)
+        found[name]["full_copies"] = check_full_copies(
+            runs[name], full_aligner, md5, name)
+        found[name]["equal_to_batch_path"] = True
+    na = BiAligner(**TOY, **DNAPOL_CLI_DEFAULTS)
+    na_params = (na.gamma, na.delta)
+    tables = record_tables(subset, DNAPOL_CLI_DEFAULTS)
+    kw = dict(affine=False, bucket_quantum=STREAM_QUANTUM)
+    check_stream(runs["nonaffine_scores"],
+                 read_spool(where / "nonaffine_scores.jsonl"), subset,
+                 pbatch.score_batch(tables, na.max_shift, na_params, **kw),
+                 "nonaffine_scores")
+    check_stream(runs["nonaffine_alignments"],
+                 read_spool(where / "nonaffine_alignments.jsonl"), subset,
+                 pbatch.align_batch(tables, na.max_shift, na_params, **kw),
+                 "nonaffine_alignments")
+    tables = record_tables(toy[:1], DNAPOL_FULL) * TOY_PAIRS
+    for name, params in (("toy_ms1", DNAPOL_FULL), ("toy_ms0", toy_ms0)):
+        want = pbatch.score_batch(tables, params["max_shift"], costs,
+                                  affine=True, bucket_quantum=STREAM_QUANTUM)
+        check_stream(runs[name], read_spool(where / f"{name}.jsonl"), toy,
+                     want, name)
+    check(set(x[1] for x in runs["toy_ms1"]) == {TOY_SCORE},
+          "toy pairs at max_shift 1 are not all 48500")
+
+    spooled = read_spool(resumed)
+    ids = [x["id"] for x in spooled]
+    check(len(ids) == len(set(ids)) == len(corpus),
+          f"resumed spool: {len(ids)} records, {len(set(ids))} ids")
+    check(merge_spools([str(resumed)])
+          == merge_spools([str(where / "scores_codes.jsonl")]),
+          "the resumed spool differs from a one-shot run's")
+    found["resume"] = dict(first_run=len(half), cut_at_byte=cut,
+                           second_run=len(again), spool_records=len(ids),
+                           equal_to_one_shot=True)
+
+    found["two_processes"] = stream_two_processes(subset, DNAPOL_FULL, where)
+    found["render"] = stream_render(windows[:STREAM_RENDER], DNAPOL_FULL,
+                                    where)
+    found["warmup"] = stream_warmup()
+    found["triplet"] = stream_triplet(mol)
+    found["phase_s"] = time.perf_counter() - t_phase
+    return found, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -2855,6 +3365,10 @@ def main() -> int:
         help="build, then only time the walk kernels (single-pair, batch, "
         "block; no twins) and, where the checkout has it, the chain probe; "
         "run from an older checkout it times that checkout's walks")
+    parser.add_argument(
+        "--stream-only", action="store_true",
+        help="build, then only the stream phase: the streaming driver, its "
+        "batch CLI, the warmup and the triplet aligner, each checked")
     parser.add_argument(
         "--fills-only", action="store_true",
         help="build, then only time the single-pair fills, score-only fills "
@@ -2892,6 +3406,18 @@ def main() -> int:
     if args.walk_times:
         say("5 walk times", nvidia_smi=smi, root=str(ROOT),
             **walk_times(dnapol_pair()))
+        return 0
+    if args.stream_only:
+        stream, stream_launches = phase_stream(dnapol_pair(), dnapol_md5(),
+                                               smi)
+        say("5 stream", nvidia_smi=smi, launches=stream_launches, **stream)
+        for name in PATHS["stream"]:
+            check(stream_launches[name] > 0,
+                  f"kernel {name} not launched by the stream")
+        say("5 stream, double buffer", nvidia_smi=smi,
+            **stream_double_buffer(dnapol_pair()))
+        say("7 profile, stream", nvidia_smi=smi, alignments_codes=(
+            profiled_stream(dnapol_pair(), ROOT / "build" / "profile")))
         return 0
     errs = dict.fromkeys(KERNELS, 0)
     if args.fills_only:
@@ -2961,6 +3487,18 @@ def main() -> int:
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} not launched by the path")
     phase_profile(mol, batches, aligners, ROOT / "build" / "profile")
+
+    # after phase 7's traces: nothing of the stream runs before them.
+    # phase_stream sets the counts to 0 before its StreamingAligner runs
+    # and reads them after them, before its checks launch the batch path
+    stream, stream_launches = phase_stream(mol, md5, smi)
+    say("5 stream", nvidia_smi=smi, launches=stream_launches, **stream)
+    say("6 launches, stream", **stream_launches)
+    for name in PATHS["stream"]:
+        check(stream_launches[name] > 0,
+              f"kernel {name} not launched by the stream")
+    say("7 profile, stream", nvidia_smi=smi, alignments_codes=(
+        profiled_stream(mol, ROOT / "build" / "profile")))
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -18,10 +18,14 @@ import bialign_tpu.ops.cases
 import bialign_tpu.ops.checkpoint_dp
 import bialign_tpu.ops.traceback
 import bialign_tpu.parallel.batch
+import bialign_tpu.parallel.driver
 import bialign_tpu.render.decode
+import bialign_tpu.render.plot
 import bialign_tpu.scoring.fold
 import bialign_tpu.scoring.structure
 import bialign_tpu.scoring.tables
+import bialign_tpu.models.triplet
+import bialign_tpu.utils.profiling
 import bialign_tpu.version
 import golden as G
 from bialign_tpu.ops import reference_dp
@@ -36,10 +40,14 @@ import bialign_tpu_torch.ops.cases
 import bialign_tpu_torch.ops.checkpoint_dp
 import bialign_tpu_torch.ops.traceback
 import bialign_tpu_torch.parallel.batch
+import bialign_tpu_torch.parallel.driver
 import bialign_tpu_torch.render.decode
+import bialign_tpu_torch.render.plot
 import bialign_tpu_torch.scoring.fold
 import bialign_tpu_torch.scoring.structure
 import bialign_tpu_torch.scoring.tables
+import bialign_tpu_torch.models.triplet
+import bialign_tpu_torch.utils.profiling
 import bialign_tpu_torch.version
 
 RNA_A, RNA_B = G.TOY_RNA["seqA"], G.TOY_RNA["seqB"]
@@ -543,3 +551,155 @@ def test_batch_auto_chunk_is_sized_for_the_card(N, M, S, affine, budget,
         * (N + 1) * 4
     assert got == max(1, min(1024, (budget or TB.BAND_BUDGET) // per_pair))
     assert got == min(chunk, 1024)
+
+
+# -- parallel/driver.py, utils/profiling.py: the host parts of the driver --
+
+def test_driver_pair_record():
+    kw = dict(id="p", seqA="AC", seqB="A", strA="HH", strB="C")
+    got = T.parallel.driver.PairRecord(**kw)
+    want = J.parallel.driver.PairRecord(**kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(T.parallel.driver.PairRecord("q", "A", "C")) \
+        == dataclasses.asdict(J.parallel.driver.PairRecord("q", "A", "C"))
+
+
+def _spool_session(mod, path):
+    """What a ResultSpool says and writes over two sessions, the first cut
+    in the middle of a line."""
+    rs = mod.ResultSpool(str(path))
+    rs.write("a", 1)
+    rs.write_many([("b", np.int64(2), {"trace": [8, 15], "complete": True}),
+                   ("c", -3, None)])
+    rs.close()
+    with open(path, "a") as fh:
+        fh.write('{"id": "d", "sc')
+    rs = mod.ResultSpool(str(path))
+    done = [rs.is_done(x) for x in "abcd"]
+    rs.write("d", 4)
+    rs.close()
+    return done, path.read_text()
+
+
+def test_driver_result_spool(tmp_path):
+    got = _spool_session(T.parallel.driver, tmp_path / "t.jsonl")
+    assert got == _spool_session(J.parallel.driver, tmp_path / "j.jsonl")
+    assert got[0] == [True, True, True, False]
+
+
+@pytest.mark.parametrize("codes", [[], [0, 15, 8, 3, 12, 10, 5]])
+def test_driver_trace_codes(codes):
+    td, jd = T.parallel.driver, J.parallel.driver
+    trace = jd.trace_from_codes(codes)
+    assert td.trace_from_codes(codes) == trace
+    assert td.trace_to_codes(trace) == jd.trace_to_codes(trace) == codes
+
+
+def test_driver_merge_spools(tmp_path):
+    shards = [tmp_path / "s0.jsonl", tmp_path / "s1.jsonl"]
+    shards[0].write_text('{"id": "a", "score": 1}\n{"id": "b", "score": 2}\n')
+    shards[1].write_text('{"id": "c", "score": 3, "trace": [8]}\n'
+                         '{"id": "a", "score": 1}\n{"id"')
+    paths = [str(p) for p in shards]
+    got = T.parallel.driver.merge_spools(paths)
+    assert got == J.parallel.driver.merge_spools(paths)
+    assert list(got) == ["a", "b", "c"]
+
+
+@pytest.mark.parametrize("n,m,S", [(0, 0, 0), (928, 933, 1), (5, 7, 4)])
+def test_profiling_band_cells(n, m, S):
+    assert T.utils.profiling.band_cells(n, m, S) \
+        == J.utils.profiling.band_cells(n, m, S)
+
+
+def test_profiling_run_stats():
+    runs = []
+    for mod in (T.utils.profiling, J.utils.profiling):
+        st = mod.RunStats()
+        assert (st.pairs_per_s, st.cells_per_s, st.pairs_per_dispatch) \
+            == (0.0, 0.0, 0.0)
+        st.add_batch("chunk", 5, 1000, n_dispatches=2)
+        st.add_batch((64, 64), 3, 500)
+        st.seconds = 2.0
+        st.start().stop()
+        st.seconds = 2.0
+        runs.append((dataclasses.asdict(st), st.pairs_per_s, st.cells_per_s,
+                     st.pairs_per_dispatch, st.to_json()))
+    assert runs[0] == runs[1]
+
+
+def test_profiling_trace_on_the_cpu(tmp_path):
+    import torch
+
+    with T.utils.profiling.profile_trace(str(tmp_path), device="cpu"):
+        torch.ones(4).sum()
+    assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+# -- models/triplet.py: the numpy parts ---------------------------------------
+
+def test_triplet_constants():
+    tt, jt = T.models.triplet, J.models.triplet
+    assert tt.TRIPLET_COLS == jt.TRIPLET_COLS
+    for gamma, delta in [(-200, -250), (-50, -150), (0, 0), (7, -3)]:
+        assert tt._case_consts(gamma, delta) == jt._case_consts(gamma, delta)
+
+
+@pytest.mark.parametrize("n,m,S", [(4, 6, 1), (6, 3, 2), (0, 2, 1), (3, 3, 0)])
+def test_triplet_fill_oracle(n, m, S):
+    mu1, mu2 = _rand_pair(np.random.default_rng(n * 7 + m + S), n, m)
+    assert _same(T.models.triplet.fill_oracle(mu1, mu2, S, -200, -250),
+                 J.models.triplet.fill_oracle(mu1, mu2, S, -200, -250))
+
+
+# -- render/plot.py ------------------------------------------------------------
+
+def test_plot_breaklines_and_runs():
+    tp, jp = T.render.plot, J.render.plot
+    ali = [("A", "abcdefgh"), ("B", "12345678")]
+    for width in (1, 3, 8, 20):
+        assert tp.breaklines(ali, width) == jp.breaklines(ali, width)
+    assert tp.breaklines([], 3) == jp.breaklines([], 3) == []
+    for text in ("HHEEC", "", "A", "CCCHHHHHHEEEC-"):
+        assert list(tp.runs(text)) == list(jp.runs(text))
+    assert tp.SS_GLYPHS == jp.SS_GLYPHS
+    assert tp.SS_FALLBACK == jp.SS_FALLBACK
+    assert dataclasses.asdict(tp._Tracks()) \
+        == dataclasses.asdict(jp._Tracks())
+
+
+@pytest.fixture(scope="module")
+def toy_protein_full():
+    ba = J.BiAligner(PRO["seqA"], PRO["seqB"], PRO["strA"], PRO["strB"],
+                     engine="numpy", **G.TOY_PROTEIN_PARAMS)
+    ba.optimize()
+    return ba.decode_trace_full()
+
+
+def test_plot_fourway_from_full(toy_protein_full):
+    got = T.render.plot.fourway_from_full(toy_protein_full)
+    assert got == J.render.plot.fourway_from_full(toy_protein_full)
+    assert [name for name, _ in got] == [
+        "A", "B", "A ss", "B ss", "A shifts", "B shifts"]
+
+
+def test_plot_alignment(tmp_path, toy_protein_full):
+    """tests/test_io_render.py's plot of the toy pair, through the port's
+    copy and the original: the same figure, drawn element by element."""
+    pytest.importorskip("matplotlib")
+    import matplotlib.pyplot as plt
+
+    def drawn(fig):
+        return [[(type(a).__name__, getattr(a, "get_text", lambda: None)(),
+                  repr(getattr(a, "get_xydata", lambda: None)()))
+                 for a in ax.get_children()] for ax in fig.axes]
+
+    out = tmp_path / "ali.svg"
+    got = T.render.plot.plot_alignment(toy_protein_full, 60,
+                                       outname=str(out))
+    assert out.exists() and out.stat().st_size > 0
+    want = J.render.plot.plot_alignment(toy_protein_full, 60)
+    assert drawn(got) == drawn(want)
+    plt.close("all")
+    with pytest.raises(TypeError, match="unexpected"):
+        T.render.plot.plot_alignment(toy_protein_full, 60, bogus=1)

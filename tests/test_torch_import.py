@@ -33,11 +33,14 @@ def _port_modules():
 
 def test_port_imports_and_runs_with_jax_blocked():
     """Every module of the port imports, and the toy golden runs, in a
-    process where any import of jax or of the JAX package fails."""
+    process where any import of jax or of the JAX package fails, and of
+    matplotlib (the card's machine has none; the plot imports it when it
+    draws)."""
     code = textwrap.dedent("""
         import importlib, sys
         sys.modules["jax"] = None          # any import of jax now fails
         sys.modules["bialign_tpu"] = None  # and any of the JAX package
+        sys.modules["matplotlib"] = None   # and of matplotlib
         sys.path.insert(0, "tests")
         import golden as G
         for name in sys.argv[1:]:
@@ -56,6 +59,9 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert "bialign_tpu_torch.ops.cuda_dp" in modules
     assert "bialign_tpu_torch.scoring.tables" in modules
     assert "bialign_tpu_torch.ops.checkpoint_dp" in modules
+    for name in ("parallel.driver", "parallel.batch_cli", "utils.profiling",
+                 "utils.warmup", "models.triplet", "render.plot"):
+        assert f"bialign_tpu_torch.{name}" in modules
     proc = subprocess.run([sys.executable, "-c", code, *modules], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,89 @@
+"""The port's triplet aligner against the JAX package's, on the CPU: the
+plain PyTorch wavefront ``fill_torch`` equal to the JAX ``fill_xla`` and to
+the numpy oracle in every banded cell, and ``BiAlignerTriplet`` equal to the
+JAX class end to end (tolerance 0: ints and strings)."""
+
+import numpy as np
+import pytest
+
+import bialign_tpu.models.triplet as J
+import bialign_tpu_torch.models.triplet as T
+
+SHAPES = [(5, 7, 1), (8, 8, 2), (3, 9, 1), (9, 3, 2), (1, 1, 1), (6, 6, 0),
+          (7, 5, 3), (0, 4, 1), (4, 0, 2), (12, 10, 4)]
+
+
+def _rand_tables(rng, n, m):
+    """tests/test_triplet.py's tables."""
+    mu1 = np.zeros((n + 1, m + 1), dtype=np.int32)
+    mu2 = np.zeros((n + 1, m + 1), dtype=np.int32)
+    mu1[1:, 1:] = rng.integers(-400, 900, size=(n, m))
+    mu2[1:, 1:] = rng.integers(-400, 900, size=(n, m))
+    return mu1, mu2
+
+
+def _band(n, m, S):
+    """The cells (i, j, k) with |k - j| <= S, as a mask of the oracle's
+    layout."""
+    j = np.arange(m + 1)[:, None]
+    k = np.arange(m + 1)[None, :]
+    return np.broadcast_to(np.abs(k - j) <= S, (n + 1, m + 1, m + 1))
+
+
+@pytest.mark.parametrize("n,m,S", SHAPES)
+def test_fill_torch_equals_fill_xla_and_the_oracle(n, m, S):
+    rng = np.random.default_rng(n * 31 + m * 7 + S)
+    mu1, mu2 = _rand_tables(rng, n, m)
+    got = T.fill_torch(mu1, mu2, S, -200, -250, device="cpu")
+    want = J.fill_oracle(mu1, mu2, S, -200, -250)
+    band = _band(n, m, S)
+    assert np.array_equal(got[band], want[band])
+    assert np.array_equal(got, J.fill_xla(mu1, mu2, S, -200, -250))
+    assert np.array_equal(T.fill_oracle(mu1, mu2, S, -200, -250), want)
+
+
+RNA = ("GCGGGGGAUAUCCCCAUCG", "GGGGAUAUCCCCAUCG",
+       "...(((.....))).....", ".(((.....)))....")
+SMALL = ("ACGGCU", "ACGCU", "((..))", "((.))")
+RNA_PARAMS = dict(type="RNA", structure_weight=400, gap_cost=-200,
+                  shift_cost=-250)
+
+
+def _outputs(ba):
+    score = ba.optimize()
+    trace = ba.traceback()
+    return (score, trace, ba.decode_trace(trace),
+            ba.decode_trace(trace, show_structures=True),
+            list(ba.eval_trace(trace)))
+
+
+@pytest.mark.parametrize("engine", ["numpy", "torch"])
+def test_triplet_end_to_end_as_jax(engine):
+    """tests/test_triplet.py::test_triplet_end_to_end, through both engines
+    of the port, against the JAX class."""
+    kw = dict(RNA_PARAMS, max_shift=2)
+    dev = {} if engine == "numpy" else dict(device="cpu")
+    got = _outputs(T.BiAlignerTriplet(*RNA, engine=engine, **dev, **kw))
+    assert got == _outputs(J.BiAlignerTriplet(*RNA, **kw))
+    score, trace, rows, rows6, lines = got
+    assert [sum(t[s] for t in trace) for s in range(3)] == [19, 16, 16]
+    assert len(rows) == 3 and len({len(r) for r in rows}) == 1
+    assert rows[0].replace("-", "") == RNA[0]
+    assert rows[1].replace("-", "") == RNA[1]
+    assert len(rows6) == 6
+    assert len(lines) == len(trace) and lines[-1].endswith(str(score))
+
+
+def test_triplet_torch_engine_as_the_xla_engine():
+    """tests/test_triplet.py::test_triplet_xla_engine_end_to_end: the
+    port's torch engine against the JAX xla and numpy engines."""
+    kw = dict(RNA_PARAMS, max_shift=1)
+    got = _outputs(T.BiAlignerTriplet(*SMALL, engine="torch", device="cpu",
+                                      **kw))
+    assert got == _outputs(J.BiAlignerTriplet(*SMALL, engine="xla", **kw))
+    assert got == _outputs(J.BiAlignerTriplet(*SMALL, engine="numpy", **kw))
+
+
+def test_triplet_unknown_engine_is_refused():
+    with pytest.raises(ValueError, match="engine"):
+        T.BiAlignerTriplet(*SMALL, engine="xla", **RNA_PARAMS)
