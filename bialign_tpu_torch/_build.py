@@ -68,6 +68,15 @@ _SIGNATURES = {
     # stream
     "bialign_walk_affine_block": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
     "bialign_walk_nonaffine_block": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    # shards (host table [K, 8]), K, cases, n, m, S (csrc/seqsplit.cu)
+    "bialign_seqsplit_score_affine": [_P, _I, _P] + [_I] * 3,
+    "bialign_seqsplit_score_nonaffine": [_P, _I, _P] + [_I] * 3,
+    # ... and C
+    "bialign_seqsplit_ckpt_affine": [_P, _I, _P] + [_I] * 4,
+    "bialign_seqsplit_ckpt_nonaffine": [_P, _I, _P] + [_I] * 4,
+    # ... and d0, C
+    "bialign_seqsplit_block_affine": [_P, _I, _P] + [_I] * 5,
+    "bialign_seqsplit_block_nonaffine": [_P, _I, _P] + [_I] * 5,
     # next, hops, sink, device, stream (csrc/probe.cu, for chip_smoke.py)
     "bialign_probe_chase": [_P, _I, _P, _I, _P],
 }
@@ -158,21 +167,28 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call library function ``name`` on ``device``'s current stream.
+def call(name: str, *args) -> None:
+    """Call library function ``name``.
 
     ``args`` are tensors (passed as their data pointers), None (a null
-    pointer) and ints, in the order of the C signature; the device index and
-    the stream are appended.  Raises when the function reports a CUDA error.
+    pointer), ints and ctypes values, in the order of the C signature.
+    Raises when the function reports a CUDA error.
     """
     lib = load()
     cargs = [
         _P(a.data_ptr()) if isinstance(a, torch.Tensor)
-        else _P(None) if a is None else _I(a)
+        else _P(None) if a is None
+        else a if isinstance(a, (_P, _I)) else _I(a)
         for a in args
     ]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, name)(*cargs, _I(device.index), _P(stream))
+    err = getattr(lib, name)(*cargs)
     if err:
         msg = lib.bialign_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call library function ``name`` on ``device``'s current stream, as
+    :func:`call`; the device index and the stream are appended."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    call(name, *args, device.index, _P(stream))

@@ -10,8 +10,11 @@ device (:mod:`bialign_tpu_torch.ops.device_traceback`) and the host decode
 a checkpointed one (:mod:`bialign_tpu_torch.ops.checkpoint_dp`): the fill
 keeps two slabs every ``checkpoint_block`` diagonals and the traceback
 recomputes the band block by block, for pairs whose band the device cannot
-hold; score, trace and lines are the band path's.  Nothing is imported
-from ``bialign_tpu``.
+hold; score, trace and lines are the band path's.  With
+``seqsplit_mesh=`` (a :class:`~bialign_tpu_torch.parallel.mesh.Mesh`) the
+pair's rows are split over the devices of its axis ``seqsplit_axis``
+(:mod:`bialign_tpu_torch.parallel.seqsplit`), checkpointed the same way,
+whatever ``lowmem`` says.  Nothing is imported from ``bialign_tpu``.
 
 Engines (``engine=``; the device is explicit, ``device=``):
 
@@ -24,10 +27,8 @@ Tables and costs that fail the int32 check
 engine whichever engine was asked for, with a ``RuntimeWarning``, as the
 JAX package does: the plain recurrence at int64 on the aligner's device
 (``cuda_dp.fill_*_plain(dtype=torch.int64)``, a full band also with
-``lowmem=True``), the host walk and the decode on that band.
-
-Not in this port yet, and refused with ``NotImplementedError`` rather than
-run some other way: ``seqsplit_mesh`` (ROADMAP P15).
+``lowmem=True`` or ``seqsplit_mesh``), the host walk and the decode on that
+band.
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ PARAM_DEFAULTS = {
     # diagonals (None: sqrt(2 (n+m+1))), blocks recomputed in the traceback
     "lowmem": False,
     "checkpoint_block": None,
-    # a mode of the JAX package that the port refuses until it is ported
+    # the sequence split: one pair's rows over the devices of a mesh axis
+    # (parallel/seqsplit.py); implies the checkpointed band and traceback
     "seqsplit_mesh": None,
     "seqsplit_axis": "sp",
 }
@@ -144,11 +146,6 @@ class BiAligner:
     # -- fill, score, walk -------------------------------------------------
 
     def _fill(self):
-        if self._params.get("seqsplit_mesh") is not None:
-            raise NotImplementedError(
-                "seqsplit_mesh (one pair over several devices) is not "
-                "ported yet: ROADMAP.md Queue 1 P15"
-            )
         costs = ((self.beta, self.gamma, self.delta) if self._affine
                  else (self.gamma, self.delta))
         if not check_int32_safe(self.mu1, self.mu2, self._params):
@@ -167,6 +164,18 @@ class BiAligner:
             self._band = fill(mu1, mu2, self.max_shift, *costs,
                               dtype=torch.int64)
             self._int64 = True
+            return
+        if self._params.get("seqsplit_mesh") is not None:
+            from .parallel.seqsplit import fill_seqsplit
+
+            self._band = fill_seqsplit(
+                self.mu1, self.mu2, self.max_shift, costs,
+                mesh=self._params["seqsplit_mesh"],
+                axis=self._params.get("seqsplit_axis", "sp"),
+                affine=self._affine,
+                block=self._params.get("checkpoint_block") or None,
+                engine=self._engine)
+            self._mu1_t, self._mu2_t = self._band.mu1, self._band.mu2
             return
         mu1, mu2 = tables_to_torch(self.mu1, self.mu2, self.device)
         self._mu1_t, self._mu2_t = mu1, mu2

@@ -80,8 +80,8 @@ __device__ __forceinline__ void pair_tile(
   const int i0 = max(0, d - m) + tile * R;
   const int i1 = min(min(n, d), i0 + R - 1);
   if (i0 > i1) return;
-  fill_tile<Tile, kS, kRing>(smem, own, mu1, mu2, cs, n, m, M + 1, N + 1, S,
-                             d, i0, i1);
+  fill_tile<Tile, kS, kRing>(smem, own, mu1, mu2, cs, n, m, M + 1, N + 1, 0,
+                             S, d, i0, i1);
   if (d == n + m) {                 // the one tile, rows n..n
     __syncthreads();
     if (threadIdx.x == 0)

@@ -21,9 +21,11 @@
 // Where the slabs live: `slabs` is slab 0 of the pair, P its rows per line,
 // and diagonal d is slab d of a band [n+m+1, (9,) W, W, P] (kRing = false;
 // also a block's window, whose base the caller moves back) or slab d % 3 of
-// a ring [3, (9,) W, W, P] (kRing = true).  A slab is addressed by one
-// 64-bit base and 32-bit offsets inside it (the launcher refuses a slab of
-// 2^31 values or more).
+// a ring [3, (9,) W, W, P] (kRing = true).  A line holds rows row0 ..
+// row0 + P - 1, row i at i - row0: the whole pair (row0 = 0, P = n + 1), or
+// one row shard of the sequence split with its halo row in front
+// (csrc/seqsplit.cu).  A slab is addressed by one 64-bit base and 32-bit
+// offsets inside it (the launcher refuses a slab of 2^31 values or more).
 //
 // Design, for an H100 (132 SMs, 227 KB of shared memory a CTA, 50 MB L2).
 // One launch a diagonal; CTA x takes the R consecutive live rows from
@@ -254,12 +256,13 @@ struct NonaffineTile {
 // Rows i0..i1 (at most R of them, all live on diagonal d) of one pair's
 // diagonal d, by the whole CTA.  `smem`: tile_geometry<Tile>(S).bytes of
 // shared memory.  `mu1`, `mu2`: the pair's tables, rows `ld` apart (the
-// pair's own or its plane of a bucket's stack).
+// pair's own or its plane of a bucket's stack).  The slabs' lines hold rows
+// row0 .. row0 + P - 1; rows i0 - 1 .. i1 must lie among them.
 template <class Tile, int kS, bool kRing>
 __device__ __forceinline__ void fill_tile(
     int32_t* smem, int32_t* slabs, const int32_t* __restrict__ mu1,
     const int32_t* __restrict__ mu2, const typename Tile::Consts& cs, int n,
-    int m, int ld, int P, int S_arg, int d, int i0, int i1) {
+    int m, int ld, int P, int row0, int S_arg, int d, int i0, int i1) {
   constexpr int R = Tile::rows(kS);
   constexpr int R1 = R + 1;
   const int S = kS >= 0 ? kS : S_arg;
@@ -283,7 +286,8 @@ __device__ __forceinline__ void fill_tile(
     if (dd >= 0 && row >= 0 && row <= last)
       __pipeline_memcpy_async(prev + x,
                               slabs + slab_of<kRing>(dd) * slab +
-                                  static_cast<unsigned>(cell * P + row),
+                                  static_cast<unsigned>(cell * P + row -
+                                                        row0),
                               sizeof(int32_t));
   }
   for (int x = threadIdx.x; x < W2 * R; x += Tile::kThreads) {
@@ -347,21 +351,23 @@ __device__ __forceinline__ void fill_tile(
   for (int x = threadIdx.x; x < cells * R; x += Tile::kThreads) {
     const int r = x % R, cell = x / R;
     if (i0 + r <= i1)
-      out[static_cast<unsigned>(cell * P + i0 + r)] = unmask(tile[x]);
+      out[static_cast<unsigned>(cell * P + i0 + r - row0)] = unmask(tile[x]);
   }
 }
 
+// Rows lo..hi of diagonal d, R a CTA, on slabs whose lines hold rows row0 ..
+// row0 + P - 1.
 template <class Tile, int kS, bool kRing>
 __global__ void __launch_bounds__(Tile::kThreads)
     tile_diag(int32_t* slabs, const int32_t* __restrict__ mu1,
               const int32_t* __restrict__ mu2,
               const __grid_constant__ typename Tile::Consts cs, int n, int m,
-              int S, int d, int lo, int hi) {
+              int S, int d, int lo, int hi, int P, int row0) {
   extern __shared__ int32_t smem[];
   constexpr int R = Tile::rows(kS);
   const int i0 = lo + blockIdx.x * R;
-  fill_tile<Tile, kS, kRing>(smem, slabs, mu1, mu2, cs, n, m, m + 1, n + 1, S,
-                             d, i0, min(hi, i0 + R - 1));
+  fill_tile<Tile, kS, kRing>(smem, slabs, mu1, mu2, cs, n, m, m + 1, P, row0,
+                             S, d, i0, min(hi, i0 + R - 1));
 }
 
 // The one geometry of a launch: rows a CTA, threads, shared bytes.
@@ -417,23 +423,33 @@ auto with_shift(int S, F&& f) {
   }
 }
 
-// Diagonal d of one pair.
+// Rows lo..hi (lo <= hi) of one pair's diagonal d, on slabs of lines of P
+// rows from row0.
+template <class Tile, bool kRing>
+cudaError_t launch_rows(int32_t* slabs, const int32_t* mu1,
+                        const int32_t* mu2, const typename Tile::Consts& cs,
+                        int n, int m, int S, int d, int lo, int hi, int P,
+                        int row0, cudaStream_t st) {
+  return with_shift(S, [&](auto shift) {
+    const auto kernel = tile_diag<Tile, decltype(shift)::value, kRing>;
+    const TileGeometry g = tile_geometry<Tile>(S);
+    const cudaError_t err = tile_ready(kernel, g, slab_values<Tile>(P, S));
+    if (err != cudaSuccess) return err;
+    kernel<<<(hi - lo + g.rows) / g.rows, g.threads, g.bytes, st>>>(
+        slabs, mu1, mu2, cs, n, m, S, d, lo, hi, P, row0);
+    return cudaGetLastError();
+  });
+}
+
+// Diagonal d of one pair, its slabs' lines the whole pair's n + 1 rows.
 template <class Tile, bool kRing>
 cudaError_t launch_diagonal(int32_t* slabs, const int32_t* mu1,
                             const int32_t* mu2,
                             const typename Tile::Consts& cs, int n, int m,
                             int S, int d, cudaStream_t st) {
-  return with_shift(S, [&](auto shift) {
-    const auto kernel = tile_diag<Tile, decltype(shift)::value, kRing>;
-    const TileGeometry g = tile_geometry<Tile>(S);
-    const cudaError_t err =
-        tile_ready(kernel, g, slab_values<Tile>(n + 1, S));
-    if (err != cudaSuccess) return err;
-    const int lo = std::max(0, d - m), hi = std::min(n, d);
-    kernel<<<(hi - lo + g.rows) / g.rows, g.threads, g.bytes, st>>>(
-        slabs, mu1, mu2, cs, n, m, S, d, lo, hi);
-    return cudaGetLastError();
-  });
+  return launch_rows<Tile, kRing>(slabs, mu1, mu2, cs, n, m, S, d,
+                                  std::max(0, d - m), std::min(n, d), n + 1,
+                                  0, st);
 }
 
 // The constant terms as the host passed them, one int32 array.

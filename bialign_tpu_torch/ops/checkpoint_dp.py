@@ -120,6 +120,11 @@ class CheckpointBand:
         return (self.n + self.m) // self.block + 1
 
     @property
+    def device(self) -> torch.device:
+        """Where windows are recomputed and walked: the tables' device."""
+        return self.mu1.device
+
+    @property
     def window_shape(self) -> tuple:
         """``[C+2, (9,) W, W, n+1]``, C no more than the band's diagonals."""
         return (min(self.block, self.n + self.m + 1) + 2,
@@ -131,6 +136,11 @@ class CheckpointBand:
         if self.affine:
             return int(self.final[:, S, S, n].max())
         return int(self.final[S, S, n])
+
+    def _check_ckpts(self) -> None:
+        _check_ring(self.ckpts, _ckpts_shape(self.mu1, self.max_shift,
+                                             self.affine, self.block),
+                    self.mu1, "ckpts")
 
     def _recompute(self, b: int, *, plain: bool = False, window=None):
         """The window of block b; ``plain``: through the twin."""
@@ -146,7 +156,7 @@ class CheckpointBand:
         otherwise): each touched block is recomputed once into one window
         and its cells gathered there, on the device."""
         idx = np.asarray(idxs, dtype=np.int64)
-        dev = self.ckpts.device
+        dev = self.device
         S, C = self.max_shift, self.block
         blocks = (idx[:, -4] + idx[:, -3]) // C
         out = torch.empty(len(idx), dtype=torch.int32, device=dev)
@@ -189,8 +199,7 @@ def _check_band(cb: CheckpointBand, affine: bool, params=None) -> None:
         raise ValueError(f"costs {tuple(params)} are not the band's "
                          f"{tuple(cb.params)}")
     _check_tables(cb.mu1, cb.mu2, cb.max_shift)
-    _check_ring(cb.ckpts, _ckpts_shape(cb.mu1, cb.max_shift, affine,
-                                       cb.block), cb.mu1, "ckpts")
+    cb._check_ckpts()
 
 
 def _check_block(cb: CheckpointBand, b: int) -> None:
@@ -315,7 +324,7 @@ def affine_block(cb: CheckpointBand, b: int, *, window=None) -> torch.Tensor:
     uninitialised); only the live rows of the block's diagonals and the two
     checkpoint slabs are written."""
     _check_band(cb, True)
-    if cb.ckpts.device.type == "cpu":
+    if cb.device.type == "cpu":
         return affine_block_plain(cb, b, window=window)
     return _block_kernel("block_affine", cb, b, window)
 
@@ -325,14 +334,21 @@ def nonaffine_block(cb: CheckpointBand, b: int, *,
     """The window ``[C+2, W, W, n+1]`` of block b of a non-affine
     checkpointed band (K12); as :func:`affine_block`."""
     _check_band(cb, False)
-    if cb.ckpts.device.type == "cpu":
+    if cb.device.type == "cpu":
         return nonaffine_block_plain(cb, b, window=window)
     return _block_kernel("block_nonaffine", cb, b, window)
 
 
+def _check_one_device(cb: CheckpointBand) -> None:
+    if not isinstance(cb.ckpts, torch.Tensor):
+        raise TypeError("the blocks of a band sharded over devices are "
+                        "recomputed by its own _recompute")
+
+
 def _block_kernel(name, cb: CheckpointBand, b: int, window):
     _check_block(cb, b)
-    dev = cb.ckpts.device
+    _check_one_device(cb)
+    dev = cb.device
     shape = cb.window_shape
     _check_ring(window, shape, cb.mu1, "window")
     if window is None:
@@ -351,11 +367,12 @@ def _block_plain(step, cb: CheckpointBand, b: int, window):
     stay as they are), then diagonal d0 + x reads slabs x + 1 and x and
     writes the live rows of slab x + 2."""
     _check_block(cb, b)
+    _check_one_device(cb)
     shape = cb.window_shape
     _check_ring(window, shape, cb.mu1, "window")
     if window is None:
         window = torch.full(shape, INVALID, dtype=torch.int32,
-                            device=cb.ckpts.device)
+                            device=cb.device)
     d0 = b * cb.block
     if b:
         window[0] = cb.ckpts[b, 1]
@@ -388,7 +405,7 @@ def new_walk(cb: CheckpointBand, device=None) -> torch.Tensor:
     first), all zero until the walk of the last block sets it up."""
     return torch.zeros(STATE + _HEADER + walk_capacity(cb.n, cb.m),
                        dtype=torch.int32,
-                       device=cb.ckpts.device if device is None else device)
+                       device=cb.device if device is None else device)
 
 
 def _check_walk(cb: CheckpointBand, b: int, window, walk, device) -> None:
@@ -504,12 +521,13 @@ def nonaffine_block_walk_plain(cb: CheckpointBand, b: int, window,
 
 # -- the blockwise traceback -------------------------------------------------
 
-def _traceback(cb: CheckpointBand, block_fn, walk_fn, walk):
-    """Queue every block's fill and walk, last block first, over one window;
-    then fetch ``walk`` in one copy.  Returns (codes, done, state)."""
+def _traceback(cb: CheckpointBand, plain: bool, walk_fn, walk):
+    """Queue every block's fill (``cb._recompute``; ``plain``: through the
+    twins) and walk, last block first, over one window; then fetch ``walk``
+    in one copy.  Returns (codes, done, state)."""
     window = None
     for b in range(cb.n_blocks - 1, -1, -1):
-        window = block_fn(cb, b, window=window)
+        window = cb._recompute(b, plain=plain, window=window)
         walk_fn(cb, b, window, walk)
     res = walk.cpu().numpy()
     steps, done = int(res[STATE]), int(res[STATE + 1])
@@ -541,9 +559,9 @@ def affine_traceback(cb: CheckpointBand, beta, gamma, delta):
     host round trip between blocks, one copy back), the plain twins for one
     on the CPU."""
     _check_band(cb, True, (beta, gamma, delta))
-    if cb.ckpts.device.type == "cpu":
+    if cb.device.type == "cpu":
         return affine_traceback_plain(cb, beta, gamma, delta)
-    return _affine_result(*_traceback(cb, affine_block, affine_block_walk,
+    return _affine_result(*_traceback(cb, False, affine_block_walk,
                                       new_walk(cb)))
 
 
@@ -551,10 +569,10 @@ def nonaffine_traceback(cb: CheckpointBand, gamma, delta):
     """Blockwise non-affine traceback (the forward trace); as
     :func:`affine_traceback`."""
     _check_band(cb, False, (gamma, delta))
-    if cb.ckpts.device.type == "cpu":
+    if cb.device.type == "cpu":
         return nonaffine_traceback_plain(cb, gamma, delta)
-    return _nonaffine_result(*_traceback(cb, nonaffine_block,
-                                         nonaffine_block_walk, new_walk(cb)))
+    return _nonaffine_result(*_traceback(cb, False, nonaffine_block_walk,
+                                         new_walk(cb)))
 
 
 def affine_traceback_plain(cb: CheckpointBand, beta, gamma, delta):
@@ -562,13 +580,11 @@ def affine_traceback_plain(cb: CheckpointBand, beta, gamma, delta):
     band's device; the walk runs on the host."""
     _check_band(cb, True, (beta, gamma, delta))
     return _affine_result(*_traceback(
-        cb, affine_block_plain, affine_block_walk_plain,
-        new_walk(cb, "cpu")))
+        cb, True, affine_block_walk_plain, new_walk(cb, "cpu")))
 
 
 def nonaffine_traceback_plain(cb: CheckpointBand, gamma, delta):
     """The blockwise non-affine traceback through the plain twins."""
     _check_band(cb, False, (gamma, delta))
     return _nonaffine_result(*_traceback(
-        cb, nonaffine_block_plain, nonaffine_block_walk_plain,
-        new_walk(cb, "cpu")))
+        cb, True, nonaffine_block_walk_plain, new_walk(cb, "cpu")))

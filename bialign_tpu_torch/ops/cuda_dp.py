@@ -463,16 +463,27 @@ class _Geometry:
     (:meth:`diag`) the score tables in diagonal layout, 0 outside
     [0, n] x [0, m] (xla_dp._diag_mu_tables).  Nothing here is the size of
     a band.  The tables are ``[n+1, m+1]``, or a stack ``[B, n+1, m+1]``:
-    the slabs then carry the batch axis in front (``batch``)."""
+    the slabs then carry the batch axis in front (``batch``).
 
-    def __init__(self, mu1, mu2, S: int):
+    ``rows=(a, b)``: the slabs of one row shard of the sequence split
+    (:mod:`bialign_tpu_torch.parallel.seqsplit`), P = b - a + 2 rows
+    a-1 .. b, slot 0 the halo row a-1, which is read as row i-1 of row a and
+    never written (it is not live)."""
+
+    def __init__(self, mu1, mu2, S: int, rows=None):
         n, m = mu1.shape[-2] - 1, mu1.shape[-1] - 1
         dev = mu1.device
-        W, P = 2 * S + 1, n + 1
+        a, b = (0, n) if rows is None else rows
+        W = 2 * S + 1
         self.mu1, self.mu2 = mu1, mu2
         self.batch = tuple(mu1.shape[:-2])
         self.n, self.m, self.S, self.W = n, m, S, W
-        i = self.i = torch.arange(P, device=dev)[None, None, :]
+        first = a if rows is None else a - 1
+        self.P = b - first + 1
+        i = self.i = torch.arange(first, b + 1, device=dev)[None, None, :]
+        # the halo row of shard 0 (row -1) reads the tables at row 0
+        self.i_at = i.clamp(min=0)
+        self.owned = None if rows is None else i >= a
         sk = self.sk = torch.arange(W, device=dev)[:, None, None]
         sl = self.sl = torch.arange(W, device=dev)[None, :, None]
         k = self.k = i + sk - S
@@ -491,7 +502,10 @@ class _Geometry:
         j = d - self.i                                        # [1, 1, P]
         l = j + self.sl - self.S                              # [1, W, P]
         live = (j >= 0) & (j <= m)
-        mu1_row = torch.where(live, self.mu1[..., self.i, j.clamp(0, m)], 0)
+        if self.owned is not None:
+            live = live & self.owned
+        mu1_row = torch.where(live, self.mu1[..., self.i_at, j.clamp(0, m)],
+                              0)
         ok = self.k_ok & (l >= 0) & (l <= m)
         mu2_blk = torch.where(
             ok, self.mu2[..., self.k.clamp(0, n), l.clamp(0, m)], 0)
@@ -592,7 +606,7 @@ def _affine_step(g: _Geometry, beta, gamma, delta, dtype=torch.int32):
 
     def step(d, vm1, vm2):
         mu1_row, mu2_blk, j_ge, l_ge, live, protect = g.diag(d)
-        best = torch.empty((*g.batch, Q, W, W, g.n + 1), dtype=dtype,
+        best = torch.empty((*g.batch, Q, W, W, g.P), dtype=dtype,
                            device=dev)
         for q in range(Q):
             a, b, c, e = STATES[q]
@@ -659,7 +673,7 @@ def _nonaffine_step(g: _Geometry, gamma, delta, dtype=torch.int32):
 
     def step(d, vm1, vm2):
         mu1_row, mu2_blk, j_ge, l_ge, live, protect = g.diag(d)
-        best = torch.full((*g.batch, W, W, g.n + 1), invalid, dtype=dtype,
+        best = torch.full((*g.batch, W, W, g.P), invalid, dtype=dtype,
                           device=dev)
         for (x0, x1, x2, x3), const, m1c, m2c, fixed in external:
             pred = vm1 if x0 + x1 == 1 else vm2

@@ -1,11 +1,12 @@
-"""Scaling over independent pairs: batched scores and alignments, and the
-streaming driver.
+"""Scaling over independent pairs and over devices: batched scores and
+alignments, the streaming driver, and the sequence split of one pair.
 
 Counterpart of :mod:`bialign_tpu.parallel`: the batched scores and
-alignments, from tables and from codes (:mod:`.batch`), and the streaming
-driver with its batch CLI (:mod:`.driver`, :mod:`.batch_cli`) are ported;
-the sequence split (``seqsplit``) and ``mesh=`` are not yet (ROADMAP.md
-Queue 1 P15).
+alignments, from tables and from codes (:mod:`.batch`), with ``mesh=``
+sharding the buckets over the devices of a :class:`Mesh` (:mod:`.mesh`);
+the streaming driver with its batch CLI (:mod:`.driver`, :mod:`.batch_cli`);
+and the sequence split, one pair's rows over the devices of a mesh axis
+(:mod:`.seqsplit`).
 """
 
 from .batch import (
@@ -31,8 +32,11 @@ from .driver import (
     trace_from_codes,
     trace_to_codes,
 )
+from .mesh import Mesh
+from .seqsplit import SeqsplitBand, fill_seqsplit, score_seqsplit
 
 __all__ = [
+    "Mesh",
     "PairRecord",
     "PendingAlignments",
     "PendingScores",
@@ -45,11 +49,14 @@ __all__ = [
     "dispatch_score_batch",
     "dispatch_score_batch_codes",
     "encode_pair",
+    "fill_seqsplit",
     "init_distributed",
     "make_buckets_dense",
     "match_mismatch_lut",
     "merge_spools",
     "score_batch",
+    "score_seqsplit",
+    "SeqsplitBand",
     "trace_from_codes",
     "trace_to_codes",
 ]

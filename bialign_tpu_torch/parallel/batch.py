@@ -29,8 +29,16 @@ bytes each, and the tables are built on the device from a 256 x 256 table
 
 ``engine="cuda"`` runs the CUDA kernels and needs a CUDA device;
 ``engine="torch"`` runs their plain PyTorch twins on any device.  Neither
-gives way to the other.  Not ported yet: a device mesh (``mesh=``, ROADMAP.md
-Queue 1 P15).
+gives way to the other.
+
+``mesh=`` (a :class:`~bialign_tpu_torch.parallel.mesh.Mesh`; ``device`` is
+then not used) shards every bucket over the devices of its axis ``"data"``:
+the bucket's pairs are dealt out in contiguous shards, as even as they
+divide, one a device (a shard of no pair is skipped, so a mesh larger than
+a bucket is legal).  Each shard is uploaded, filled and walked on its
+device, on a stream of its own, by the same kernels and routes as one
+device's bucket; scores, traces and flags come back in input order.  Pairs
+never talk to each other, so no collective is needed.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 from ..ops import cuda_dp
 from ..ops import device_traceback as dtb
 from ..ops.cases import N_STATES
+from .mesh import joined, mesh_devices, shard_stream, split, using
 
 ENGINES = ("cuda", "torch")
 
@@ -157,22 +166,39 @@ def _require_int32_safe(tables, params, affine: bool):
             )
 
 
-def _resolve(engine: str, device, mesh) -> torch.device:
-    """Check the engine, the device and the mesh of a call; the device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a batch sharded over several devices) is not ported "
-            "yet: ROADMAP.md Queue 1 P15")
+def _resolve(engine: str, device, mesh) -> list:
+    """Check the engine and the devices of a call: ``[device]``, or the
+    devices of ``mesh``'s axis "data", each held to the engine as a single
+    device is; returns them."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    device = torch.device(device)
-    if engine == "cuda" and (device.type != "cuda"
-                             or not torch.cuda.is_available()):
-        raise RuntimeError(
-            f"engine='cuda' needs a CUDA device, got device={str(device)!r} "
-            f"(CUDA available: {torch.cuda.is_available()}); "
-            "engine='torch' runs the plain PyTorch twins on any device")
-    return device
+    devices = ([torch.device(device)] if mesh is None
+               else [torch.device(d) for d in mesh_devices(mesh, "data")])
+    for dev in devices:
+        if engine == "cuda" and (dev.type != "cuda"
+                                 or not torch.cuda.is_available()):
+            raise RuntimeError(
+                f"engine='cuda' needs a CUDA device, got device="
+                f"{str(dev)!r} (CUDA available: "
+                f"{torch.cuda.is_available()}); engine='torch' runs the "
+                "plain PyTorch twins on any device")
+    return devices
+
+
+def _places(devices, mesh) -> list:
+    """(device, stream) of each shard of a call: one device's current
+    stream (None) without a mesh, else a stream a shard on a CUDA device."""
+    if mesh is None:
+        return [(devices[0], None)]
+    return [(dev, shard_stream(dev)) for dev in devices]
+
+
+def _shards_of(b: "Bucket", places) -> list:
+    """(rows, device, stream) of each shard of a bucket: its pairs dealt
+    out in contiguous slices, as even as they divide; empty ones left
+    out."""
+    return [(slice(lo, hi), dev, stream) for (dev, stream), (lo, hi)
+            in zip(places, split(len(b.indices), len(places))) if hi > lo]
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -189,19 +215,35 @@ def _last_diagonal(b: Bucket, rows: slice = slice(None)) -> int:
     return max(n + m for n, m in zip(b.n[rows], b.m[rows]))
 
 
-def _upload_tables(b: Bucket, device: torch.device) -> tuple:
-    """(mu1p, mu2p, ns, ms) of a bucket of tables on ``device``."""
-    stacks = (stack_padded(b.mu1d, b.N, b.M), stack_padded(b.mu2d, b.N, b.M),
-              np.asarray(b.n, dtype=np.int32),
-              np.asarray(b.m, dtype=np.int32))
+def _upload_tables(b: Bucket, device: torch.device,
+                   rows: slice = slice(None)) -> tuple:
+    """(mu1p, mu2p, ns, ms) of the pairs ``rows`` of a bucket of tables on
+    ``device``."""
+    stacks = (stack_padded(b.mu1d[rows], b.N, b.M),
+              stack_padded(b.mu2d[rows], b.N, b.M),
+              np.asarray(b.n[rows], dtype=np.int32),
+              np.asarray(b.m[rows], dtype=np.int32))
     return tuple(_to_device(x, device) for x in stacks)
 
 
 def _device_buckets(tables, bucket_quantum: int, device: torch.device):
-    """[(indices, (mu1p, mu2p, ns, ms) on ``device``, d_max)] per bucket;
-    d_max is the bucket's largest n + m, its last diagonal."""
-    return [(b.indices, _upload_tables(b, device), _last_diagonal(b))
-            for b in make_buckets_dense(tables, bucket_quantum).values()]
+    """[(indices, (mu1p, mu2p, ns, ms) on ``device``, d_max)] per bucket
+    of one device."""
+    return [(indices, stacks, d_max) for indices, stacks, d_max, _place
+            in _shard_buckets(tables, bucket_quantum, [(device, None)])]
+
+
+def _shard_buckets(tables, bucket_quantum: int, places) -> list:
+    """[(indices, (mu1p, mu2p, ns, ms), d_max, (device, stream))] per shard
+    of each bucket, uploaded on its stream; d_max is the shard's largest
+    n + m, its last diagonal.  Queue under ``joined(places)``."""
+    out = []
+    for b in make_buckets_dense(tables, bucket_quantum).values():
+        for rows, dev, stream in _shards_of(b, places):
+            with using(stream):
+                out.append((b.indices[rows], _upload_tables(b, dev, rows),
+                            _last_diagonal(b, rows), (dev, stream)))
+    return out
 
 
 def _bucket_scores(stacks, d_max: int, max_shift: int, params, affine: bool,
@@ -241,8 +283,11 @@ class PendingScores:
         if not self._parts:
             return out
         # one copy over all buckets: each copy back is a round trip that
-        # waits for the device
-        fetched = torch.cat([dev for _, dev in self._parts]).cpu().numpy()
+        # waits for the device (the shards of a mesh gathered on the first
+        # one's device first)
+        first = self._parts[0][1].device
+        fetched = torch.cat([dev.to(first) for _, dev in self._parts]) \
+            .cpu().numpy()
         order = np.concatenate([np.asarray(indices, dtype=np.int64)
                                 for indices, _ in self._parts])
         out[order] = fetched
@@ -258,16 +303,25 @@ def dispatch_score_batch(tables, max_shift: int, params, *, affine: bool,
     Same arguments/semantics as :func:`score_batch`; returns a
     :class:`PendingScores` instead of the assembled array.
     """
-    device = _resolve(engine, device, mesh)
+    places = _places(_resolve(engine, device, mesh), mesh)
     tables = list(tables)
     _require_int32_safe(tables, params, affine)
-    parts = [
-        (indices, _bucket_scores(stacks, d_max, max_shift, tuple(params),
-                                 affine, engine))
-        for indices, stacks, d_max in _device_buckets(tables, bucket_quantum,
-                                                      device)
-    ]
+    with joined(places):
+        parts = _dispatch_scores(
+            _shard_buckets(tables, bucket_quantum, places), max_shift,
+            tuple(params), affine, engine)
     return PendingScores(len(tables), parts)
+
+
+def _dispatch_scores(buckets, max_shift, params, affine, engine) -> list:
+    """Queue the scores of every shard of ``_shard_buckets`` on its
+    stream; [(indices, device scores)]."""
+    parts = []
+    for indices, stacks, d_max, (_dev, stream) in buckets:
+        with using(stream):
+            parts.append((indices, _bucket_scores(
+                stacks, d_max, max_shift, params, affine, engine)))
+    return parts
 
 
 def score_batch(tables, max_shift: int, params, *, affine: bool, mesh=None,
@@ -278,7 +332,9 @@ def score_batch(tables, max_shift: int, params, *, affine: bool, mesh=None,
     ``tables``: (mu1, mu2) int arrays of shape (n+1, m+1) per pair.
     ``params``: (beta, gamma, delta) for affine, (gamma, delta) otherwise.
     ``engine``: "cuda" (the CUDA kernels, on a CUDA ``device``) or "torch"
-    (their plain PyTorch twins, on any device).  ``mesh`` is not ported.
+    (their plain PyTorch twins, on any device).  ``mesh``: a
+    :class:`~bialign_tpu_torch.parallel.mesh.Mesh` whose axis "data" the
+    buckets are sharded over, in place of ``device``.
 
     ``tables`` may also be a :class:`PreparedBatch` (device-resident
     buckets built once): scoring then skips the bucket rebuild and the
@@ -345,8 +401,9 @@ class PendingAlignments:
         if not self._parts:
             return scores, traces, complete
         # one copy back for all chunks (see PendingScores.get)
-        flat = torch.cat([dev.reshape(-1) for _, _, dev in self._parts]) \
-            .cpu().numpy()
+        first = self._parts[0][2].device
+        flat = torch.cat([dev.reshape(-1).to(first)
+                          for _, _, dev in self._parts]).cpu().numpy()
         at = 0
         for idxs, affine, dev in self._parts:
             walks = dtb.unpack_walks(
@@ -376,22 +433,29 @@ def _auto_chunk(N: int, M: int, max_shift: int, affine: bool,
     return max(1, min(1024, budget // per_pair))
 
 
-def _dispatch_chunks(buckets, upload, planes, max_shift, params, affine,
-                     chunk, engine) -> list:
-    """Queue the fill and walk of every chunk of every bucket.  ``buckets``:
-    {(N, M): Bucket}; ``upload(bucket)`` puts a bucket's inputs on the
-    device once; ``planes(inputs, rows)`` gives the stacks (mu1p, mu2p, ns,
-    ms) of the chunk ``rows`` of them."""
+def _dispatch_chunks(buckets, upload, planes, places, max_shift, params,
+                     affine, chunk, engine) -> list:
+    """Queue the fill and walk of every chunk of every shard of every
+    bucket, each shard on its device and stream (``places``), chunked
+    there.  ``buckets``: {(N, M): Bucket}; ``upload(bucket, device, rows)``
+    puts the inputs of a bucket's pairs ``rows`` on the device once;
+    ``planes(inputs, rows, device)`` gives the stacks (mu1p, mu2p, ns, ms)
+    of the chunk ``rows`` of them."""
     parts = []
-    for (N, M), b in buckets.items():
-        bchunk = (_auto_chunk(N, M, max_shift, affine) if chunk is None
-                  else chunk)
-        inputs = upload(b)
-        for lo in range(0, len(b.indices), bchunk):
-            rows = slice(lo, lo + bchunk)
-            dev = _fill_walk(planes(inputs, rows), _last_diagonal(b, rows),
-                             max_shift, params, affine, engine)
-            parts.append((b.indices[rows], affine, dev))
+    with joined(places):
+        for (N, M), b in buckets.items():
+            bchunk = (_auto_chunk(N, M, max_shift, affine) if chunk is None
+                      else chunk)
+            for rows, dev, stream in _shards_of(b, places):
+                with using(stream):
+                    inputs = upload(b, dev, rows)
+                    for lo in range(rows.start, rows.stop, bchunk):
+                        hi = min(lo + bchunk, rows.stop)
+                        here = slice(lo - rows.start, hi - rows.start)
+                        out = _fill_walk(planes(inputs, here, dev),
+                                         _last_diagonal(b, slice(lo, hi)),
+                                         max_shift, params, affine, engine)
+                        parts.append((b.indices[lo:hi], affine, out))
     return parts
 
 
@@ -404,15 +468,14 @@ def dispatch_align_batch(tables, max_shift: int, params, *, affine: bool,
     dispatch order, so peak band memory stays one chunk's worth while the
     caller overlaps host packing of the next batch.  ``chunk=None`` sizes
     chunks per bucket from the band-memory budget (:func:`_auto_chunk`)."""
-    device = _resolve(engine, device, mesh)
+    places = _places(_resolve(engine, device, mesh), mesh)
     tables = list(tables)
     _require_int32_safe(tables, params, affine)
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be at least 1, got {chunk}")
     parts = _dispatch_chunks(
-        make_buckets_dense(tables, bucket_quantum),
-        lambda b: _upload_tables(b, device),
-        lambda stacks, rows: tuple(t[rows] for t in stacks),
+        make_buckets_dense(tables, bucket_quantum), _upload_tables,
+        lambda stacks, rows, _dev: tuple(t[rows] for t in stacks), places,
         max_shift, tuple(params), affine, chunk, engine)
     return PendingAlignments(len(tables), parts)
 
@@ -430,9 +493,9 @@ def align_batch(tables, max_shift: int, params, *, affine: bool, mesh=None,
     walks always complete).
 
     ``chunk`` caps the pairs per dispatch: a chunk's band lives in device
-    memory (B * D * 9 * W^2 * (N+1) int32), so chunking bounds peak memory.
-    ``engine``, ``device`` as in :func:`score_batch`; ``mesh`` is not
-    ported.
+    memory (B * D * 9 * W^2 * (N+1) int32), so chunking bounds peak memory;
+    with a mesh, each device's shard of a bucket is chunked on its own.
+    ``engine``, ``device``, ``mesh`` as in :func:`score_batch`.
     """
     return dispatch_align_batch(
         tables, max_shift, params, affine=affine, mesh=mesh,
@@ -541,21 +604,27 @@ def _code_buckets(pairs, bucket_quantum: int):
     return buckets
 
 
-def _upload_codes(b: Bucket, device: torch.device) -> tuple:
-    """(ca, cb, sa, sb, ns, ms) of a bucket of codes on ``device``."""
-    arrays = (*b.mu1d, np.asarray(b.n, dtype=np.int32),
-              np.asarray(b.m, dtype=np.int32))
+def _upload_codes(b: Bucket, device: torch.device,
+                  rows: slice = slice(None)) -> tuple:
+    """(ca, cb, sa, sb, ns, ms) of the pairs ``rows`` of a bucket of codes
+    on ``device``."""
+    arrays = (*(stack[rows] for stack in b.mu1d),
+              np.asarray(b.n[rows], dtype=np.int32),
+              np.asarray(b.m[rows], dtype=np.int32))
     return tuple(_to_device(x, device) for x in arrays)
 
 
-def _device_lut(lut, device: torch.device) -> torch.Tensor:
+def _device_lut(lut, device: torch.device, devices=()) -> torch.Tensor:
     """The 256 x 256 table on ``device``: a tensor there is used as it is
-    (no copy), a host array goes up."""
+    (no copy), a host array goes up; a tensor on another of the call's
+    ``devices`` (a mesh) is copied there."""
     if isinstance(lut, torch.Tensor):
         if lut.device != device and (lut.device.type != device.type
                                      or device.index is not None):
-            raise ValueError(f"lut lies on {lut.device}, the batch runs on "
-                             f"{device}")
+            if lut.device not in devices:
+                raise ValueError(f"lut lies on {lut.device}, the batch runs "
+                                 f"on {device}")
+            return lut.to(device)
         return lut
     host = np.asarray(lut)
     if host.shape != (256, 256) or not np.issubdtype(host.dtype, np.integer):
@@ -566,23 +635,25 @@ def _device_lut(lut, device: torch.device) -> torch.Tensor:
 
 def _codes_setup(pairs, max_shift, params, affine, lut, structure_weight,
                  mesh, bucket_quantum, engine, device):
-    """What both codes dispatchers start with: (pairs, buckets, planes);
-    ``planes(codes, rows)`` builds the stacks of the chunk ``rows`` of a
-    bucket's uploaded codes on the device."""
-    device = _resolve(engine, device, mesh)
+    """What both codes dispatchers start with: (pairs, buckets, planes,
+    places); ``planes(codes, rows, device)`` builds the stacks of the chunk
+    ``rows`` of a bucket's uploaded codes on ``device``, the table put
+    there once."""
+    devices = _resolve(engine, device, mesh)
     pairs = list(pairs)
     buckets = _code_buckets(pairs, bucket_quantum)
     _require_int32_safe_codes(lut, structure_weight, buckets, params, affine)
-    lut_d = _device_lut(lut, device)
+    # the table on each device once a call
+    luts = {dev: _device_lut(lut, dev, devices) for dev in devices}
     sw = int(structure_weight)
 
-    def planes(codes, rows=slice(None)):
+    def planes(codes, rows, dev):
         ca, cb, sa, sb, ns, ms = (t[rows] for t in codes)
-        mu1p, mu2p = cuda_dp.mu_planes_from_codes(lut_d, ca, cb, sa, sb, ns,
-                                                  ms, sw)
+        mu1p, mu2p = cuda_dp.mu_planes_from_codes(luts[dev], ca, cb, sa, sb,
+                                                  ns, ms, sw)
         return mu1p, mu2p, ns, ms
 
-    return pairs, buckets, planes, device
+    return pairs, buckets, planes, _places(devices, mesh)
 
 
 def dispatch_score_batch_codes(pairs, max_shift: int, params, *,
@@ -595,15 +666,19 @@ def dispatch_score_batch_codes(pairs, max_shift: int, params, *,
     int32 table, a tensor on ``device`` (used as it is: keep it there across
     calls) or a host array (copied up on every call).  Then the route of
     :func:`score_batch`."""
-    pairs, buckets, planes, device = _codes_setup(
+    pairs, buckets, planes, places = _codes_setup(
         pairs, max_shift, params, affine, lut, structure_weight, mesh,
         bucket_quantum, engine, device)
-    parts = [
-        (b.indices, _bucket_scores(planes(_upload_codes(b, device)),
-                                   _last_diagonal(b), max_shift,
-                                   tuple(params), affine, engine))
-        for b in buckets.values()
-    ]
+    parts = []
+    with joined(places):
+        for b in buckets.values():
+            for rows, dev, stream in _shards_of(b, places):
+                with using(stream):
+                    stacks = planes(_upload_codes(b, dev, rows), slice(None),
+                                    dev)
+                    parts.append((b.indices[rows], _bucket_scores(
+                        stacks, _last_diagonal(b, rows), max_shift,
+                        tuple(params), affine, engine)))
     return PendingScores(len(pairs), parts)
 
 
@@ -615,14 +690,13 @@ def dispatch_align_batch_codes(pairs, max_shift: int, params, *,
                                device="cuda") -> PendingAlignments:
     """Codes-input twin of :func:`dispatch_align_batch`: a chunk's tables
     are built on the device just before its fill."""
-    pairs, buckets, planes, device = _codes_setup(
+    pairs, buckets, planes, places = _codes_setup(
         pairs, max_shift, params, affine, lut, structure_weight, mesh,
         bucket_quantum, engine, device)
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be at least 1, got {chunk}")
-    parts = _dispatch_chunks(
-        buckets, lambda b: _upload_codes(b, device), planes, max_shift,
-        tuple(params), affine, chunk, engine)
+    parts = _dispatch_chunks(buckets, _upload_codes, planes, places,
+                             max_shift, tuple(params), affine, chunk, engine)
     return PendingAlignments(len(pairs), parts)
 
 
@@ -635,13 +709,16 @@ class PreparedBatch:
     ``PreparedBatch`` does the host-side packing and the host->device
     transfer once; :meth:`scores` then runs only the kernels.
 
-    Accepted by :func:`score_batch` in place of ``tables``.
+    Accepted by :func:`score_batch` in place of ``tables``.  With a
+    ``mesh``, each bucket's shards stay resident on their devices.
     """
 
     def __init__(self, tables, max_shift: int, params, *, affine: bool,
                  mesh=None, bucket_quantum: int = 64, engine: str = "cuda",
                  device="cuda"):
-        self.device = _resolve(engine, device, mesh)
+        devices = _resolve(engine, device, mesh)
+        self.device = devices[0]
+        self._places = _places(devices, mesh)
         tables = list(tables)
         _require_int32_safe(tables, params, affine)
         self.max_shift = max_shift
@@ -651,7 +728,9 @@ class PreparedBatch:
         self.bucket_quantum = bucket_quantum
         self.engine = engine
         self.n_pairs = len(tables)
-        self._buckets = _device_buckets(tables, bucket_quantum, self.device)
+        with joined(self._places):
+            self._buckets = _shard_buckets(tables, bucket_quantum,
+                                           self._places)
 
     def check_compatible(self, max_shift: int, params, affine: bool,
                          mesh, *, engine: str = "cuda", device="cuda",
@@ -663,7 +742,8 @@ class PreparedBatch:
         strictness applies to ``engine`` and ``device`` (the prepared
         buckets run the engine and lie on the device they were built for)
         and to an explicit ``bucket_quantum`` that differs from the one the
-        buckets were built with."""
+        buckets were built with.  With a mesh the devices are the mesh's,
+        which the comparison of ``mesh`` covers: ``device`` is not used."""
         got = (max_shift, tuple(params), affine, mesh)
         have = (self.max_shift, self.params, self.affine, self.mesh)
         if got != have:
@@ -672,8 +752,9 @@ class PreparedBatch:
                 f"affine, mesh)={have} but score_batch was called with "
                 f"{got}; rebuild the PreparedBatch for the new settings"
             )
-        if (engine != self.engine
-                or torch.device(device).type != self.device.type):
+        if engine != self.engine or (
+                mesh is None
+                and torch.device(device).type != self.device.type):
             raise ValueError(
                 f"engine={engine!r}, device={str(device)!r} conflicts with "
                 f"a PreparedBatch: its device buckets run engine="
@@ -690,11 +771,9 @@ class PreparedBatch:
 
     def dispatch(self) -> PendingScores:
         """Queue every bucket's kernels; nothing is copied or waited for."""
-        parts = [
-            (indices, _bucket_scores(stacks, d_max, self.max_shift,
-                                     self.params, self.affine, self.engine))
-            for indices, stacks, d_max in self._buckets
-        ]
+        with joined(self._places):
+            parts = _dispatch_scores(self._buckets, self.max_shift,
+                                     self.params, self.affine, self.engine)
         return PendingScores(self.n_pairs, parts)
 
     def scores(self) -> np.ndarray:

@@ -24,10 +24,11 @@ every pair's traceback runs batched on the device
 compact trace codes are spooled with the score (decode with
 :func:`trace_from_codes`).
 
-``engine`` and ``device`` are those of :mod:`.batch`: ``engine="cuda"``
-(default) runs the CUDA kernels and needs a CUDA device, ``"torch"`` their
-plain PyTorch twins on any device.  ``mesh=`` is not ported yet (ROADMAP.md
-Queue 1 P15) and raises ``NotImplementedError``.
+``engine``, ``device`` and ``mesh`` are those of :mod:`.batch`:
+``engine="cuda"`` (default) runs the CUDA kernels and needs a CUDA device,
+``"torch"`` their plain PyTorch twins on any device; ``mesh=`` shards every
+chunk's buckets over the devices of the mesh's axis "data" (the codes
+path's table then on each of them once).
 """
 
 from __future__ import annotations
@@ -129,8 +130,9 @@ class StreamingAligner:
                  engine: str = "cuda", device="cuda"):
         from ..aligner import PARAM_DEFAULTS
 
-        # refuses a mesh, an unknown engine and engine="cuda" off the card
-        self.device = pbatch._resolve(engine, device, mesh)
+        # refuses an unknown engine and engine="cuda" off the card
+        self.device = pbatch._resolve(engine, device, mesh)[0]
+        self.mesh = mesh
         self.engine = engine
         self.params = dict(PARAM_DEFAULTS)
         self.params.update(params)
@@ -269,7 +271,7 @@ class StreamingAligner:
         ``dispatch_seconds``."""
         t0 = time.perf_counter()
         kw = dict(affine=self.affine, bucket_quantum=self.bucket_quantum,
-                  engine=self.engine, device=self.device)
+                  engine=self.engine, device=self.device, mesh=self.mesh)
         if self._codes_lut is not None:
             pairs = [self._encode(r) for r in chunk]
             dispatch = (pbatch.dispatch_align_batch_codes if self.alignments

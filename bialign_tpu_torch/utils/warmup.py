@@ -75,8 +75,8 @@ def prewarm(lengths, *, params, max_shift: int = 2, band: bool = True,
 
     # the device with its index, as the kernels' tensors name it (the key
     # of the case tables' cache)
-    device = torch.empty(0, device=pbatch._resolve(engine, device, None)) \
-        .device
+    device = torch.empty(
+        0, device=pbatch._resolve(engine, device, None)[0]).device
     cuda = engine == "cuda"
     beta = int(params.get("gap_opening_cost", 0))
     gamma = int(params.get("gap_cost", -200))

@@ -8,6 +8,8 @@
     python3 chip_smoke.py --walk-times       # phases 1-2 and the walks' times
     python3 chip_smoke.py --stream-only      # phases 1-2 and the stream,
                                              # its double buffer measured
+    python3 chip_smoke.py --mesh-only        # phases 1-2, the split's
+                                             # kernels and the mesh phase
 
 Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
 package.  Phases, one line each:
@@ -40,7 +42,11 @@ package.  Phases, one line each:
    equal to the twin's in every cell, every block's window equal to what
    the twin's band gives (and to the block twin itself), every block walk's
    state and codes equal to the host walk's over the same window, and the
-   blockwise traceback equal to the full-band device walk.  The walks
+   blockwise traceback equal to the full-band device walk.  The sequence
+   split's six entry points (csrc/seqsplit.cu: score-only, checkpointed
+   and block fills over K row shards, a stream a shard) at K = 1, 2 and 3
+   (a shard of one row at each end), max_shift 0-4, on rings, checkpoints
+   and windows of garbage, every cell equal to their twins'.  The walks
    again on tie-heavy tables (values in {0, +-100}, costs of the same
    grain: many co-optimal cases a step, the first-minimum rule deciding),
    single-pair, block by block and batched, each equal to the host walk
@@ -116,14 +122,28 @@ package.  Phases, one line each:
    memory.  With --stream-only also the alignments serial and
    double-buffered in turns (the share of the host's work the double
    buffer hides);
-6. launch counts of the six paths (the five above and the stream),
-   counted apart, each of which must be > 0;
+   The mesh phase (shards on distinct cards when the host has several,
+   else all on cuda:0, a stream each; the device count and the layout
+   printed): the DNA-Pol-1 pair through BiAligner(seqsplit_mesh=) at K = 2
+   and 4, affine max_shift 1 (761500, the md5 anchors) and the non-affine
+   CLI defaults, each score, line and trace equal to the one-device
+   low-memory path's; score_seqsplit there (equal to affine_score and
+   nonaffine_score) and on the 4000x3990 pair at K = 4; the 64 windows'
+   scores and alignments from tables and from codes over "data" meshes
+   of 2 and 4, and the stream's scores and alignments from codes over a
+   mesh of 2, each equal to one device pair by pair, with the rates of
+   both.  The split's entries at DNA-Pol-1 on 2 shards against their
+   twins on garbage, timed; its fills at K = 1, 2, 4 in turns beside the
+   one-device fills; after phase 7, the halo copies' share of a
+   profiled K = 4 fill;
+6. launch counts of the seven paths (the five above, the stream and the
+   mesh phase), counted apart, each of which must be > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
    (device busy and idle time, per-kernel times; score-only K3 as its one
-   kernel), and last the device's busy time in one double-buffered run of
-   the stream's alignments from codes; traces and report in
-   build/profile/.
+   kernel), the split's K = 4 score-only fill (the halo copies' share),
+   and last the device's busy time in one double-buffered run of the
+   stream's alignments from codes; traces and report in build/profile/.
 
 --tile-times builds, then times the tile kernels K1, K2, K4, K5, K8 and
 K9-K12 alone at the DNA-Pol-1 shapes and on the realistic batch (no
@@ -179,6 +199,13 @@ from bialign_tpu_torch.parallel import batch_cli
 from bialign_tpu_torch.parallel.driver import (PairRecord, StreamingAligner,
                                                merge_spools, trace_to_codes)
 from bialign_tpu_torch.scoring.tables import _sim_lut
+
+try:    # checkouts before the sequence split lack it: --tile-times and
+    # --walk-times run this script in them too
+    from bialign_tpu_torch.parallel import Mesh
+    from bialign_tpu_torch.parallel import seqsplit as ssp
+except ImportError:
+    Mesh = ssp = None
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -341,6 +368,20 @@ KERNELS = {
                           "bialign_tpu/ops/checkpoint_dp.py:362"),
     "walk_nonaffine_block": ("bialign_tpu_torch/csrc/walk.cu",
                              "bialign_tpu/ops/checkpoint_dp.py:451"),
+    # the sequence split's entry points (the tile kernel in its row-shard
+    # form); the JAX package runs them on the XLA step, under shard_map
+    "seqsplit_score_affine": ("bialign_tpu_torch/csrc/seqsplit.cu",
+                              "bialign_tpu/parallel/seqsplit.py:139"),
+    "seqsplit_score_nonaffine": ("bialign_tpu_torch/csrc/seqsplit.cu",
+                                 "bialign_tpu/parallel/seqsplit.py:139"),
+    "seqsplit_ckpt_affine": ("bialign_tpu_torch/csrc/seqsplit.cu",
+                             "bialign_tpu/parallel/seqsplit.py:244"),
+    "seqsplit_ckpt_nonaffine": ("bialign_tpu_torch/csrc/seqsplit.cu",
+                                "bialign_tpu/parallel/seqsplit.py:244"),
+    "seqsplit_block_affine": ("bialign_tpu_torch/csrc/seqsplit.cu",
+                              "bialign_tpu/parallel/seqsplit.py:285"),
+    "seqsplit_block_nonaffine": ("bialign_tpu_torch/csrc/seqsplit.cu",
+                                 "bialign_tpu/parallel/seqsplit.py:285"),
 }
 
 # the kernels of each counted path
@@ -361,6 +402,15 @@ PATHS = {
     "stream": ("conveyor_scores", "cta_scores", "cta_scores_ms0",
                "batch_fill_affine", "batch_fill_nonaffine",
                "walk_affine_batch", "walk_nonaffine_batch"),
+    # the mesh phase: the sequence split through BiAligner(seqsplit_mesh=)
+    # and score_seqsplit, with the block walks; the batch and the stream
+    # over a "data" mesh, on the routes their buckets take
+    "seqsplit": ("seqsplit_score_affine", "seqsplit_score_nonaffine",
+                 "seqsplit_ckpt_affine", "seqsplit_ckpt_nonaffine",
+                 "seqsplit_block_affine", "seqsplit_block_nonaffine",
+                 "walk_affine_block", "walk_nonaffine_block"),
+    "mesh": ("conveyor_scores", "cta_scores", "batch_fill_affine",
+             "walk_affine_batch"),
 }
 
 # The goldens at max_shift 3 (computed with the JAX package, engines "xla"
@@ -421,12 +471,17 @@ def say(phase: str, **found) -> None:
     print(f"[{phase}] " + json.dumps(found), flush=True)
 
 
+def count_tables() -> tuple:
+    return (cuda_dp.LAUNCHES, dtb.LAUNCHES, ckp.LAUNCHES,
+            *((ssp.LAUNCHES,) if ssp else ()))
+
+
 def counts() -> dict:
-    return {**cuda_dp.LAUNCHES, **dtb.LAUNCHES, **ckp.LAUNCHES}
+    return {k: v for table in count_tables() for k, v in table.items()}
 
 
 def reset_counts() -> None:
-    for table in (cuda_dp.LAUNCHES, dtb.LAUNCHES, ckp.LAUNCHES):
+    for table in count_tables():
         for key in table:
             table[key] = 0
 
@@ -678,6 +733,8 @@ def phase_kernels(dev, errs: dict) -> None:
     seconds["bands"] = time.perf_counter() - START
     ties = phase_tie_walks(dev, errs)
     seconds["tie_walks"] = time.perf_counter() - START
+    split = seqsplit_kernels(errs)
+    seconds["seqsplit"] = time.perf_counter() - START
     say("3 kernels", shapes=SHAPES, tile_edge_shapes=TILE_EDGE_SHAPES,
         ms0_shapes=MS0_SHAPES + [(150, 150), (300, 257), DNAPOL_SHAPE],
         ms0_beyond_one_cta=MS0_BEYOND, k3_rings_equal_on_both_routes=True,
@@ -689,6 +746,8 @@ def phase_kernels(dev, errs: dict) -> None:
         tie_walks_n_m_shift_form_steps=ties, tie_walks_equal=True,
         lowmem_n_m_shift_form_blocksizes_blocks_twinblocks=lowmem_ran,
         checkpoints_windows_block_walks_and_tracebacks_equal=True,
+        seqsplit_n_m_shift_kind_shards=split,
+        seqsplit_rings_checkpoints_windows_equal=True,
         max_abs_err=errs, t_s_at_the_end_of=seconds)
 
 
@@ -2667,6 +2726,26 @@ def traced(run, trace_path: Path) -> tuple:
     return summary, dev
 
 
+def missing_kernels_report(before: dict, trace_path: Path) -> str:
+    """What to print when a trace holds fewer DP kernels than the run
+    launched: the launch counters' counts in the run (wrapper calls, each a
+    loop of launches) and every entry of the exported trace that speaks of
+    dropped or overflowed records."""
+    launched = {k: v - before.get(k, 0) for k, v in counts().items()
+                if v != before.get(k, 0)}
+    data = json.loads(Path(trace_path).read_text())
+    entries = [(k, v) for k, v in data.items() if k != "traceEvents"]
+    entries += [(e.get("name"), e) for e in data.get("traceEvents", [])
+                if e.get("ph") in ("M", "i", "I")]
+    dropped = []
+    for name, value in entries:
+        text = json.dumps(value).lower()
+        if "drop" in text or "overflow" in text:
+            dropped.append((name, text[:400]))
+    return (f"the run's launch counts {launched}; the profiler's records of "
+            f"dropped events {dropped or 'none'}")
+
+
 def dp_kernel_stats(dev, marks) -> tuple:
     """(durations, gaps between consecutive ones) in microseconds of the
     traced kernels whose name holds one of ``marks``, in order."""
@@ -2681,9 +2760,11 @@ def profiled_run(run, n: int, m: int, trace_path: Path) -> dict:
     summary of :func:`traced`, and for the DP kernels (one per diagonal d,
     in order) the gaps between them and their mean time by live rows on the
     diagonal."""
+    before = counts()
     summary, dev = traced(run, trace_path)
     fills, dur, gaps = dp_kernel_stats(dev, ("_diag",))
-    check(len(fills) == n + m + 1, f"{len(fills)} DP kernels traced")
+    check(len(fills) == n + m + 1, f"{len(fills)} DP kernels traced of "
+          f"{n + m + 1}; {missing_kernels_report(before, trace_path)}")
     d = np.arange(n + m + 1)
     rows = np.minimum(n, d) - np.maximum(0, d - m) + 1
     return dict(
@@ -2718,9 +2799,12 @@ def profiled_lowmem(run, n: int, m: int, trace_path: Path) -> dict:
     walks, the slab copies, the copies back to the host, and the longest
     time the device stood still between the first and the last DP kernel
     (a host round trip between blocks would show there)."""
+    before = counts()
     summary, dev = traced(run, trace_path)
     fills, dur, gaps = dp_kernel_stats(dev, ("_diag",))
-    check(len(fills) == 2 * (n + m + 1), f"{len(fills)} DP kernels traced")
+    check(len(fills) == 2 * (n + m + 1), f"{len(fills)} DP kernels traced "
+          f"of {2 * (n + m + 1)}; "
+          f"{missing_kernels_report(before, trace_path)}")
     walks, walk_dur, _g = dp_kernel_stats(dev, ("walk_",))
     half = n + m + 1
     inside = [(s, f) for s, f, _name in dev         # the traceback's events
@@ -3348,6 +3432,387 @@ def phase_stream(mol, md5, smi) -> tuple[dict, dict]:
     return found, launches
 
 
+# -- phase 5, mesh: data parallelism and the sequence split ------------------
+
+# K of the sequence split on the main path (DNA-Pol-1; 4000x3990 at the
+# last), the Ks whose fills are timed, the K at which the split's entries
+# are held to their twins at DNA-Pol-1, and the "data" meshes of the batch
+# and of the stream
+SPLIT_KS = (2, 4)
+SPLIT_TIME_KS = (1, 2, 4)
+SPLIT_TWIN_K = 2
+DATA_KS = (2, 4)
+STREAM_DATA_K = 2
+# (n, m, max_shift) of the split's kernels against their twins on garbage
+# at K = 1, 2 and 3 (a shard of one row at each end); block size
+SPLIT_SHAPES = [(5, 7, 1), (17, 20, 1), (8, 8, 2), (7, 9, 0), (9, 10, 3),
+                (9, 11, 4), (0, 5, 1), (6, 0, 2)]
+SPLIT_BLOCK = 7
+
+
+def mesh_places(k: int) -> list:
+    """k shard devices: the host's cards round robin, so distinct cards
+    where there are k of them, and all k on cuda:0 (a stream each) on a
+    host of one card."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(k)]
+
+
+def split_rows(n: int) -> list:
+    """Row ranges of the split at K = 1, 2 (even) and 3 (one row at each
+    end: shards shorter than any tile's R rows)."""
+    out = [[(0, n)]]
+    if n >= 1:
+        out.append([(0, n // 2), (n // 2 + 1, n)])
+    if n >= 2:
+        out.append([(0, 0), (1, n - 1), (n, n)])
+    return out
+
+
+def split_forms(affine: bool) -> tuple:
+    """(score fill, twin, checkpointed fill, twin, block fill, twin, the
+    three counters) of the split's entries of one kind."""
+    kind = "affine" if affine else "nonaffine"
+    return (ssp.seqsplit_last_slabs, ssp.seqsplit_last_slabs_plain,
+            ssp.seqsplit_checkpoints, ssp.seqsplit_checkpoints_plain,
+            ssp.seqsplit_block, ssp.seqsplit_block_plain,
+            tuple(f"seqsplit_{what}_{kind}" for what in
+                  ("score", "ckpt", "block")))
+
+
+def garbage_like(shards, shape_of) -> list:
+    """A tensor of garbage ``shape_of(shard)`` a shard, on its device."""
+    return [garbage_band(shape_of(s), s.device) for s in shards]
+
+
+def split_against_twins(shards, S, params, affine, C, blocks) -> tuple:
+    """The split's three entries against their twins on the same garbage:
+    (max |err| of each, its rings, its checkpoints, ms of each twin's run
+    by CUDA events, the last block's for the blocks) over every cell of
+    the rings, checkpoints and the windows of ``blocks``."""
+    score, score_p, ckpt, ckpt_p, block, block_p, _names = \
+        split_forms(affine)
+    n, m = shards[-1].b, shards[0].mu1.shape[1] - 1
+    slab = lambda s: (*((9,) if affine else ()), 2 * S + 1, 2 * S + 1,
+                      s.rows)
+    NB = (n + m) // C + 1
+    clones = lambda ts: [x.clone() for x in ts]
+    junk = garbage_like(shards, lambda s: (3, *slab(s)))
+    rings = score(shards, S, params, affine, rings=clones(junk))
+    ms_score, want = cuda_ms(lambda: score_p(shards, S, params, affine,
+                                             rings=clones(junk)), reps=1)
+    e_score = max(tensor_err(a, b) for a, b in zip(rings, want))
+    junk = garbage_like(shards, lambda s: (3, *slab(s)))
+    junk_ck = garbage_like(shards, lambda s: (NB, 2, *slab(s)))
+    rings, ckpts = ckpt(shards, S, params, affine, C, rings=clones(junk),
+                        ckpts=clones(junk_ck))
+    ms_ckpt, want = cuda_ms(lambda: ckpt_p(
+        shards, S, params, affine, C, rings=clones(junk),
+        ckpts=clones(junk_ck)), reps=1)
+    e_ckpt = max(tensor_err(a, b) for a, b in zip(rings + ckpts,
+                                                  want[0] + want[1]))
+    e_block, ms_block = 0, None
+    Cw = min(C, n + m + 1)
+    for b in blocks:
+        junk = garbage_like(shards, lambda s: (Cw + 2, *slab(s)))
+        mine = [c[b] for c in ckpts]
+        got = block(shards, S, params, affine, mine, b * C, Cw,
+                    windows=clones(junk))
+        ms_block, want = cuda_ms(lambda: block_p(
+            shards, S, params, affine, mine, b * C, Cw,
+            windows=clones(junk)), reps=1)
+        e_block = max([e_block] + [tensor_err(a, b_)
+                                   for a, b_ in zip(got, want)])
+    return (e_score, e_ckpt, e_block), rings, ckpts, (ms_score, ms_ckpt,
+                                                      ms_block)
+
+
+def seqsplit_kernels(errs: dict) -> list:
+    """Phase 3's part for the sequence split: at SPLIT_SHAPES, K = 1, 2, 3,
+    each entry against its twin on garbage in every cell (every block), and
+    the last slab's live row against the unsharded score-only kernel's."""
+    ran = []
+    for n, m, S in SPLIT_SHAPES:
+        rng = np.random.default_rng(SEED + 7 * n + 3 * m + S)
+        mu1, mu2 = rand_tables(rng, n, m)
+        t1, t2 = tables_to_torch(mu1, mu2, "cuda")
+        for affine in (True, False):
+            params = AFFINE_PARAMS if affine else NONAFFINE_PARAMS
+            names = split_forms(affine)[-1]
+            whole = (cuda_dp.affine_last_slab if affine
+                     else cuda_dp.nonaffine_last_slab)(t1, t2, S, *params)
+            for rows in split_rows(n):
+                shards = ssp.make_shards(mu1, mu2, mesh_places(len(rows)),
+                                         rows=rows)
+                e, rings, _ck, _ms = split_against_twins(
+                    shards, S, params, affine, SPLIT_BLOCK,
+                    range((n + m) // SPLIT_BLOCK + 1))
+                last = rings[-1][(n + m) % 3][..., n - shards[-1].a + 1]
+                e_row = tensor_err(last.to(whole.device), whole[..., n])
+                for name, err in zip(names, (max(e[0], e_row), *e[1:])):
+                    check(err == 0, f"{name} ({n}, {m}, {S}) rows {rows}: "
+                          f"max |err| {err}")
+                    errs[name] = max(errs[name], err)
+                ran.append((n, m, S, "affine" if affine else "nonaffine",
+                            len(rows)))
+    return ran
+
+
+def lowmem_lines(mol, params, **kw) -> tuple:
+    """(score, lines, trace, seconds) of BiAligner on the DNA-Pol-1 pair."""
+    seconds, score, lines, ba = run_e2e(mol, params, **kw)
+    return score, lines, ba.traceback(), seconds
+
+
+def phase_mesh(mol, md5) -> tuple[dict, dict]:
+    """The mesh phase (launches counted apart, the counts read before the
+    one-device references run): the sequence split of the DNA-Pol-1 pair
+    through BiAligner(seqsplit_mesh=) at K = 2 and 4 (761500 and the md5
+    anchors, and the non-affine CLI defaults), score_seqsplit there and on
+    the 4000x3990 pair at K = 4; the realistic batch's scores and
+    alignments from tables and from codes over "data" meshes of 2 and 4;
+    the stream's scores and alignments from codes over a mesh of 2.  Then
+    each against one device, pair by pair."""
+    found = dict(device_count=torch.cuda.device_count(),
+                 layouts={k: mesh_places(k) for k in
+                          sorted({*SPLIT_KS, *DATA_KS, STREAM_DATA_K})})
+    t_phase = time.perf_counter()
+    reset_counts()
+    split = {}
+    for name, params in (("affine", DNAPOL_FULL),
+                         ("nonaffine", DNAPOL_CLI_DEFAULTS)):
+        for k in SPLIT_KS:
+            mesh = Mesh(mesh_places(k), ("sp",))
+            split[name, k] = lowmem_lines(mol, params, seqsplit_mesh=mesh)
+    ba, t1, t2 = port_tables(mol, DNAPOL_FULL)
+    bk, k1, k2 = port_tables(mol, DNAPOL_CLI_DEFAULTS)
+    scores = {}
+    for k in SPLIT_KS:
+        mesh = Mesh(mesh_places(k), ("sp",))
+        scores["affine", k] = ssp.score_seqsplit(
+            ba.mu1, ba.mu2, ba.max_shift, (ba.beta, ba.gamma, ba.delta),
+            mesh=mesh)
+        scores["nonaffine", k] = ssp.score_seqsplit(
+            bk.mu1, bk.mu2, bk.max_shift, (bk.gamma, bk.delta), mesh=mesh,
+            affine=False)
+    n, m, S = BIG_PAIR
+    big = rand_tables(np.random.default_rng(SEED), n, m)
+    big_k = max(SPLIT_KS)
+    big_s, big_score = timed(lambda: ssp.score_seqsplit(
+        *big, S, AFFINE_PARAMS, mesh=Mesh(mesh_places(big_k), ("sp",))))
+
+    windows = realistic_windows(mol, SEED)
+    tables = [host_tables(w, DNAPOL_FULL)[:2] for w in windows]
+    costs = (DNAPOL_FULL["gap_opening_cost"], DNAPOL_FULL["gap_cost"],
+             DNAPOL_FULL["shift_cost"])
+    lut = torch.from_numpy(np.ascontiguousarray(
+        _sim_lut("BLOSUM62")[0], np.int32)).to("cuda")
+    codes = [pbatch.encode_pair(w["seqA"], w["seqB"], w["strA"], w["strB"])
+             for w in windows]
+    kw = dict(affine=True, bucket_quantum=REALISTIC_QUANTUM)
+    ckw = dict(kw, lut=lut, structure_weight=DNAPOL_FULL["structure_weight"])
+
+    def batch_runs(mesh):
+        return dict(
+            score_tables=timed(lambda: pbatch.score_batch(
+                tables, 1, costs, mesh=mesh, **kw)),
+            align_tables=timed(lambda: pbatch.align_batch(
+                tables, 1, costs, mesh=mesh, **kw)),
+            score_codes=timed(lambda: pbatch.dispatch_score_batch_codes(
+                codes, 1, costs, mesh=mesh, **ckw).get()),
+            align_codes=timed(lambda: pbatch.dispatch_align_batch_codes(
+                codes, 1, costs, mesh=mesh, **ckw).get()))
+    batches = {k: batch_runs(Mesh(mesh_places(k), ("data",)))
+               for k in DATA_KS}
+    corpus = stream_corpus(mol)
+    where = ROOT / "build" / "mesh"
+    where.mkdir(parents=True, exist_ok=True)
+
+    def stream(mesh, alignments, tag):
+        spool = where / f"{tag}.jsonl"
+        if spool.exists():
+            spool.unlink()
+        sa = StreamingAligner(DNAPOL_FULL, mesh=mesh, spool_path=str(spool),
+                              chunk_pairs=STREAM_CHUNK,
+                              bucket_quantum=STREAM_QUANTUM,
+                              alignments=alignments, codes=True)
+        seconds, out = timed(lambda: list(sa.run(corpus)))
+        sa.spool.close()
+        return seconds, out, read_spool(spool)
+    data_mesh = Mesh(mesh_places(STREAM_DATA_K), ("data",))
+    streams = {a: stream(data_mesh, a, f"mesh_{a}") for a in (False, True)}
+    launches = {**path_counts("seqsplit"), **path_counts("mesh")}
+
+    # the references on one device, after the counts are read
+    for name, params in (("affine", DNAPOL_FULL),
+                         ("nonaffine", DNAPOL_CLI_DEFAULTS)):
+        want = lowmem_lines(mol, params, lowmem=True)
+        for k in SPLIT_KS:
+            got = split[name, k]
+            check(got[:3] == want[:3], f"split {name} K={k}: score, lines "
+                  "or trace differ from the one-device low-memory path")
+        split[name] = dict(score=want[0], lowmem_s=want[3],
+                           split_s={k: split[name, k][3] for k in SPLIT_KS})
+    check(split["affine"]["score"] == 761500, "split DNA-Pol-1 score")
+    check(md5_anchors(split["affine", SPLIT_KS[0]][1]) == md5,
+          "split DNA-Pol-1 md5 anchors")
+    want_a = cuda_dp.affine_score(t1, t2, ba.max_shift, ba.beta, ba.gamma,
+                                  ba.delta)
+    want_n = cuda_dp.nonaffine_score(k1, k2, bk.max_shift, bk.gamma, bk.delta)
+    for k in SPLIT_KS:
+        check(scores["affine", k] == want_a == 761500,
+              f"score_seqsplit K={k}: {scores['affine', k]}")
+        check(scores["nonaffine", k] == want_n,
+              f"score_seqsplit non-affine K={k}: {scores['nonaffine', k]}")
+    big_one = cuda_dp.affine_score(*tables_to_torch(*big, "cuda"), S,
+                                   *AFFINE_PARAMS)
+    check(big_score == big_one, f"{n}x{m} split {big_score} != {big_one}")
+
+    one = batch_runs(None)
+    rates = {"one_device": {}}
+    for what, (seconds, want) in one.items():
+        rates["one_device"][what] = len(windows) / seconds
+        for k in DATA_KS:
+            got = batches[k][what][1]
+            if what.startswith("score"):
+                check((got == want).all(), f"mesh {k} {what} differs")
+            else:
+                check((got[0] == want[0]).all() and got[1] == want[1]
+                      and got[2] == want[2], f"mesh {k} {what} differs")
+            rates.setdefault(f"mesh_{k}", {})[what] = (
+                len(windows) / batches[k][what][0])
+    for a in (False, True):
+        seconds, out, spooled = streams[a]
+        s1, o1, sp1 = stream(None, a, f"one_{a}")
+        check(out == o1 and spooled == sp1,
+              f"stream (alignments={a}) over a mesh differs from one device")
+        rate = "alignments_per_s" if a else "pairs_per_s"
+        found[f"stream_codes_{'alignments' if a else 'scores'}"] = {
+            rate: {f"mesh_{STREAM_DATA_K}": len(out) / seconds,
+                   "one_device": len(o1) / s1}, "records": len(out)}
+    found.update(
+        split_dnapol=dict(affine=split["affine"], nonaffine=split["nonaffine"],
+                          md5_anchors="all 6 equal", ks=SPLIT_KS),
+        score_seqsplit=dict(affine=want_a, nonaffine=want_n, ks=SPLIT_KS),
+        big_pair=dict(n=n, m=m, k=big_k, score=big_score, split_s=big_s),
+        batch_rates_pairs_per_s=rates, phase_s=time.perf_counter() - t_phase)
+    return found, launches
+
+
+def profiled_split(mol, out: Path) -> dict:
+    """The DNA-Pol-1 split's score-only fill at K = 4 under torch.profiler:
+    device busy and idle time, and the halo copies' share of the busy
+    time.  (After phase 7's traces: a trace of this many events is taken
+    after them, as the stream's is.)"""
+    seqA, strA, seqB, strB = mol
+    ba = BiAligner(seqA, seqB, strA, strB, **DNAPOL_FULL)
+    p = (ba.beta, ba.gamma, ba.delta)
+    shards = ssp.make_shards(ba.mu1, ba.mu2, mesh_places(4))
+    fill = lambda: ssp.seqsplit_last_slabs(shards, 1, p, True)  # noqa: E731
+    fill()                                                    # warm-up
+    out.mkdir(parents=True, exist_ok=True)
+    summary, _dev = traced(fill, out / "trace_split_k4.json")
+    copies = sum(k["total_us"] for name, k in summary["kernels"].items()
+                 if "Memcpy" in name)
+    kernels = sum(k["total_us"] for name, k in summary["kernels"].items()
+                  if "Memcpy" not in name and "Memset" not in name)
+    return dict(window_us=summary["window_us"],
+                device_busy_us=summary["device_busy_us"],
+                device_idle_share=summary["device_idle_share"],
+                halo_copies_us=copies, kernels_us=kernels,
+                halo_share_of_busy=copies / summary["device_busy_us"])
+
+
+def halo_bytes(shards, m: int, cells: int, first: int, last: int) -> int:
+    """Bytes the halo copies move over diagonals first..last: ``cells``
+    values read and written a copy, one a shard boundary a diagonal on
+    which the boundary's row lies."""
+    copies = sum(max(0, min(last, s.b + m) - max(first, s.b) + 1)
+                 for s in shards[:-1])
+    return copies * cells * 4 * 2
+
+
+def phase_mesh_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
+    """The split's six entries at DNA-Pol-1 on SPLIT_TWIN_K shards against
+    their twins on the same garbage (the score-only fill, the checkpointed
+    fill, the middle block), each timed beside its twin; the split's fills
+    at K = 1, 2, 4 in turns beside the one-device score-only and
+    checkpointed fills.  Returns (times, bounds, more)."""
+    seqA, strA, seqB, strB = mol
+    times, bounds, more = {}, {}, {}
+    for affine, params in ((True, DNAPOL_FULL), (False, DNAPOL_CLI_DEFAULTS)):
+        ba = BiAligner(seqA, seqB, strA, strB, **params)
+        S, n, m = ba.max_shift, len(seqA), len(seqB)
+        p = (ba.beta, ba.gamma, ba.delta) if affine else (ba.gamma, ba.delta)
+        cases, states = (15, 9) if affine else (13, 1)
+        cells = states * (2 * S + 1) ** 2
+        score, _sp, ckpt, _cp, block, _bp, names = split_forms(affine)
+        shards = ssp.make_shards(ba.mu1, ba.mu2, mesh_places(SPLIT_TWIN_K))
+        C = ckp.default_block(n + m + 1)
+        NB = (n + m) // C + 1
+        mid = NB // 2
+        t0 = time.perf_counter()
+        e, _rings, ckpts, twin_ms = split_against_twins(shards, S, p,
+                                                        affine, C, [mid])
+        twin_check_s = time.perf_counter() - t0
+        for name, err in zip(names, e):
+            check(err == 0, f"{name} DNA-Pol-1 K={SPLIT_TWIN_K}: max |err| "
+                  f"{err}")
+            errs[name] = max(errs[name], err)
+        mine = [c[mid] for c in ckpts]
+        Cw = min(C, n + m + 1)
+        runs = {names[0]: lambda: score(shards, S, p, affine),
+                names[1]: lambda: ckpt(shards, S, p, affine, C),
+                names[2]: lambda: block(shards, S, p, affine, mine, mid * C,
+                                        Cw)}
+        for (name, kernel), ms_p in zip(runs.items(), twin_ms):
+            kernel()                                          # warm-up
+            times[name] = (cuda_ms(kernel, reps=5)[0], ms_p)
+        whole = dp_bound(n, m, S, cases, states, band=False)
+        slab = cells * (n + 1) * 4
+        halo = halo_bytes(shards, m, cells, 0, n + m)
+        bounds[names[0]] = bound(2 * (n + 1) * (m + 1) * 4 + slab + halo,
+                                 (n + 1) * (m + 1) * (2 * S + 1) ** 2
+                                 * states * cases * 2)
+        bounds[names[1]] = bound(
+            2 * (n + 1) * (m + 1) * 4 + slab + (NB - 1) * 2 * slab + halo,
+            (n + 1) * (m + 1) * (2 * S + 1) ** 2 * states * cases * 2)
+        d = np.arange(mid * C, min((mid + 1) * C, n + m + 1))
+        live = int((np.minimum(n, d) - np.maximum(0, d - m) + 1).sum())
+        bounds[names[2]] = bound(
+            2 * slab + 2 * live * 4 + (len(d) + 2) * slab
+            + halo_bytes(shards, m, cells, int(d[0]), int(d[-1])),
+            live * (2 * S + 1) ** 2 * states * cases * 2)
+        launches = SPLIT_TWIN_K * (n + m + 1)
+        more[names[0]] = dict(k=SPLIT_TWIN_K, launches_a_call=launches,
+                              us_per_launch=times[names[0]][0] * 1e3
+                              / launches, halo_bytes=halo,
+                              one_device_bound_ms=whole[0],
+                              twin_check_s=twin_check_s)
+        more[names[1]] = dict(k=SPLIT_TWIN_K, block=C, blocks=NB)
+        more[names[2]] = dict(k=SPLIT_TWIN_K, one_block=mid, diagonals=Cw)
+        if not affine:
+            continue
+        # the fills at K = 1, 2, 4 beside one device's, in turns
+        t1, t2 = tables_to_torch(ba.mu1, ba.mu2, "cuda")
+        fills = {"one_device_score": lambda: cuda_dp.affine_last_slab(
+                     t1, t2, S, *p),
+                 "one_device_ckpt": lambda: ckp.fill_affine_checkpoint(
+                     t1, t2, S, *p)}
+        by_k = {k: ssp.make_shards(ba.mu1, ba.mu2, mesh_places(k))
+                for k in SPLIT_TIME_KS}
+        for k, sh in by_k.items():
+            fills[f"split_{k}_score"] = lambda sh=sh: score(sh, S, p, True)
+            fills[f"split_{k}_ckpt"] = lambda sh=sh: ckpt(sh, S, p, True, C)
+        turns = {name: [] for name in fills}
+        for fn in fills.values():
+            fn()                                              # warm-up
+        for name in list(fills) + list(fills)[::-1]:
+            turns[name].append(cuda_ms(fills[name], reps=3)[0])
+        more["split_fill_ms_in_turns"] = turns
+    return times, bounds, more
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -3369,6 +3834,11 @@ def main() -> int:
         "--stream-only", action="store_true",
         help="build, then only the stream phase: the streaming driver, its "
         "batch CLI, the warmup and the triplet aligner, each checked")
+    parser.add_argument(
+        "--mesh-only", action="store_true",
+        help="build, then only the sequence split's kernels against their "
+        "twins and the mesh phase (the split and the data-parallel paths, "
+        "their kernel times)")
     parser.add_argument(
         "--fills-only", action="store_true",
         help="build, then only time the single-pair fills, score-only fills "
@@ -3420,6 +3890,23 @@ def main() -> int:
             profiled_stream(dnapol_pair(), ROOT / "build" / "profile")))
         return 0
     errs = dict.fromkeys(KERNELS, 0)
+    if args.mesh_only:
+        say("3 kernels, sequence split", max_abs_err=errs,
+            seqsplit_n_m_shift_kind_shards=seqsplit_kernels(errs))
+        mesh, mesh_launches = phase_mesh(dnapol_pair(), dnapol_md5())
+        say("5 mesh", nvidia_smi=smi, launches=mesh_launches, **mesh)
+        for name in PATHS["seqsplit"] + PATHS["mesh"]:
+            check(mesh_launches[name] > 0,
+                  f"kernel {name} not launched by the mesh phase")
+        times, bounds, more = phase_mesh_timing(dnapol_pair(), errs)
+        say("5 kernel times, sequence split", nvidia_smi=smi,
+            ms_kernel_vs_plain={
+                k: {"kernel_ms": v[0], "plain_ms": v[1],
+                    "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+                for k, v in times.items()}, details=more, max_abs_err=errs)
+        say("7 profile, split", nvidia_smi=smi, score_fill_k4=profiled_split(
+            dnapol_pair(), ROOT / "build" / "profile"))
+        return 0
     if args.fills_only:
         times, bounds, more = phase_full_timing(dnapol_pair(), errs)
         say("5 kernel times", nvidia_smi=smi, ms_kernel_vs_plain={
@@ -3461,6 +3948,13 @@ def main() -> int:
     launches.update(path_counts("lowmem"))
     say("5 full size, low memory", nvidia_smi=smi, **full_lowmem)
 
+    # phase_mesh sets the counts to 0 before its paths and reads them after
+    # them, before its one-device references run
+    mesh, mesh_launches = phase_mesh(mol, md5)
+    launches.update({k: v for k, v in mesh_launches.items()
+                     if k.startswith("seqsplit_")})
+    say("5 mesh", nvidia_smi=smi, launches=mesh_launches, **mesh)
+
     times, bounds, more = phase_full_timing(mol, errs)
     batch_times, batch_bounds, batch_more = phase_batch_timing(batches, errs)
     more.update(batch_more)
@@ -3474,6 +3968,10 @@ def main() -> int:
     times.update(lowmem_times)
     bounds.update(lowmem_bounds)
     more.update(lowmem_more)
+    mesh_times, mesh_bounds, mesh_more = phase_mesh_timing(mol, errs)
+    times.update(mesh_times)
+    bounds.update(mesh_bounds)
+    more.update(mesh_more)
     say("5 kernel times", nvidia_smi=smi,
         ms_kernel_vs_plain={k: {"kernel_ms": v[0], "plain_ms": v[1],
                                 "bound_ms": bounds[k][0],
@@ -3486,7 +3984,13 @@ def main() -> int:
     say("6 launches", **launches)
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} not launched by the path")
+    say("6 launches, mesh", **mesh_launches)
+    for name in PATHS["seqsplit"] + PATHS["mesh"]:
+        check(mesh_launches[name] > 0,
+              f"kernel {name} not launched by the mesh phase")
     phase_profile(mol, batches, aligners, ROOT / "build" / "profile")
+    say("7 profile, split", nvidia_smi=smi, score_fill_k4=profiled_split(
+        mol, ROOT / "build" / "profile"))
 
     # after phase 7's traces: nothing of the stream runs before them.
     # phase_stream sets the counts to 0 before its StreamingAligner runs

@@ -73,9 +73,16 @@ def build(cxx: str, sources: list, so: Path, *flags: str) -> ctypes.CDLL:
 def call(lib, name: str, *args) -> None:
     """The entry point ``name`` on CPU tensors and ints, on device 0 and
     the null stream; it must return 0."""
+    call_as_is(lib, name, *args, 0, None)
+
+
+def call_as_is(lib, name: str, *args) -> None:
+    """The entry point ``name`` on CPU tensors, ints and None (a null
+    pointer), nothing appended; it must return 0."""
     cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+             else ctypes.c_void_p(None) if a is None
              else ctypes.c_int(a) for a in args]
-    err = getattr(lib, name)(*cargs, ctypes.c_int(0), ctypes.c_void_p(None))
+    err = getattr(lib, name)(*cargs)
     assert err == 0, f"{name}: error {err}"
 
 

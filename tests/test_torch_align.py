@@ -296,7 +296,8 @@ def test_align_refusals():
     pairs = _pairs()[:2]
     codes = [TB.encode_pair("ACD", "AC", "HHC", "HC")]
     lut = TB.match_mismatch_lut(100, 0)
-    with pytest.raises(NotImplementedError, match="P15"):
+    # a mesh is a bialign_tpu_torch Mesh (tests/test_torch_mesh.py)
+    with pytest.raises(TypeError, match="Mesh"):
         TB.align_batch(pairs, 1, AFFINE, affine=True, mesh=object(), **CPU)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         TB.align_batch(pairs, 1, AFFINE, affine=True, device="cpu")
@@ -308,7 +309,7 @@ def test_align_refusals():
     for dispatch in (TB.dispatch_score_batch_codes,
                      TB.dispatch_align_batch_codes):
         kw = dict(affine=True, lut=lut, structure_weight=800)
-        with pytest.raises(NotImplementedError, match="P15"):
+        with pytest.raises(TypeError, match="Mesh"):
             dispatch(codes, 1, AFFINE, mesh=object(), **kw, **CPU)
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             dispatch(codes, 1, AFFINE, engine="cuda", device="cpu", **kw)

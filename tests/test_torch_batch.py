@@ -299,9 +299,10 @@ def test_empty_batch():
 
 def test_refusals():
     pairs = _pairs()[:2]
-    with pytest.raises(NotImplementedError, match="P15"):
+    # a mesh is a bialign_tpu_torch Mesh (tests/test_torch_mesh.py)
+    with pytest.raises(TypeError, match="Mesh"):
         TB.score_batch(pairs, 1, AFFINE, affine=True, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="P15"):
+    with pytest.raises(TypeError, match="Mesh"):
         TB.PreparedBatch(pairs, 1, AFFINE, affine=True, mesh=object(), **CPU)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         TB.score_batch(pairs, 1, AFFINE, affine=True, device="cpu")

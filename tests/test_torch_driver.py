@@ -310,8 +310,12 @@ def test_process_device_keeps_a_cpu_device():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="P15"):
+    """mesh= is ported (tests/test_torch_mesh.py runs a stream over one):
+    it takes a bialign_tpu_torch Mesh, and refuses anything else."""
+    with pytest.raises(TypeError, match="Mesh"):
         TD.StreamingAligner(PARAMS, mesh=object(), **CPU)
+    mesh = T.parallel.Mesh(["cpu"] * 2, ("data",))
+    assert TD.StreamingAligner(PARAMS, mesh=mesh, **CPU).mesh is mesh
 
 
 def test_cuda_engine_refuses_a_cpu_device(tmp_path):

@@ -106,14 +106,15 @@ def test_unknown_engine_is_refused():
 
 
 # tables that fail check_int32_safe take the int64 engine now:
-# tests/test_torch_int64.py
+# tests/test_torch_int64.py; seqsplit_mesh is ported (tests/
+# test_torch_seqsplit.py) and takes a bialign_tpu_torch Mesh only
 @pytest.mark.parametrize("params,item", [
-    (dict(lowmem=True, seqsplit_mesh=object()), "P15"),
-    (dict(seqsplit_mesh=object()), "P15"),
+    (dict(lowmem=True, seqsplit_mesh=object()), "Mesh"),
+    (dict(seqsplit_mesh=object()), "Mesh"),
 ])
 def test_unported_modes_raise(params, item):
     ba = BiAligner(**G.TOY_RNA, engine="torch", device="cpu", **params)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         ba.optimize()
 
 

@@ -19,6 +19,13 @@ of the one-CTA kernels, so they also run here on fewer threads than values
 (strides of the CTA).  This checks the kernels' indexing,
 staging and phases on the CPU; it says nothing of their speed, and it does
 not replace the card's check.
+
+The sequence split's entry points (``csrc/seqsplit.cu``: the tile kernel
+in its row-shard form under one host loop, a stream a shard, the halo
+copied between events) run here with each shard's stream a queue that the
+stand-in runs in an order of its choosing (``host_stream_order``: the
+lowest stream first, the highest first, or at random), so that a missing
+event between two shards shows as a wrong value.
 """
 
 import re
@@ -29,9 +36,12 @@ import pytest
 import torch
 from cuda_host import emulation as emu
 
+import dataclasses
+
 from bialign_tpu_torch.convert import tables_to_torch
 from bialign_tpu_torch.ops import checkpoint_dp as ckp
 from bialign_tpu_torch.ops import cuda_dp
+from bialign_tpu_torch.parallel import seqsplit as ss
 
 AFFINE_PARAMS, NONAFFINE_PARAMS = (-150, -50, -150), (-200, -250)
 # tile edges (the live rows of a middle diagonal around R = 8 at affine
@@ -66,7 +76,7 @@ def lib(tmp_path_factory):
     cxx = emu.compiler()
     work = tmp_path_factory.mktemp("tile_host")
     sources = _host_sources(work / "csrc")
-    assert len(sources) == 14, [p.name for p in sources]
+    assert len(sources) == 15, [p.name for p in sources]
     return emu.build(cxx, sources, work / "libtile_host.so")
 
 
@@ -121,6 +131,136 @@ def test_tile_kernels_equal_the_twins(lib, n, m, S, affine):
         emu.call(lib, f"bialign_block_{kind}", window, twin.ckpts[b].contiguous(),
               t1, t2, consts, n, m, S, b * BLOCK, BLOCK)
         assert torch.equal(window, block_plain(twin, b, window=junk)), b
+
+
+def _row_splits(n: int) -> list:
+    """(K, row ranges, stream order) of the split runs: one shard; two even
+    ones, the receiving shard's stream run first (a halo read before it is
+    written would show); three with a shard of one row at each end (shorter
+    than every tile's R rows), the sending shard's stream run first (a
+    ring slab overwritten before its halo is copied out would show)."""
+    splits = [(1, [(0, n)], 3)]
+    if n >= 1:
+        splits.append((2, [(0, n // 2), (n // 2 + 1, n)], 2))
+    if n >= 2:
+        splits.append((3, [(0, 0), (1, n - 1), (n, n)], 1))
+    return splits
+
+
+def _live(n: int, m: int, d: int) -> slice:
+    return slice(max(0, d - m), min(n, d) + 1)
+
+
+def _gather(parts) -> torch.Tensor:
+    """Each shard's own rows (slots 1..) put together."""
+    return torch.cat([p[..., 1:] for p in parts], dim=-1)
+
+
+@pytest.mark.parametrize("affine", [True, False],
+                         ids=["affine", "nonaffine"])
+@pytest.mark.parametrize("n,m,S", SHAPES)
+def test_seqsplit_kernels_equal_the_twins(lib, n, m, S, affine):
+    """The split's three entry points at K = 1, 2, 3, their streams run in
+    an adversarial order: the score-only fill on rings of garbage, the
+    checkpointed fill on rings and checkpoints of garbage, and every block
+    into windows of garbage, each equal in every cell to its twin on the
+    same garbage, and on every live row to the unsharded kernels (K1/K2
+    score-only, K9-K12) of the same source."""
+    rng = np.random.default_rng(7 * n + 3 * m + S)
+    mu1 = np.zeros((n + 1, m + 1), np.int32)
+    mu2 = np.zeros((n + 1, m + 1), np.int32)
+    mu1[1:, 1:] = rng.integers(-4, 9, size=(n, m)) * 100
+    mu2[1:, 1:] = rng.integers(-4, 9, size=(n, m)) * 100
+    t1, t2 = tables_to_torch(mu1, mu2, "cpu")
+    kind = "affine" if affine else "nonaffine"
+    params = AFFINE_PARAMS if affine else NONAFFINE_PARAMS
+    consts = cuda_dp._tile_consts(affine, params, S)
+    cells = ((9,) if affine else ()) + (2 * S + 1, 2 * S + 1)
+    blocks = (n + m) // BLOCK + 1
+    C = min(BLOCK, n + m + 1)
+
+    # the unsharded kernels of the same source
+    ring = emu.garbage(rng, (3, *cells, n + 1))
+    emu.call(lib, f"bialign_score_{kind}", ring, t1, t2, consts, n, m, S)
+    score_slab = ring[(n + m) % 3][..., n]
+    ring = emu.garbage(rng, (3, *cells, n + 1))
+    whole = emu.garbage(rng, (blocks, 2, *cells, n + 1))
+    emu.call(lib, f"bialign_ckpt_{kind}", ring, whole, t1, t2, consts, n, m,
+             S, BLOCK)
+    windows = []
+    for b in range(blocks):
+        window = emu.garbage(rng, (C + 2, *cells, n + 1))
+        emu.call(lib, f"bialign_block_{kind}", window,
+                 whole[b].contiguous(), t1, t2, consts, n, m, S, b * BLOCK, C)
+        windows.append(window)
+
+    for K, rows, order in _row_splits(n):
+        shards = [dataclasses.replace(s, stream=k + 1) for k, s in enumerate(
+            ss.make_shards(mu1, mu2, ["cpu"] * K, rows=rows))]
+        lib.host_stream_order(order, 100 * n + K)
+        try:
+            # the score-only fill
+            junk = [emu.garbage(rng, (3, *cells, s.rows)) for s in shards]
+            rings = [r.clone() for r in junk]
+            emu.call_as_is(lib, f"bialign_seqsplit_score_{kind}",
+                           ss.shard_table(shards, rings, [None] * K), K,
+                           consts, n, m, S)
+            assert lib.host_stream_flush() == 0
+            twin = ss.seqsplit_last_slabs_plain(
+                shards, S, params, affine, rings=[r.clone() for r in junk])
+            for got, want in zip(rings, twin):
+                assert torch.equal(got, want), (K, order)
+            last = shards[-1]
+            assert torch.equal(rings[-1][(n + m) % 3][..., n - last.a + 1],
+                               score_slab)
+
+            # the checkpointed fill
+            junk = [(emu.garbage(rng, (3, *cells, s.rows)),
+                     emu.garbage(rng, (blocks, 2, *cells, s.rows)))
+                    for s in shards]
+            rings = [r.clone() for r, _c in junk]
+            ckpts = [c.clone() for _r, c in junk]
+            emu.call_as_is(lib, f"bialign_seqsplit_ckpt_{kind}",
+                           ss.shard_table(shards, rings, ckpts), K, consts,
+                           n, m, S, BLOCK)
+            assert lib.host_stream_flush() == 0
+            t_rings, t_ckpts = ss.seqsplit_checkpoints_plain(
+                shards, S, params, affine, BLOCK,
+                rings=[r.clone() for r, _c in junk],
+                ckpts=[c.clone() for _r, c in junk])
+            for got, want in zip(rings + ckpts, t_rings + t_ckpts):
+                assert torch.equal(got, want), (K, order)
+            for b in range(1, blocks):
+                for x in (0, 1):
+                    live = _live(n, m, b * BLOCK - 1 - x)
+                    assert torch.equal(
+                        _gather([c[b, x] for c in ckpts])[..., live],
+                        whole[b, x][..., live]), (K, order, b, x)
+
+            # every block, from the split checkpoints
+            for b in range(blocks):
+                junk = [emu.garbage(rng, (C + 2, *cells, s.rows))
+                        for s in shards]
+                parts = [w.clone() for w in junk]
+                mine = [c[b] for c in ckpts]
+                emu.call_as_is(lib, f"bialign_seqsplit_block_{kind}",
+                               ss.shard_table(shards, parts, mine), K,
+                               consts, n, m, S, b * BLOCK, C)
+                assert lib.host_stream_flush() == 0
+                twin = ss.seqsplit_block_plain(
+                    shards, S, params, affine, mine, b * BLOCK, C,
+                    windows=[w.clone() for w in junk])
+                for got, want in zip(parts, twin):
+                    assert torch.equal(got, want), (K, order, b)
+                for x in range(C + 2):
+                    d = b * BLOCK - 2 + x
+                    if 0 <= d <= n + m and (x >= 2 or b):
+                        live = _live(n, m, d)
+                        assert torch.equal(
+                            _gather([p[x] for p in parts])[..., live],
+                            windows[b][x][..., live]), (K, order, b, x)
+        finally:
+            lib.host_stream_order(0, 0)
 
 
 def _bucket(affine: bool, S: int, seed: int):
