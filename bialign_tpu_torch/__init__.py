@@ -12,7 +12,8 @@ hold through a checkpointed band (``ops/checkpoint_dp.py``).  Batches of
 pairs go through ``parallel`` (``score_batch``, ``align_batch``, the codes
 path, and the streaming driver ``StreamingAligner`` with its batch CLI
 ``python -m bialign_tpu_torch.parallel.batch_cli``); the triplet aligner
-is ``BiAlignerTriplet`` (``models/triplet.py``), the plot
+is ``BiAlignerTriplet`` (``models/triplet.py``; its fill is one more
+kernel, ``csrc/triplet.cu``), the plot
 ``plot_alignment`` (``render/plot.py``).
 
 The package stands alone: it imports ``torch`` and numpy, never ``jax`` and

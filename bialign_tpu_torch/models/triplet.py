@@ -17,11 +17,13 @@ flat (non-affine) gap model of the main aligner:
     (0,1,0)  gamma + Delta
     (0,0,1)  gamma + Delta
 
-Engines: a numpy oracle (``fill_oracle``, a copy of the original) and a
-plain PyTorch anti-diagonal wavefront over ``d = i + j`` on any device
-(``fill_torch``, the counterpart of the JAX package's XLA scan
-``fill_xla``), with the band offset ``sk = k - j + S`` on a small axis.
-There is no hand-written kernel here: the original has no Pallas kernel.
+Engines: the CUDA kernel ``csrc/triplet.cu`` (:func:`fill_slabs_cuda`,
+the counterpart of the JAX package's XLA scan ``fill_xla``: one CTA runs
+the anti-diagonal wavefront over ``d = i + j``, a thread its rows, on the
+tables in their own layout), its plain PyTorch twin on any device
+(:func:`fill_slabs`, and :func:`fill_torch` in the oracle's layout), both
+with the band offset ``sk = k - j + S`` on a small axis, and a numpy
+oracle (``fill_oracle``, a copy of the original).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _build
 from ..ops.cases import NEG_INF
 
 # case columns (di, dj, dk) in reference enumeration order
@@ -44,6 +47,11 @@ TRIPLET_COLS = (
 
 # the sentinel of an empty maximum inside the wavefront (fill_xla's)
 INVALID = -(1 << 30) - (1 << 29)
+
+# Launches of csrc/triplet.cu (one a fill), for run reports.
+LAUNCHES = {"triplet_fill": 0}
+# Threads of the kernel's one CTA: at most, and a multiple of a warp.
+MAX_THREADS, WARP = 1024, 32
 
 
 def _case_consts(gamma: int, delta: int):
@@ -191,6 +199,69 @@ def fill_slabs(mu1, mu2, max_shift, gamma, delta, *, device="cuda"):
     return ys
 
 
+def _int32(x: int) -> int:
+    """``x`` reduced to int32, as torch adds a Python int to an int32
+    tensor."""
+    return (int(x) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def default_threads(n: int) -> int:
+    """The kernel's threads for n+1 rows: a thread a row, in whole warps,
+    up to :data:`MAX_THREADS` (beyond, a thread takes every T-th row)."""
+    return min(MAX_THREADS, -(-(n + 1) // WARP) * WARP)
+
+
+def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
+                    threads=None, ys=None):
+    """:func:`fill_slabs` by the CUDA kernel ``csrc/triplet.cu`` on a CUDA
+    ``device``: the tables ``[n+1, m+1]`` (numpy or tensors) go to the card
+    once as int32, one launch of one CTA of ``threads`` threads (default
+    :func:`default_threads`) fills ``ys`` int32 ``[n+m+1, n+1, 2S+1]`` on
+    the card.  Only the cells of the domain (rows ``max(0, d-m) <= i <=
+    min(n, d)``, ``0 <= k <= m``) are written, so ``ys`` (default: fresh
+    memory) keeps whatever it held elsewhere.  On a CPU ``device`` the plain
+    twin :func:`fill_slabs` runs instead: no kernel runs there."""
+    if len(mu1.shape) != 2 or tuple(mu1.shape) != tuple(mu2.shape):
+        raise ValueError(f"mu1 {tuple(mu1.shape)} and mu2 "
+                         f"{tuple(mu2.shape)} must be one 2-D shape")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return fill_slabs(mu1, mu2, max_shift, gamma, delta, device=device)
+    n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
+    S = int(max_shift)
+    if S < 0:
+        raise ValueError(f"max_shift must be >= 0, got {S}")
+    threads = default_threads(n) if threads is None else int(threads)
+    if not 1 <= threads <= MAX_THREADS:
+        raise ValueError(f"threads must be 1-{MAX_THREADS}, got {threads}")
+    t1, t2 = (torch.as_tensor(mu).to(device=device, dtype=torch.int32)
+              .contiguous() for mu in (mu1, mu2))
+    shape = (n + m + 1, n + 1, 2 * S + 1)
+    if ys is None:
+        ys = torch.empty(shape, dtype=torch.int32, device=device)
+    elif (ys.shape != shape or ys.dtype != torch.int32
+          or ys.device != t1.device or not ys.is_contiguous()):
+        raise ValueError(f"ys must be a contiguous int32 tensor {shape} on "
+                         f"{t1.device}, got {ys.dtype} {tuple(ys.shape)} on "
+                         f"{ys.device}")
+    _build.launch("bialign_triplet_fill", t1.device, ys, t1, t2, n, m, S,
+                  _int32(2 * gamma), _int32(gamma + delta), threads)
+    LAUNCHES["triplet_fill"] += 1
+    return ys
+
+
+def domain(n: int, m: int, S: int, device="cpu") -> torch.Tensor:
+    """bool ``[n+m+1, n+1, 2S+1]``: the cells of the slabs that a fill
+    writes and the traceback reads, ``0 <= j = d - i <= m`` and ``0 <= k =
+    j + sk - S <= m``."""
+    d = torch.arange(n + m + 1, device=device)[:, None, None]
+    i = torch.arange(n + 1, device=device)[None, :, None]
+    sk = torch.arange(2 * S + 1, device=device)[None, None, :]
+    j = d - i
+    k = j + sk - S
+    return (j >= 0) & (j <= m) & (k >= 0) & (k <= m)
+
+
 def oracle_layout(ys: np.ndarray, n: int, m: int, S: int) -> np.ndarray:
     """The slabs ``ys[d, i, sk]`` as M[i, j, k] int64 in the oracle's
     layout (full (m+1)^2 plane, 0 outside the band)."""
@@ -231,15 +302,18 @@ class BiAlignerTriplet:
     ``optimize()``, ``traceback()``, ``decode_trace(show_structures=)``,
     ``eval_trace()`` (bialign_triplet.py:44-124).
 
-    ``engine="torch"`` (default) fills with :func:`fill_slabs` on
-    ``device`` (default ``"cuda"``, refused where there is none), keeping
-    the band's slabs only; ``engine="numpy"`` with the host oracle
-    :func:`fill_oracle` (the JAX package's default engine), which ignores
-    ``device``."""
+    ``engine="cuda"`` (default) fills with the CUDA kernel
+    (:func:`fill_slabs_cuda`) on ``device`` (default ``"cuda"``), keeping
+    the band's slabs only; it is refused on a CPU ``device`` or where there
+    is no CUDA device, and a failed build or launch raises: it never gives
+    way to the twin.  ``engine="torch"`` fills with the plain twin
+    :func:`fill_slabs` on ``device`` (refused on ``"cuda"`` where there is
+    none); ``engine="numpy"`` with the host oracle :func:`fill_oracle` (the
+    JAX package's default engine), which ignores ``device``."""
 
-    ENGINES = ("numpy", "torch")
+    ENGINES = ("cuda", "torch", "numpy")
 
-    def __init__(self, seqA, seqB, strA, strB, *, engine: str = "torch",
+    def __init__(self, seqA, seqB, strA, strB, *, engine: str = "cuda",
                  device="cuda", **params):
         from ..aligner import PARAM_DEFAULTS
         from .molecule import preprocess_molecule
@@ -252,12 +326,17 @@ class BiAlignerTriplet:
         self._params.update(params)
         self._engine = engine
         self.device = torch.device(device)
-        if (engine == "torch" and self.device.type == "cuda"
+        if engine == "cuda" and self.device.type != "cuda":
+            raise RuntimeError(
+                f"engine='cuda' runs on a CUDA device, got "
+                f"device={str(self.device)!r}; engine='torch' runs the plain "
+                "wavefront there")
+        if (engine != "numpy" and self.device.type == "cuda"
                 and not torch.cuda.is_available()):
             raise RuntimeError(
-                f"engine='torch' on device={str(self.device)!r} needs a CUDA "
-                "device (CUDA available: False); device='cpu' runs the "
-                "wavefront on the CPU")
+                f"engine={engine!r} on device={str(self.device)!r} needs a "
+                "CUDA device (CUDA available: False); engine='torch', "
+                "device='cpu' runs the wavefront on the CPU")
         is_rna = self._params["type"] == "RNA"
         self.molA = preprocess_molecule(seqA, strA, is_rna=is_rna)
         self.molB = preprocess_molecule(seqB, strB, is_rna=is_rna)
@@ -275,8 +354,9 @@ class BiAlignerTriplet:
                 self.mu1, self.mu2, self.max_shift, self.gamma, self.delta
             )
         else:
-            ys = fill_slabs(self.mu1, self.mu2, self.max_shift, self.gamma,
-                            self.delta, device=self.device)
+            fill = fill_slabs_cuda if self._engine == "cuda" else fill_slabs
+            ys = fill(self.mu1, self.mu2, self.max_shift, self.gamma,
+                      self.delta, device=self.device)
             self.M = _BandCells(ys.cpu().numpy(), self.max_shift)
         n = self.molA["len"]
         m = self.molB["len"]

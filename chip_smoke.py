@@ -10,6 +10,10 @@
                                              # its double buffer measured
     python3 chip_smoke.py --mesh-only        # phases 1-2, the split's
                                              # kernels and the mesh phase
+    python3 chip_smoke.py --triplet-only     # phases 1-2 and the triplet:
+                                             # its kernel, path and times
+    python3 chip_smoke.py --profile-stress   # phases 1-2 and phase 8, with
+                                             # in-process traces recorded
 
 Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
 package.  Phases, one line each:
@@ -50,7 +54,12 @@ package.  Phases, one line each:
    again on tie-heavy tables (values in {0, +-100}, costs of the same
    grain: many co-optimal cases a step, the first-minimum rule deciding),
    single-pair, block by block and batched, each equal to the host walk
-   over the same device memory;
+   over the same device memory.  The triplet fill (csrc/triplet.cu) against
+   its twin fill_slabs on slabs of garbage: n and m of 0-2, 31-33, 63-65
+   and 1023-1025 mixed, max_shift 0-4 and beyond the compiled widths, a
+   CTA of 1024 threads and of 100, random, tie-heavy and int32-wrapping
+   tables; the domain's cells equal to the twin's, every other cell
+   keeping its garbage;
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -102,9 +111,8 @@ package.  Phases, one line each:
    hold: score equal to affine_score, trace complete and replayed on the
    host to that score.  Times of the checkpointed fill beside the
    score-only fill, of the block fills and block walks, peak bytes.
-   The stream (run after phase 7's traces, so that nothing of it comes
-   before them): 1024 windows of the DNA-Pol-1 pair (seeds 0-15) with a copy
-   of the whole pair before every 128th, through
+   The stream (run after phase 7): 1024 windows of the DNA-Pol-1 pair
+   (seeds 0-15) with a copy of the whole pair before every 128th, through
    parallel.StreamingAligner in chunks of 256 pairs (affine max_shift 1):
    scores and alignments, from tables and from codes, every score, trace,
    complete flag and spool record equal to score_batch / align_batch on
@@ -116,9 +124,7 @@ package.  Phases, one line each:
    in half (every id once, equal to a one-shot run's spool); the batch CLI
    in two processes on the card (RANK 0/1, disjoint shards whose merge is
    one process's spool); --render on 16 windows, equal to BiAligner's
-   lines; the warmup in a fresh process; the triplet aligner on the
-   DNA-Pol-1 pair on the card against the CPU, and its fill on a 200 x 200
-   window against the oracle in every banded cell.  Rates, RunStats, peak
+   lines; the warmup in a fresh process.  Rates, RunStats, peak
    memory.  With --stream-only also the alignments serial and
    double-buffered in turns (the share of the host's work the double
    buffer hides);
@@ -134,16 +140,33 @@ package.  Phases, one line each:
    mesh of 2, each equal to one device pair by pair, with the rates of
    both.  The split's entries at DNA-Pol-1 on 2 shards against their
    twins on garbage, timed; its fills at K = 1, 2, 4 in turns beside the
-   one-device fills; after phase 7, the halo copies' share of a
-   profiled K = 4 fill;
-6. launch counts of the seven paths (the five above, the stream and the
-   mesh phase), counted apart, each of which must be > 0;
+   one-device fills; in phase 7, the halo copies' share of a profiled
+   K = 4 fill.
+   The triplet aligner: the DNA-Pol-1 pair at max_shift 1 with flat gaps
+   through BiAlignerTriplet on its default engine, the CUDA kernel: score,
+   trace, the three rows, the six with structures and the eval_trace lines
+   equal to the plain twin's on the CPU; the kernel's slabs equal to the
+   twin's on the card; the kernel's time (CUDA events, warm) beside
+   optimize() end to end, the twin on the card and on the CPU, its bound
+   and chain floor; the kernel on a 200 x 200 window against fill_oracle
+   in every banded cell;
+6. launch counts of the eight paths (the five above, the mesh phase, the
+   triplet and the stream), counted apart, each of which must be > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
    (device busy and idle time, per-kernel times; score-only K3 as its one
    kernel), the split's K = 4 score-only fill (the halo copies' share),
-   and last the device's busy time in one double-buffered run of the
-   stream's alignments from codes; traces and report in build/profile/.
+   and the device's busy time in one double-buffered run of the stream's
+   alignments from codes; each measurement in a process of its own
+   (--profile-one), all set up at once (tables, warm-up, the profiler's
+   session) and measuring in turn, so that no trace follows another in one
+   process and nothing runs on the card between a session's set-up and its
+   trace; traces and report in build/profile/;
+8. stress: a large trace (the split's K = 4 fill twice, ~15,000 device
+   events), then 20 DNA-Pol-1 band-path traces, each in a process of its
+   own, each holding all n+m+1 DP kernels; --profile-stress also takes 20
+   such traces in the process of the large one and records their counts,
+   and two whose prepared session idles 30 s or sees a run first.
 
 --tile-times builds, then times the tile kernels K1, K2, K4, K5, K8 and
 K9-K12 alone at the DNA-Pol-1 shapes and on the realistic batch (no
@@ -192,7 +215,7 @@ from bialign_tpu_torch.data import dnapol_pair
 from bialign_tpu_torch.ops import checkpoint_dp as ckp
 from bialign_tpu_torch.ops import cuda_dp
 from bialign_tpu_torch.ops import device_traceback as dtb
-from bialign_tpu_torch.models.triplet import fill_oracle, fill_torch
+from bialign_tpu_torch.models import triplet as trip
 from bialign_tpu_torch.ops.cases import affine_score_multiplicities
 from bialign_tpu_torch.parallel import batch as pbatch
 from bialign_tpu_torch.parallel import batch_cli
@@ -382,6 +405,9 @@ KERNELS = {
                               "bialign_tpu/parallel/seqsplit.py:285"),
     "seqsplit_block_nonaffine": ("bialign_tpu_torch/csrc/seqsplit.cu",
                                  "bialign_tpu/parallel/seqsplit.py:285"),
+    # the triplet aligner's fill; the JAX package runs it as an XLA scan
+    "triplet_fill": ("bialign_tpu_torch/csrc/triplet.cu",
+                     "bialign_tpu/models/triplet.py:188"),
 }
 
 # the kernels of each counted path
@@ -411,6 +437,8 @@ PATHS = {
                  "walk_affine_block", "walk_nonaffine_block"),
     "mesh": ("conveyor_scores", "cta_scores", "batch_fill_affine",
              "walk_affine_batch"),
+    # the triplet aligner through BiAlignerTriplet on its default engine
+    "triplet": ("triplet_fill",),
 }
 
 # The goldens at max_shift 3 (computed with the JAX package, engines "xla"
@@ -444,13 +472,32 @@ TPU_SIZED_BUDGET = 2 << 30     # the band budget of the JAX package's chunks
 # the whole DNA-Pol-1 pair before every 128th, through StreamingAligner in
 # chunks of 256 pairs and buckets of 64 rows; the first 256 windows at the
 # non-affine CLI defaults and through two batch CLI processes, 16 through
-# --render; the triplet aligner's fill on a window of 200 x 200 residues
+# --render
 STREAM_SEEDS = 16
 STREAM_FULL_EVERY = 128
 STREAM_CHUNK, STREAM_QUANTUM = 256, 64
 STREAM_SUBSET = 256
 STREAM_RENDER = 16
+
+# The triplet aligner: the DNA-Pol-1 pair with flat gaps (the affine
+# parameters but the gap opening), its fill also on a window of 200 x 200
+# residues against the oracle.  Phase 3 holds its kernel to the twin at n
+# and m of these lengths (the warp's and the CTA's edges), mixed, at
+# max_shift 0-4 and beyond the widths csrc/triplet.cu compiles as
+# constants, on a CTA of 1024 threads and of 100 (a thread several rows, in
+# a count that divides none of the row counts); random, tie-heavy and
+# int32-wrapping tables, each with its costs (gamma, Delta)
+TRIPLET_PARAMS = {k: v for k, v in DNAPOL_FULL.items()
+                  if k != "gap_opening_cost"}
 TRIPLET_WINDOW = 200
+TRIPLET_LENGTHS = (0, 1, 2, 31, 32, 33, 63, 64, 65, 1023, 1024, 1025)
+TRIPLET_STATIC_SHIFTS = 8
+TRIPLET_THREADS = (1024, 100)
+TRIPLET_COSTS = {"random": (-200, -250), "ties": (-100, 0),
+                 "wrap": (-(1 << 30) + 7, (1 << 31) - 11)}
+TRIPLET_RUNS = 5                 # the kernel's timed runs, after a warm-up
+TRIPLET_OPS_PER_CELL = 16        # int32 operations a cell: 7 adds, 7 maxes,
+                                 # the sentinel's compare and select
 # what an alignment stream's peak may hold beyond the band and tables of
 # one dispatch: the walks' outputs of the chunks in flight, the codes, the
 # LUT, the allocator's rounding (3 MB in the runs of PERF.md)
@@ -472,8 +519,10 @@ def say(phase: str, **found) -> None:
 
 
 def count_tables() -> tuple:
+    # an older checkout (--tile-times, --walk-times) may lack the last two
     return (cuda_dp.LAUNCHES, dtb.LAUNCHES, ckp.LAUNCHES,
-            *((ssp.LAUNCHES,) if ssp else ()))
+            *((ssp.LAUNCHES,) if ssp else ()),
+            *((trip.LAUNCHES,) if hasattr(trip, "LAUNCHES") else ()))
 
 
 def counts() -> dict:
@@ -735,6 +784,8 @@ def phase_kernels(dev, errs: dict) -> None:
     seconds["tie_walks"] = time.perf_counter() - START
     split = seqsplit_kernels(errs)
     seconds["seqsplit"] = time.perf_counter() - START
+    triplet = phase_triplet_kernels(dev, errs)
+    seconds["triplet"] = time.perf_counter() - START
     say("3 kernels", shapes=SHAPES, tile_edge_shapes=TILE_EDGE_SHAPES,
         ms0_shapes=MS0_SHAPES + [(150, 150), (300, 257), DNAPOL_SHAPE],
         ms0_beyond_one_cta=MS0_BEYOND, k3_rings_equal_on_both_routes=True,
@@ -748,6 +799,8 @@ def phase_kernels(dev, errs: dict) -> None:
         checkpoints_windows_block_walks_and_tracebacks_equal=True,
         seqsplit_n_m_shift_kind_shards=split,
         seqsplit_rings_checkpoints_windows_equal=True,
+        triplet_n_m_shift_tables=triplet, triplet_threads=TRIPLET_THREADS,
+        triplet_slabs_equal_off_domain_untouched=True,
         max_abs_err=errs, t_s_at_the_end_of=seconds)
 
 
@@ -1454,17 +1507,35 @@ def batch_rates(tables, lengths, S, params, affine, quantum) -> tuple:
         max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
+DNAPOL_COSTS = (DNAPOL_FULL["gap_opening_cost"], DNAPOL_FULL["gap_cost"],
+                DNAPOL_FULL["shift_cost"])      # beta, gamma, delta
+
+
+def realistic_batch(mol) -> tuple:
+    """The 64 realistic windows as a batch: (tables, lengths, max_shift,
+    costs, affine, bucket quantum)."""
+    pairs = [host_tables(w, DNAPOL_FULL) for w in realistic_windows(mol, SEED)]
+    return ([p[:2] for p in pairs], [p[2] for p in pairs], 1, DNAPOL_COSTS,
+            True, REALISTIC_QUANTUM)
+
+
+def toy_batch() -> tuple:
+    """512 copies of the toy protein pair in one 64 x 64 bucket, as
+    realistic_batch."""
+    mu1, mu2, nm = host_tables(TOY, DNAPOL_FULL)
+    return ([(mu1, mu2)] * TOY_PAIRS, [nm] * TOY_PAIRS, 1, DNAPOL_COSTS, True,
+            64)
+
+
 def phase_batch_main(mol) -> tuple[dict, dict]:
     """The batched-scores path through score_batch and PreparedBatch
     (counted launches); returns (report, the batches for the timing)."""
-    costs = (DNAPOL_FULL["gap_opening_cost"], DNAPOL_FULL["gap_cost"],
-             DNAPOL_FULL["shift_cost"])
+    costs = DNAPOL_COSTS
     found, batches = {}, {}
 
     # realistic: buckets of 129-513 rows and 17-28 pairs, so K8
-    pairs = [host_tables(w, DNAPOL_FULL) for w in realistic_windows(mol, SEED)]
-    tables = [p[:2] for p in pairs]
-    lengths = [p[2] for p in pairs]
+    batches["realistic"] = realistic_batch(mol)
+    tables, lengths = batches["realistic"][:2]
     scores, report = batch_rates(tables, lengths, 1, costs, True,
                                  REALISTIC_QUANTUM)
     check(scores.dtype == np.int64 and scores.shape == (REALISTIC_PAIRS,),
@@ -1477,19 +1548,16 @@ def phase_batch_main(mol) -> tuple[dict, dict]:
           f"realistic batch {scores.tolist()} != affine_score {singly}")
     report.update(lengths=lengths, scores_equal_affine_score=True)
     found["realistic"] = report
-    batches["realistic"] = (tables, lengths, 1, costs, True,
-                            REALISTIC_QUANTUM)
 
     # toy b512: K6 (affine), K7 (max_shift 0), K6 non-affine
-    mu1, mu2, nm = host_tables(TOY, DNAPOL_FULL)
-    tables, lengths = [(mu1, mu2)] * TOY_PAIRS, [nm] * TOY_PAIRS
+    batches["toy_b512"] = toy_batch()
+    tables, lengths = batches["toy_b512"][:2]
     scores, report = batch_rates(tables, lengths, 1, costs, True, 64)
     check((scores == TOY_SCORE).all() and scores.shape == (TOY_PAIRS,),
           f"toy b512 scores {np.unique(scores)}")
     found["toy_b512"] = dict(report, all_scores=TOY_SCORE)
-    batches["toy_b512"] = (tables, lengths, 1, costs, True, 64)
 
-    t1, t2 = tables_to_torch(mu1, mu2, "cuda")
+    t1, t2 = tables_to_torch(*tables[0], "cuda")
     want0 = cuda_dp.affine_score(t1, t2, 0, *costs)
     scores, report = batch_rates(tables, lengths, 0, costs, True, 64)
     check((scores == want0).all(), f"toy b512 ms0 {np.unique(scores)}")
@@ -1762,17 +1830,35 @@ def upload_bytes(buckets, stack_bytes) -> int:
                for b in buckets.values())
 
 
-def align_realistic(mol, batch) -> tuple[dict, dict]:
+def realistic_dispatchers(mol, batch) -> dict:
+    """The 64 windows' alignments, dispatched from their tables and from
+    their raw sequences (the codes path, the similarity table resident on
+    the card): name -> a function that returns the pending alignments."""
+    windows = realistic_windows(mol, SEED)
+    tables, _lengths, S, costs, affine, quantum = batch
+    lut = torch.from_numpy(_sim_lut(DNAPOL_FULL["simmatrix"])[0]).to("cuda")
+    ckw = dict(affine=affine, bucket_quantum=quantum, lut=lut,
+               structure_weight=DNAPOL_FULL["structure_weight"])
+    return {
+        "realistic_tables": functools.partial(
+            pbatch.dispatch_align_batch, tables, S, costs, affine=affine,
+            bucket_quantum=quantum),
+        "realistic_codes": lambda: pbatch.dispatch_align_batch_codes(
+            [pbatch.encode_pair(w["seqA"], w["seqB"], w["strA"], w["strB"])
+             for w in windows], S, costs, **ckw)}
+
+
+def align_realistic(mol, batch) -> dict:
     """The 64 windows through align_batch, against affine_score and the
     single-pair path, at the card's band budget and at a smaller one; then
     from their raw sequences through the codes path, against the tables
-    path.  Returns (report, dispatchers for the profile)."""
+    path."""
     found = {}
     windows = realistic_windows(mol, SEED)
     tables, _lengths, S, costs, affine, quantum = batch
     kw = dict(affine=affine, bucket_quantum=quantum)
-    from_tables = functools.partial(pbatch.dispatch_align_batch, tables, S,
-                                    costs, **kw)
+    dispatchers = realistic_dispatchers(mol, batch)
+    from_tables = dispatchers["realistic_tables"]
     aligned, report = align_rates(lambda: from_tables().get(), len(tables))
     scores, traces, complete = aligned
     check(scores.dtype == np.int64 and scores.shape == (REALISTIC_PAIRS,),
@@ -1830,8 +1916,7 @@ def align_realistic(mol, batch) -> tuple[dict, dict]:
     found["realistic_codes_scores"] = dict(
         report, pairs_per_s=report["alignments_per_s"],
         equal_to_tables_path=True)
-    from_codes = lambda: pbatch.dispatch_align_batch_codes(  # noqa: E731
-        encoded(), S, costs, **ckw)
+    from_codes = dispatchers["realistic_codes"]
     coded, report = align_rates(lambda: from_codes().get(), len(windows))
     check_alignments(coded, aligned, "dispatch_align_batch_codes against "
                      "the tables path")
@@ -1841,15 +1926,14 @@ def align_realistic(mol, batch) -> tuple[dict, dict]:
         host_to_device_bytes=upload_bytes(
             pbatch._code_buckets(encoded(), quantum),
             lambda b: sum(a.nbytes for a in b.mu1d)))
-    return found, {"realistic_tables": from_tables,
-                   "realistic_codes": from_codes}
+    return found
 
 
-def phase_align_main(mol, batches, md5, G) -> tuple[dict, dict]:
+def phase_align_main(mol, batches, md5, G) -> dict:
     """The batched-alignments path through align_batch and the codes path
     through dispatch_score_batch_codes and dispatch_align_batch_codes
-    (counted launches); returns (report, dispatchers for the profile)."""
-    found, dispatchers = align_realistic(mol, batches["realistic"])
+    (counted launches)."""
+    found = align_realistic(mol, batches["realistic"])
     seqA, strA, seqB, strB = mol
     full = dict(seqA=seqA, seqB=seqB, strA=strA, strB=strB)
 
@@ -1910,7 +1994,7 @@ def phase_align_main(mol, batches, md5, G) -> tuple[dict, dict]:
               and all(list(ba.decode_trace(t)) == lines for t in traces),
               f"max_shift 3 golden {name} through align_batch")
         found[f"max_shift_3_{name}"] = score
-    return found, dispatchers
+    return found
 
 
 LOWMEM_GOLDEN_BLOCKS = (2, 7)    # many block edges under a short trace
@@ -2691,17 +2775,36 @@ def kernel_name(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0][:80].strip()
 
 
+# The profiler of a --profile-one process, prepared before the process's
+# turn (the first session of a process sets up CUPTI: 10-14 s on an H100's
+# host, PERF.md §6); the process's one trace is taken with it.
+PREPARED = []
+
+
+def prepared_profiler():
+    """A profiler of the host and the card with its session set up, the
+    card drained first; nothing is recorded until its start_trace(), and
+    nothing may run on the card before that (profile_setup)."""
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.prepare_trace()
+    return prof
+
+
 def traced(run, trace_path: Path) -> tuple:
-    """One ``run()`` under torch.profiler.  From the exported trace:
-    (summary, device events): the device's busy time (the union of its
-    kernel, memcpy and memset intervals) and idle share inside the run's
-    window and each kernel's count and time; the events as sorted
-    (start, end, name) in microseconds."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """One ``run()`` under torch.profiler (the prepared one of PREPARED, if
+    any).  From the exported trace: (summary, device events): the device's
+    busy time (the union of its kernel, memcpy and memset intervals) and
+    idle share inside the run's window and each kernel's count and time;
+    the events as sorted (start, end, name) in microseconds."""
+    prof = PREPARED.pop() if PREPARED else prepared_profiler()
+    prof.start_trace()
+    try:
         with record_function("e2e"):
             run()
         torch.cuda.synchronize()
+    finally:
+        prof.stop_trace()
     prof.export_chrome_trace(str(trace_path))
     events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
               if e.get("ph") == "X"]
@@ -2918,61 +3021,249 @@ def staged_score(mol, params) -> dict:
     return dict(tables_s=t1_ - t0, score_s=clock() - t1_, score=score)
 
 
-def phase_profile(mol, batches, aligners, out: Path) -> None:
-    """Where the time goes in the DNA-Pol-1 runs, band path and score-only
-    path, in the two batches of the batched-scores path (from host tables
-    and from resident ones) and in the realistic batch's alignments (from
-    tables and from codes): staged runs and one profiled run per
-    configuration, after a warm-up run."""
-    out.mkdir(parents=True, exist_ok=True)
+PROFILE_BATCHES = {"realistic": realistic_batch,
+                   "toy_b512": lambda _mol: toy_batch()}
+PROFILE_ALIGNS = ("realistic_tables", "realistic_codes")
+# the stress phase: DNA-Pol-1 band-path traces, each in a process of its
+# own, after a large trace in this one; with --profile-stress, the seconds
+# a prepared profiler's session idles before its trace ("gap_idle")
+STRESS_TRACES = 20
+GAP_IDLE_S = 30
+
+
+def profile_names() -> list:
+    """Phase 7's measurements, in order, each with at most one trace."""
+    return ([name for name, _params in PROFILED] + ["lowmem_affine_ms1"]
+            + [f"score_only_{name}" for name, _p, _w in SCORED]
+            + [f"batch_{b}{form}" for b in PROFILE_BATCHES
+               for form in ("", "_prepared")]
+            + [f"align_{name}" for name in PROFILE_ALIGNS]
+            + ["split_k4", "stream_alignments_codes"])
+
+
+def profile_setup(name: str, out: Path):
+    """What one measurement of phase 7 (or of the stress phase: "band_trace",
+    and with --profile-stress "gap_idle" and "gap_busy") does before its
+    trace, in a process of its own (--profile-one): tables, batches and a
+    warm-up run.  Returns measure(), which takes the one trace (to ``out``)
+    and then the staged runs, and returns the result.  Nothing runs on the
+    card between the profiler's preparation and the trace: a session
+    prepared before a run on the card lost records of its trace or held
+    records of that run (PERF.md §6)."""
+    mol = dnapol_pair()
     n, m = len(mol[0]), len(mol[2])
-    report = {}
-    for name, params in PROFILED:
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / f"trace_{name}.json"
+    runs = dict(PROFILED, lowmem_affine_ms1=dict(DNAPOL_FULL, lowmem=True))
+    scored = {f"score_only_{k}": params for k, params, _want in SCORED}
+    band = lambda: run_e2e(mol, DNAPOL_FULL)  # noqa: E731
+    if name in ("band_trace", "gap_idle", "gap_busy"):
+        band()
+
+        def measure():
+            if name == "gap_idle":          # the prepared session idles
+                time.sleep(GAP_IDLE_S)
+            elif name == "gap_busy":        # ... or sees a run first
+                band()
+            if name == "band_trace":
+                return profiled_run(band, n, m, trace)["fill"]
+            summary, dev = traced(band, trace)
+            return dict(dp_kernels=len(dp_kernel_stats(dev, ("_diag",))[0]),
+                        walk_traced=any("walk_" in k
+                                        for k in summary["kernels"]))
+        return measure
+    if name in runs:
+        params = runs[name]
         run_e2e(mol, params)
-        report[name] = dict(
-            staged=[staged_run(mol, params) for _ in range(3)],
-            profile=profiled_run(lambda: run_e2e(mol, params), n, m,
-                                 out / f"trace_{name}.json"))
-    lowmem = dict(DNAPOL_FULL, lowmem=True)
-    run_e2e(mol, lowmem)
-    report["lowmem_affine_ms1"] = dict(
-        staged=[staged_run(mol, lowmem) for _ in range(3)],
-        profile=profiled_lowmem(lambda: run_e2e(mol, lowmem), n, m,
-                                out / "trace_lowmem_affine_ms1.json"))
-    for name, params, _want in SCORED:
+        profiled = profiled_lowmem if params.get("lowmem") else profiled_run
+
+        def measure():
+            profile = profiled(lambda: run_e2e(mol, params), n, m, trace)
+            return dict(staged=[staged_run(mol, params) for _ in range(3)],
+                        profile=profile)
+        return measure
+    if name in scored:
+        params = scored[name]
         score = lambda: score_only(*port_tables(mol, params))  # noqa: E731
         score()
-        trace = out / f"trace_score_only_{name}.json"
-        report[f"score_only_{name}"] = dict(
-            staged=[staged_score(mol, params) for _ in range(3)],
-            profile=(profiled_one_kernel(score, trace)
-                     if params.get("max_shift") == 0 else
-                     profiled_run(score, n, m, trace)))
-    for name in ("realistic", "toy_b512"):
-        tables, _lengths, S, params, affine, quantum = batches[name]
+
+        def measure():
+            profile = (profiled_one_kernel(score, trace)
+                       if params.get("max_shift") == 0 else
+                       profiled_run(score, n, m, trace))
+            return dict(staged=[staged_score(mol, params) for _ in range(3)],
+                        profile=profile)
+        return measure
+    if name.startswith("batch_"):
+        base = name[len("batch_"):].removesuffix("_prepared")
+        tables, _lengths, S, params, affine, quantum = \
+            PROFILE_BATCHES[base](mol)
         kw = dict(affine=affine, bucket_quantum=quantum)
-        prep = pbatch.PreparedBatch(tables, S, params, **kw)
-        prep.scores()
-        report[f"batch_{name}"] = dict(
-            staged=[staged_batch(tables, S, params, affine, quantum)
-                    for _ in range(3)],
-            profile=profiled_batch(
-                lambda: pbatch.score_batch(tables, S, params, **kw),
-                out / f"trace_batch_{name}.json"),
-            profile_prepared=profiled_batch(
-                prep.scores, out / f"trace_batch_{name}_prepared.json"))
-    for name, dispatch in aligners.items():
+        if name.endswith("_prepared"):
+            prep = pbatch.PreparedBatch(tables, S, params, **kw)
+            prep.scores()
+            return lambda: dict(profile_prepared=profiled_batch(prep.scores,
+                                                                trace))
+        run = lambda: pbatch.score_batch(tables, S, params, **kw)  # noqa
+        run()
+
+        def measure():
+            profile = profiled_batch(run, trace)
+            return dict(staged=[staged_batch(tables, S, params, affine,
+                                             quantum) for _ in range(3)],
+                        profile=profile)
+        return measure
+    if name.startswith("align_"):
+        dispatch = realistic_dispatchers(mol, realistic_batch(mol))[
+            name[len("align_"):]]
         dispatch().get()
-        report[f"align_{name}"] = dict(
-            staged=[staged_align(dispatch) for _ in range(3)],
-            profile=profiled_align(lambda: dispatch().get(),
-                                   out / f"trace_align_{name}.json"))
+
+        def measure():
+            profile = profiled_align(lambda: dispatch().get(), trace)
+            return dict(staged=[staged_align(dispatch) for _ in range(3)],
+                        profile=profile)
+        return measure
+    if name == "split_k4":
+        fill = split_fill(mol)
+        return lambda: profiled_split(fill, out)
+    if name == "stream_alignments_codes":
+        buffer_seconds(stream_corpus(mol), DNAPOL_FULL, alignments=True,
+                       codes=True, serial=False)
+        return lambda: profiled_stream(mol, out)
+    raise ValueError(f"no profiled measurement {name!r}")
+
+
+def spawn_profiles(names) -> list:
+    """One process of this script for each of ``names`` (--profile-one),
+    all started at once: each imports what it needs, loads the library,
+    makes its measurement's tables and warm-up run (:func:`profile_setup`)
+    and prepares its profiler (10-14 s, the slow part, all processes
+    together), prints "ready", then waits for a line on its standard input,
+    so that they measure one at a time, once all are ready
+    (:func:`wait_ready`, :func:`profile_in_child`).  Each trace is then
+    the first of its process: nothing of one trace (the profiler's or
+    CUPTI's state) reaches another."""
+    return [(name, subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--profile-one",
+         name], cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for name in names]
+
+
+def wait_ready(name: str, proc) -> None:
+    """Wait until the process of measurement ``name`` has set up (its line
+    "ready"; it prints nothing after it before its turn)."""
+    for line in iter(proc.stdout.readline, ""):
+        if line == "ready\n":
+            return
+    proc.kill()
+    check(False, f"--profile-one {name} did not set up: "
+          f"{proc.stderr.read()[-3000:]}")
+
+
+def profile_in_child(name: str, proc) -> dict:
+    """Start the set-up process of measurement ``name`` and return the
+    result it prints last, with the seconds of its turn (``turn_s``, from
+    the start signal to its exit); fails when the process does (a check
+    that failed in it included)."""
+    t0 = time.perf_counter()
+    try:
+        stdout, stderr = proc.communicate("go\n", timeout=600)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0, f"--profile-one {name} exit "
+          f"{proc.returncode}: {stderr[-3000:]}")
+    return dict(json.loads(stdout.strip().splitlines()[-1]),
+                turn_s=time.perf_counter() - t0)
+
+
+def profiled_in_children(names) -> dict:
+    """name -> the result of its measurement, each in a process of its
+    own, one after another; every process is ended before this returns."""
+    procs = spawn_profiles(names)
+    try:
+        for name, proc in procs:
+            wait_ready(name, proc)
+        return {name: profile_in_child(name, proc) for name, proc in procs}
+    finally:
+        for _name, proc in procs:
+            proc.kill()
+            proc.wait()
+
+
+def phase_profile(out: Path) -> dict:
+    """Where the time goes in the DNA-Pol-1 runs, band path and score-only
+    path, in the two batches of the batched-scores path (from host tables
+    and from resident ones), in the realistic batch's alignments (from
+    tables and from codes), in the split's K = 4 fill and in the codes
+    stream: staged runs and one profiled run per configuration, after a
+    warm-up run, each in a process of its own.  Returns the report, which
+    also goes to ``out``/profile.json."""
+    torch.cuda.empty_cache()            # the card's memory for the children
+    out.mkdir(parents=True, exist_ok=True)
+    found = profiled_in_children(profile_names())
+    report = {}
+    for name, result in found.items():
+        key = name.removesuffix("_prepared")
+        if key != name:
+            result["turn_s_prepared"] = result.pop("turn_s")
+        report[key] = dict(report.get(key, {}), **result)
     (out / "profile.json").write_text(json.dumps(report, indent=1))
-    say("7 profile", out=str(out), **{
-        name: {key: (val if key == "staged" else
-                     {k: v for k, v in val.items() if k != "kernels"})
-               for key, val in r.items()}
-        for name, r in report.items()})
+    return report
+
+
+def phase_profile_stress(mol, out: Path, in_process: bool) -> dict:
+    """The stress phase: a large trace in this process (the split's K = 4
+    fill twice, some 15,000 device events), then STRESS_TRACES traces of
+    the DNA-Pol-1 band path, each in a process of its own, each of which
+    must hold all n+m+1 DP kernels (profiled_run's check).  With
+    ``in_process`` (--profile-stress) also STRESS_TRACES such traces in
+    this process after the large one, whose counts are recorded and not
+    checked (the condition under which the check once fell short, ROADMAP
+    Queue 3), and two processes whose prepared session idles GAP_IDLE_S
+    ("gap_idle") or sees a run on the card ("gap_busy") before its trace,
+    their counts recorded."""
+    torch.cuda.empty_cache()
+    out.mkdir(parents=True, exist_ok=True)
+    n, m = len(mol[0]), len(mol[2])
+    gaps = ["gap_idle", "gap_busy"] if in_process else []
+    procs = spawn_profiles(gaps + ["band_trace"] * STRESS_TRACES)
+    try:
+        fill = split_fill(mol)
+        t0 = time.perf_counter()
+        _summary, dev = traced(lambda: (fill(), fill()),
+                               out / "trace_large.json")
+        found = dict(large_trace_device_events=len(dev),
+                     large_trace_s=time.perf_counter() - t0)
+        if in_process:
+            t0 = time.perf_counter()
+            traced_here = []
+            run_e2e(mol, DNAPOL_FULL)
+            for k in range(STRESS_TRACES):
+                _summary, dev = traced(lambda: run_e2e(mol, DNAPOL_FULL),
+                                       out / f"trace_stress_{k}.json")
+                traced_here.append(len(dp_kernel_stats(dev, ("_diag",))[0]))
+            found.update(in_process_dp_kernels_traced=traced_here,
+                         in_process_s=time.perf_counter() - t0)
+        for name, proc in procs:
+            wait_ready(name, proc)
+        for name, proc in procs[:len(gaps)]:
+            found[name] = profile_in_child(name, proc)
+        if gaps:
+            say("8 stress, prepared sessions", **{k: found[k] for k in gaps})
+        t0 = time.perf_counter()
+        fills = [profile_in_child(name, proc)
+                 for name, proc in procs[len(gaps):]]
+    finally:
+        for _name, proc in procs:
+            proc.kill()
+            proc.wait()
+    kernels = [f["kernels"] for f in fills]
+    check(kernels == [n + m + 1] * STRESS_TRACES,
+          f"the stress phase's traces hold {kernels} DP kernels")
+    return dict(found, dp_kernels=n + m + 1, child_dp_kernels_traced=kernels,
+                child_mean_us=[f["mean_us"] for f in fills],
+                child_turn_s=[f["turn_s"] for f in fills],
+                children_s=time.perf_counter() - t0)
 
 
 # -- phase 5, stream: the streaming driver and its batch CLI -----------------
@@ -3239,48 +3530,6 @@ def stream_warmup() -> dict:
     return dict(process_s=time.perf_counter() - t0, lines=lines)
 
 
-def stream_triplet(mol) -> dict:
-    """BiAlignerTriplet on the DNA-Pol-1 pair at max_shift 1, the plain
-    PyTorch wavefront on the card against the same on the CPU; fill_torch
-    on a 200 x 200 window against fill_oracle in every banded cell."""
-    seqA, strA, seqB, strB = mol
-    params = {k: v for k, v in DNAPOL_FULL.items()
-              if k != "gap_opening_cost"}             # flat gaps only
-    found = {}
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        ba = BiAlignerTriplet(seqA, seqB, strA, strB, engine="torch",
-                              device=dev, **params)
-        seconds, score = timed(ba.optimize)
-        trace = ba.traceback()
-        runs[dev] = (score, trace)
-        found[f"dnapol_fill_{dev}_s"] = seconds
-    check(runs["cuda"] == runs["cpu"],
-          f"triplet on the card {runs['cuda'][0]} differs from the CPU's "
-          f"{runs['cpu'][0]}")
-    found.update(dnapol_score=runs["cuda"][0], trace_columns=len(
-        runs["cuda"][1]), equal_to_cpu=True)
-    w = TRIPLET_WINDOW
-    ba = BiAlignerTriplet(seqA[100:100 + w], seqB[100:100 + w],
-                          strA[100:100 + w], strB[100:100 + w],
-                          engine="torch", device="cuda", **params)
-    S = ba.max_shift
-    seconds, got = timed(lambda: fill_torch(ba.mu1, ba.mu2, S, ba.gamma,
-                                            ba.delta, device="cuda"))
-    t0 = time.perf_counter()
-    want = fill_oracle(ba.mu1, ba.mu2, S, ba.gamma, ba.delta)
-    oracle_s = time.perf_counter() - t0
-    j = np.arange(w + 1)
-    band = np.broadcast_to(np.abs(j[None, :] - j[:, None]) <= S,
-                           (w + 1, w + 1, w + 1))
-    check(np.array_equal(got[band], want[band]),
-          "triplet fill_torch differs from fill_oracle")
-    found.update(window=f"{w}x{w}", window_cells=int(band.sum()),
-                 window_fill_cuda_s=seconds, window_oracle_s=oracle_s,
-                 window_equal_to_oracle=True)
-    return found
-
-
 def stream_double_buffer(mol) -> dict:
     """The share of a chunk's host work that the double buffer hides: the
     corpus's alignments without a spool, serial and double-buffered in
@@ -3308,8 +3557,8 @@ def stream_double_buffer(mol) -> dict:
 
 def profiled_stream(mol, out: Path) -> dict:
     """Where the codes stream's time goes: the device's busy time in the
-    window of one double-buffered run of the corpus's alignments (after
-    the other profiles: its trace is the largest)."""
+    window of one double-buffered run of the corpus's alignments (its
+    trace is the largest, about 30,000 device events)."""
     out.mkdir(parents=True, exist_ok=True)
     summary, _dev = traced(
         lambda: buffer_seconds(stream_corpus(mol), DNAPOL_FULL,
@@ -3324,8 +3573,8 @@ def phase_stream(mol, md5, smi) -> tuple[dict, dict]:
     against peak_bounds), the non-affine CLI defaults, 512 toy
     pairs at max_shift 1 and 0, and a resume after a cut spool, all
     counted; then each against score_batch / align_batch, two batch CLI
-    processes, --render, the warmup and the triplet aligner.  Returns
-    (report, launches of the StreamingAligner runs)."""
+    processes, --render and the warmup.  Returns (report, launches of the
+    StreamingAligner runs)."""
     t_phase = time.perf_counter()
     where = ROOT / "build" / "stream"
     shutil.rmtree(where, ignore_errors=True)
@@ -3427,9 +3676,159 @@ def phase_stream(mol, md5, smi) -> tuple[dict, dict]:
     found["render"] = stream_render(windows[:STREAM_RENDER], DNAPOL_FULL,
                                     where)
     found["warmup"] = stream_warmup()
-    found["triplet"] = stream_triplet(mol)
     found["phase_s"] = time.perf_counter() - t_phase
     return found, launches
+
+
+# -- phase 5, triplet: the triplet aligner's fill on its kernel --------------
+
+def triplet_cases() -> list:
+    """(n, m, max_shift, tables) of phase 3's triplet fills: each length
+    of TRIPLET_LENGTHS against two others, max_shift 0-4 in turn; an empty
+    pair; max_shift beyond the compiled widths; tie-heavy tables and
+    tables whose sums wrap int32."""
+    L, k = TRIPLET_LENGTHS, len(TRIPLET_LENGTHS)
+    out = [(n, L[(a + 5) % k], a % 5, "random") for a, n in enumerate(L)]
+    out += [(n, L[k - 1 - a], (a + 2) % 5, "random")
+            for a, n in enumerate(L)]
+    beyond = TRIPLET_STATIC_SHIFTS + 1
+    out += [(0, 0, 1, "random"), (1023, 1024, 1, "random"),
+            (65, 63, beyond, "random"),
+            (2, 33, beyond + 3, "random"), (65, 64, 1, "ties"),
+            (1025, 1024, 2, "ties"), (64, 65, 1, "wrap"),
+            (31, 33, beyond, "wrap")]
+    return out
+
+
+def triplet_tables(rng, n, m, kind: str):
+    """Tables [n+1, m+1] int32 (row and column 0 zero, as the host's):
+    values in [-400, 900) (tests/test_triplet.py's), in {0, +-100}, or of
+    magnitude 2^29 to 2^31 - 1, either sign."""
+    mu = np.zeros((2, n + 1, m + 1), dtype=np.int64)
+    if kind == "random":
+        mu[:, 1:, 1:] = rng.integers(-400, 900, size=(2, n, m))
+    elif kind == "ties":
+        mu[:, 1:, 1:] = rng.integers(-1, 2, size=(2, n, m)) * 100
+    else:
+        mu[:, 1:, 1:] = (rng.integers(1 << 29, (1 << 31) - 1, size=(2, n, m))
+                         * rng.choice([-1, 1], size=(2, n, m)))
+    return mu[0].astype(np.int32), mu[1].astype(np.int32)
+
+
+def triplet_err(got, want, junk, n: int, m: int, S: int) -> int:
+    """Max |difference| of the kernel's slabs from the twin's on the
+    domain and from the garbage it started on everywhere else."""
+    live = trip.domain(n, m, S, got.device)
+    return int((got.long() - torch.where(live, want, junk).long())
+               .abs().max())
+
+
+def phase_triplet_kernels(dev, errs: dict) -> list:
+    """The triplet fill's kernel against its twin (on the CPU) on slabs of
+    garbage, at triplet_cases() and both thread counts."""
+    rng = np.random.default_rng(SEED)
+    ran = []
+    for n, m, S, kind in triplet_cases():
+        mu1, mu2 = triplet_tables(rng, n, m, kind)
+        gamma, delta = TRIPLET_COSTS[kind]
+        want = trip.fill_slabs(mu1, mu2, S, gamma, delta,
+                               device="cpu").to(dev)
+        for threads in TRIPLET_THREADS:
+            junk = garbage_band(want.shape, dev)
+            got = trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta, device=dev,
+                                       threads=threads, ys=junk.clone())
+            e = triplet_err(got, want, junk, n, m, S)
+            check(e == 0, f"triplet_fill ({n}, {m}, {S}, {kind}, {threads} "
+                  f"threads): max |err| {e}")
+            errs["triplet_fill"] = max(errs["triplet_fill"], e)
+        ran.append((n, m, S, kind))
+    return ran
+
+
+def triplet_outputs(ba) -> tuple:
+    """Score, trace, the three rows, the six with structures and the
+    eval_trace lines of one triplet aligner."""
+    score = ba.optimize()
+    trace = ba.traceback()
+    return (score, trace, ba.decode_trace(trace),
+            ba.decode_trace(trace, show_structures=True),
+            list(ba.eval_trace(trace)))
+
+
+def triplet_bound(n: int, m: int, S: int, cells: int):
+    """Bound of one triplet fill: the two tables read once, the domain's
+    ``cells`` written once, TRIPLET_OPS_PER_CELL operations a cell."""
+    return bound(2 * (n + 1) * (m + 1) * 4 + cells * 4,
+                 cells * TRIPLET_OPS_PER_CELL)
+
+
+def phase_triplet(mol, dev, errs: dict) -> tuple:
+    """The triplet aligner on the DNA-Pol-1 pair at max_shift 1 through its
+    default engine, the CUDA kernel (counted launches): score, trace,
+    rows, rows with structures and eval_trace lines equal to the plain
+    twin's on the CPU (engine "torch").  Then, not counted: the slabs of
+    the kernel equal to the twin's on the card on the domain; the kernel's
+    time alone (CUDA events, warm) beside optimize() end to end and the
+    twin's on the card and on the CPU, the bound and the chain floor (the
+    diagonals x one dependent load from the L2, csrc/probe.cu); the kernel
+    on a 200 x 200 window against fill_oracle in every banded cell.
+    Returns (report, launches, (kernel ms, twin ms), bound)."""
+    seqA, strA, seqB, strB = mol
+    reset_counts()
+    seconds, got = timed(lambda: triplet_outputs(
+        BiAlignerTriplet(seqA, seqB, strA, strB, **TRIPLET_PARAMS)))
+    launches = path_counts("triplet")
+    ref = BiAlignerTriplet(seqA, seqB, strA, strB, engine="torch",
+                           device="cpu", **TRIPLET_PARAMS)
+    cpu_s, _ = timed(ref.optimize)
+    check(got == triplet_outputs(ref), f"triplet on the kernel (score "
+          f"{got[0]}) differs from the twin on the CPU")
+
+    ba = BiAlignerTriplet(seqA, seqB, strA, strB, **TRIPLET_PARAMS)
+    optimize_s = [timed(ba.optimize)[0] for _ in range(3)]
+    n, m, S = len(seqA), len(seqB), ba.max_shift
+    t1, t2 = tables_to_torch(ba.mu1, ba.mu2, dev)
+    p = (S, ba.gamma, ba.delta)
+    ys = trip.fill_slabs_cuda(t1, t2, *p, device=dev)
+    kernel_ms = [cuda_ms(lambda: trip.fill_slabs_cuda(t1, t2, *p, device=dev,
+                                                      ys=ys), 1)[0]
+                 for _ in range(TRIPLET_RUNS)]
+    plain_ms, twin = cuda_ms(lambda: trip.fill_slabs(ba.mu1, ba.mu2, *p,
+                                                     device=dev), 1)
+    live = trip.domain(n, m, S, dev)
+    e = int((ys.long() - twin.long())[live].abs().max())
+    check(e == 0, f"triplet_fill at DNA-Pol-1: max |err| {e}")
+    errs["triplet_fill"] = max(errs["triplet_fill"], e)
+    cells = int(live.sum())
+    l2_ns = chain_latency(dev)["ns_per_load_l2"]
+
+    w = TRIPLET_WINDOW
+    win = BiAlignerTriplet(seqA[100:100 + w], seqB[100:100 + w],
+                           strA[100:100 + w], strB[100:100 + w],
+                           **TRIPLET_PARAMS)
+    window = trip.oracle_layout(
+        trip.fill_slabs_cuda(win.mu1, win.mu2, S, win.gamma, win.delta,
+                             device=dev).cpu().numpy(), w, w, S)
+    want = trip.fill_oracle(win.mu1, win.mu2, S, win.gamma, win.delta)
+    j = np.arange(w + 1)
+    band = np.broadcast_to(np.abs(j[None, :] - j[:, None]) <= S,
+                           (w + 1, w + 1, w + 1))
+    check(np.array_equal(window[band], want[band]),
+          "the triplet kernel differs from fill_oracle on the window")
+    b = triplet_bound(n, m, S, cells)
+    found = dict(
+        dnapol_score=got[0], trace_columns=len(got[1]),
+        outputs_equal_to_twin_on_cpu=True, first_run_s=seconds,
+        optimize_s=optimize_s, kernel_ms=kernel_ms,
+        kernel_ms_min_max=(min(kernel_ms), max(kernel_ms)),
+        us_per_diagonal=min(kernel_ms) * 1e3 / (n + m + 1),
+        twin_on_card_ms=plain_ms, twin_on_cpu_s=cpu_s,
+        slabs_equal_to_twin_on_card=True, domain_cells=cells,
+        bound_ms=b[0], bound_by=b[1], ns_per_load_l2=l2_ns,
+        chain_floor_ms=(n + m + 1) * l2_ns * 1e-6,
+        window=f"{w}x{w}", window_cells=int(band.sum()),
+        window_equal_to_oracle=True)
+    return found, launches, (min(kernel_ms), plain_ms), b
 
 
 # -- phase 5, mesh: data parallelism and the sequence split ------------------
@@ -3699,17 +4098,22 @@ def phase_mesh(mol, md5) -> tuple[dict, dict]:
     return found, launches
 
 
-def profiled_split(mol, out: Path) -> dict:
-    """The DNA-Pol-1 split's score-only fill at K = 4 under torch.profiler:
-    device busy and idle time, and the halo copies' share of the busy
-    time.  (After phase 7's traces: a trace of this many events is taken
-    after them, as the stream's is.)"""
+def split_fill(mol):
+    """The DNA-Pol-1 split's score-only fill at K = 4, run once: a function
+    that runs it again."""
     seqA, strA, seqB, strB = mol
     ba = BiAligner(seqA, seqB, strA, strB, **DNAPOL_FULL)
     p = (ba.beta, ba.gamma, ba.delta)
     shards = ssp.make_shards(ba.mu1, ba.mu2, mesh_places(4))
     fill = lambda: ssp.seqsplit_last_slabs(shards, 1, p, True)  # noqa: E731
-    fill()                                                    # warm-up
+    fill()
+    return fill
+
+
+def profiled_split(fill, out: Path) -> dict:
+    """The split's fill of :func:`split_fill` under torch.profiler: device
+    busy and idle time, and the halo copies' share of the busy time (some
+    7,500 device events)."""
     out.mkdir(parents=True, exist_ok=True)
     summary, _dev = traced(fill, out / "trace_split_k4.json")
     copies = sum(k["total_us"] for name, k in summary["kernels"].items()
@@ -3833,7 +4237,22 @@ def main() -> int:
     parser.add_argument(
         "--stream-only", action="store_true",
         help="build, then only the stream phase: the streaming driver, its "
-        "batch CLI, the warmup and the triplet aligner, each checked")
+        "batch CLI and the warmup, each checked")
+    parser.add_argument(
+        "--triplet-only", action="store_true",
+        help="build, then only the triplet aligner: its kernel against the "
+        "twin (phase 3's cases), the DNA-Pol-1 pair through "
+        "BiAlignerTriplet against the twin on the CPU, the kernel's times")
+    parser.add_argument(
+        "--profile-stress", action="store_true",
+        help="build, then only the stress phase, with the in-process "
+        "traces after the large one that reproduce the conditions of a "
+        "trace-count check that once fell short")
+    parser.add_argument(
+        "--profile-one", metavar="NAME",
+        help="(run by this script) make a context on the card, print "
+        "'ready', wait for a line on standard input, then make phase 7's "
+        "measurement NAME and print its result as the last line")
     parser.add_argument(
         "--mesh-only", action="store_true",
         help="build, then only the sequence split's kernels against their "
@@ -3845,6 +4264,17 @@ def main() -> int:
         "and walks at the DNA-Pol-1 shapes against their twins (phase 5's "
         "kernel times; two checkouts compared in one call)")
     args = parser.parse_args()
+    if args.profile_one:
+        # the measurement's set-up and the profiler's session, while the
+        # other measurements' processes do the same
+        check(torch.cuda.is_available(), "no CUDA device")
+        _build.load()                       # built by the calling process
+        measure = profile_setup(args.profile_one, ROOT / "build" / "profile")
+        PREPARED.append(prepared_profiler())
+        print("ready", flush=True)
+        sys.stdin.readline()                # this process's turn
+        print(json.dumps(measure()))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3887,9 +4317,25 @@ def main() -> int:
         say("5 stream, double buffer", nvidia_smi=smi,
             **stream_double_buffer(dnapol_pair()))
         say("7 profile, stream", nvidia_smi=smi, alignments_codes=(
-            profiled_stream(dnapol_pair(), ROOT / "build" / "profile")))
+            profiled_in_children(["stream_alignments_codes"])[
+                "stream_alignments_codes"]))
+        return 0
+    if args.profile_stress:
+        say("8 stress", nvidia_smi=smi, **phase_profile_stress(
+            dnapol_pair(), ROOT / "build" / "profile" / "stress",
+            in_process=True))
         return 0
     errs = dict.fromkeys(KERNELS, 0)
+    if args.triplet_only:
+        ran = phase_triplet_kernels(dev, errs)
+        say("3 kernels, triplet", triplet_n_m_shift_tables=ran,
+            triplet_threads=TRIPLET_THREADS, max_abs_err=errs["triplet_fill"])
+        triplet, triplet_launches, _times, _bound = phase_triplet(
+            dnapol_pair(), dev, errs)
+        say("5 triplet", nvidia_smi=smi, launches=triplet_launches, **triplet)
+        check(triplet_launches["triplet_fill"] > 0,
+              "kernel triplet_fill not launched by the triplet path")
+        return 0
     if args.mesh_only:
         say("3 kernels, sequence split", max_abs_err=errs,
             seqsplit_n_m_shift_kind_shards=seqsplit_kernels(errs))
@@ -3904,8 +4350,8 @@ def main() -> int:
                 k: {"kernel_ms": v[0], "plain_ms": v[1],
                     "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
                 for k, v in times.items()}, details=more, max_abs_err=errs)
-        say("7 profile, split", nvidia_smi=smi, score_fill_k4=profiled_split(
-            dnapol_pair(), ROOT / "build" / "profile"))
+        say("7 profile, split", nvidia_smi=smi, score_fill_k4=(
+            profiled_in_children(["split_k4"])["split_k4"]))
         return 0
     if args.fills_only:
         times, bounds, more = phase_full_timing(dnapol_pair(), errs)
@@ -3938,7 +4384,7 @@ def main() -> int:
     say("5 full size, batched scores", nvidia_smi=smi, **full_batch)
 
     reset_counts()
-    full_align, aligners = phase_align_main(mol, batches, md5, G)
+    full_align = phase_align_main(mol, batches, md5, G)
     launches.update(path_counts("align"))
     say("5 full size, batched alignments and codes", nvidia_smi=smi,
         **full_align)
@@ -3955,7 +4401,16 @@ def main() -> int:
                      if k.startswith("seqsplit_")})
     say("5 mesh", nvidia_smi=smi, launches=mesh_launches, **mesh)
 
+    # phase_triplet sets the counts to 0 before its path and reads them
+    # after it, before the twins and the timing run
+    triplet, triplet_launches, triplet_times, triplet_bound = phase_triplet(
+        mol, dev, errs)
+    launches.update(triplet_launches)
+    say("5 triplet", nvidia_smi=smi, launches=triplet_launches, **triplet)
+
     times, bounds, more = phase_full_timing(mol, errs)
+    times["triplet_fill"] = triplet_times
+    bounds["triplet_fill"] = triplet_bound
     batch_times, batch_bounds, batch_more = phase_batch_timing(batches, errs)
     more.update(batch_more)
     times.update(batch_times)
@@ -3988,11 +4443,18 @@ def main() -> int:
     for name in PATHS["seqsplit"] + PATHS["mesh"]:
         check(mesh_launches[name] > 0,
               f"kernel {name} not launched by the mesh phase")
-    phase_profile(mol, batches, aligners, ROOT / "build" / "profile")
-    say("7 profile, split", nvidia_smi=smi, score_fill_k4=profiled_split(
-        mol, ROOT / "build" / "profile"))
+    out = ROOT / "build" / "profile"
+    report = phase_profile(out)
+    split_k4 = report.pop("split_k4")
+    stream_profile = report.pop("stream_alignments_codes")
+    say("7 profile", out=str(out), **{
+        name: {key: ({k: v for k, v in val.items() if k != "kernels"}
+                     if isinstance(val, dict) else val)
+               for key, val in r.items()}
+        for name, r in report.items()})
+    say("7 profile, split", nvidia_smi=smi, score_fill_k4=split_k4)
+    say("7 profile, stream", nvidia_smi=smi, alignments_codes=stream_profile)
 
-    # after phase 7's traces: nothing of the stream runs before them.
     # phase_stream sets the counts to 0 before its StreamingAligner runs
     # and reads them after them, before its checks launch the batch path
     stream, stream_launches = phase_stream(mol, md5, smi)
@@ -4001,8 +4463,8 @@ def main() -> int:
     for name in PATHS["stream"]:
         check(stream_launches[name] > 0,
               f"kernel {name} not launched by the stream")
-    say("7 profile, stream", nvidia_smi=smi, alignments_codes=(
-        profiled_stream(mol, ROOT / "build" / "profile")))
+    say("8 stress", nvidia_smi=smi, **phase_profile_stress(
+        mol, out / "stress", in_process=False))
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4010,7 +4472,8 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes a banded max-plus recurrence
-         # over four indices, for one pair or a bucket, or walks one
+         # over four indices (or the triplet's three), for one pair or a
+         # bucket, or walks one
          "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]}))

@@ -1,10 +1,13 @@
 """The port's triplet aligner against the JAX package's, on the CPU: the
 plain PyTorch wavefront ``fill_torch`` equal to the JAX ``fill_xla`` and to
 the numpy oracle in every banded cell, and ``BiAlignerTriplet`` equal to the
-JAX class end to end (tolerance 0: ints and strings)."""
+JAX class end to end (tolerance 0: ints and strings).  Its default engine,
+the CUDA kernel, is refused here; tests/test_torch_triplet_emulation.py
+holds the kernel's source to the twin on the CPU."""
 
 import numpy as np
 import pytest
+import torch
 
 import bialign_tpu.models.triplet as J
 import bialign_tpu_torch.models.triplet as T
@@ -87,3 +90,30 @@ def test_triplet_torch_engine_as_the_xla_engine():
 def test_triplet_unknown_engine_is_refused():
     with pytest.raises(ValueError, match="engine"):
         T.BiAlignerTriplet(*SMALL, engine="xla", **RNA_PARAMS)
+
+
+def test_triplet_cuda_engine_is_the_default_and_refused_here():
+    """With no engine= the aligner takes the CUDA kernel on "cuda": on a
+    host without a card that raises, as does the kernel on a CPU device,
+    rather than giving way to the plain twin."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py runs the kernel")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.BiAlignerTriplet(*SMALL, **RNA_PARAMS)
+    with pytest.raises(RuntimeError, match="engine='cuda'"):
+        T.BiAlignerTriplet(*SMALL, engine="cuda", device="cpu", **RNA_PARAMS)
+
+
+@pytest.mark.parametrize("n,m,S", SHAPES[:4])
+def test_fill_slabs_cuda_on_the_cpu_is_the_twin(n, m, S):
+    """The kernel's wrapper given a CPU device runs the twin; the domain
+    holds exactly the banded cells of the oracle's layout."""
+    rng = np.random.default_rng(n + m + S)
+    mu1, mu2 = _rand_tables(rng, n, m)
+    got = T.fill_slabs_cuda(mu1, mu2, S, -200, -250, device="cpu")
+    assert torch.equal(got, T.fill_slabs(mu1, mu2, S, -200, -250,
+                                         device="cpu"))
+    assert int(T.domain(n, m, S).sum()) == int(_band(n, m, S)[0].sum()) * (
+        n + 1)
+    with pytest.raises(ValueError, match="one 2-D shape"):
+        T.fill_slabs_cuda(mu1, mu2[:, :-1], S, -200, -250, device="cpu")
