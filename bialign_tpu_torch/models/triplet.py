@@ -17,13 +17,16 @@ flat (non-affine) gap model of the main aligner:
     (0,1,0)  gamma + Delta
     (0,0,1)  gamma + Delta
 
-Engines: the CUDA kernel ``csrc/triplet.cu`` (:func:`fill_slabs_cuda`,
+Engines: the CUDA kernels of ``csrc/triplet.cu`` (:func:`fill_slabs_cuda`,
 the counterpart of the JAX package's XLA scan ``fill_xla``: one CTA runs
 the anti-diagonal wavefront over ``d = i + j``, a thread its rows, on the
-tables in their own layout), its plain PyTorch twin on any device
-(:func:`fill_slabs`, and :func:`fill_torch` in the oracle's layout), both
-with the band offset ``sk = k - j + S`` on a small axis, and a numpy
-oracle (``fill_oracle``, a copy of the original).
+tables in their own layout; route ``"shared"`` keeps the last three
+diagonals in shared memory, route ``"global"`` reads them back from the
+slabs, for pairs whose ring does not fit one CTA: :func:`triplet_route`),
+its plain PyTorch twin on any device (:func:`fill_slabs`, and
+:func:`fill_torch` in the oracle's layout), both with the band offset ``sk
+= k - j + S`` on a small axis, and a numpy oracle (``fill_oracle``, a copy
+of the original).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from .. import _build
 from ..ops.cases import NEG_INF
+from ..ops.cuda_dp import CTA_SHARED_LIMIT
 
 # case columns (di, dj, dk) in reference enumeration order
 TRIPLET_COLS = (
@@ -48,10 +52,14 @@ TRIPLET_COLS = (
 # the sentinel of an empty maximum inside the wavefront (fill_xla's)
 INVALID = -(1 << 30) - (1 << 29)
 
-# Launches of csrc/triplet.cu (one a fill), for run reports.
-LAUNCHES = {"triplet_fill": 0}
+# Launches of csrc/triplet.cu (one a fill), by route, for run reports.
+LAUNCHES = {"triplet_fill_shared": 0, "triplet_fill_global": 0}
+ROUTES = ("shared", "global")
 # Threads of the kernel's one CTA: at most, and a multiple of a warp.
 MAX_THREADS, WARP = 1024, 32
+# max_shift compiled as constants (csrc/triplet.cu kTripletStaticShifts):
+# up to it route "shared" keeps a row's tables in registers
+STATIC_SHIFTS = 8
 
 
 def _case_consts(gamma: int, delta: int):
@@ -211,22 +219,70 @@ def default_threads(n: int) -> int:
     return min(MAX_THREADS, -(-(n + 1) // WARP) * WARP)
 
 
+def shared_bytes(n: int, max_shift: int, threads=None) -> int:
+    """Dynamic shared memory of route ``"shared"`` on n+1 rows at
+    ``threads`` threads (default :func:`default_threads`): the ring of the
+    last three diagonals ``[3, n+1, W]`` int32, and, when a thread takes
+    several rows or max_shift exceeds :data:`STATIC_SHIFTS`, the tables'
+    anti-diagonals ``[W+3, n+1]`` (``csrc/triplet.cu``
+    ``triplet_shared_bytes``)."""
+    threads = default_threads(n) if threads is None else int(threads)
+    W = 2 * max_shift + 1
+    staged = max_shift > STATIC_SHIFTS or n + 1 > threads
+    return 4 * (n + 1) * (3 * W + (W + 3 if staged else 0))
+
+
+def triplet_route(n: int, max_shift: int, threads=None) -> str:
+    """The kernel of a pair of n+1 rows: ``"shared"`` when its
+    :func:`shared_bytes` fit one CTA's shared memory, else ``"global"``.
+    Chosen from the shape before the launch, never after a failure."""
+    fits = shared_bytes(n, max_shift, threads) <= CTA_SHARED_LIMIT
+    return "shared" if fits else "global"
+
+
+def skew_rows(n: int, m: int, max_shift: int) -> int:
+    """Rows of route ``"shared"``'s skewed tables (``csrc/triplet.cu``
+    ``triplet_skew_rows``): the diagonals e = i + k the kernel reads, with
+    room for its loads four diagonals ahead."""
+    return n + m + max_shift + 8
+
+
+def shared_tables(mu1, mu2, max_shift, device) -> tuple:
+    """The tables ``[n+1, m+1]`` (numpy or tensors) as route ``"shared"``
+    reads them: int32 on ``device``, each skewed, ``X[e, i] = mu[i, e -
+    i]`` for :func:`skew_rows` rows e and 0 where ``e - i`` lies outside
+    ``[0, m]``, flat.  Row e holds what diagonal e brings to every row, so
+    that a warp's rows read it side by side."""
+    n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
+    E, P = skew_rows(n, m, int(max_shift)), n + 1
+    out = []
+    for mu in (mu1, mu2):
+        x = torch.zeros(E * P, dtype=torch.int32, device=device)
+        # (i, k) at (i + k) P + i: rows P+1 apart, columns P apart
+        x.as_strided((P, m + 1), (P + 1, P)).copy_(
+            torch.as_tensor(mu).to(device=device, dtype=torch.int32))
+        out.append(x)
+    return tuple(out)
+
+
 def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
-                    threads=None, ys=None):
-    """:func:`fill_slabs` by the CUDA kernel ``csrc/triplet.cu`` on a CUDA
+                    threads=None, ys=None, route=None):
+    """:func:`fill_slabs` by a CUDA kernel of ``csrc/triplet.cu`` on a CUDA
     ``device``: the tables ``[n+1, m+1]`` (numpy or tensors) go to the card
     once as int32, one launch of one CTA of ``threads`` threads (default
     :func:`default_threads`) fills ``ys`` int32 ``[n+m+1, n+1, 2S+1]`` on
-    the card.  Only the cells of the domain (rows ``max(0, d-m) <= i <=
-    min(n, d)``, ``0 <= k <= m``) are written, so ``ys`` (default: fresh
-    memory) keeps whatever it held elsewhere.  On a CPU ``device`` the plain
-    twin :func:`fill_slabs` runs instead: no kernel runs there."""
+    the card.  ``route`` (default :func:`triplet_route`): ``"shared"``, the
+    last three diagonals in shared memory, the tables skewed by
+    :func:`shared_tables`; ``"global"``, read back from ``ys``.
+    A forced ``"shared"`` that does not fit one CTA raises ``ValueError``.
+    Only the cells of the domain (rows ``max(0, d-m) <= i <= min(n, d)``,
+    ``0 <= k <= m``) are written, so ``ys`` (default: fresh memory) keeps
+    whatever it held elsewhere.  The arguments are checked on any device;
+    on a CPU ``device`` the plain twin :func:`fill_slabs` runs instead: no
+    kernel runs there."""
     if len(mu1.shape) != 2 or tuple(mu1.shape) != tuple(mu2.shape):
         raise ValueError(f"mu1 {tuple(mu1.shape)} and mu2 "
                          f"{tuple(mu2.shape)} must be one 2-D shape")
-    device = torch.device(device)
-    if device.type == "cpu":
-        return fill_slabs(mu1, mu2, max_shift, gamma, delta, device=device)
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
     S = int(max_shift)
     if S < 0:
@@ -234,8 +290,23 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
     threads = default_threads(n) if threads is None else int(threads)
     if not 1 <= threads <= MAX_THREADS:
         raise ValueError(f"threads must be 1-{MAX_THREADS}, got {threads}")
-    t1, t2 = (torch.as_tensor(mu).to(device=device, dtype=torch.int32)
-              .contiguous() for mu in (mu1, mu2))
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} or None, got "
+                         f"{route!r}")
+    if route == "shared" and triplet_route(n, S, threads) != "shared":
+        raise ValueError(
+            f"route='shared': {n + 1} rows at max_shift {S} on {threads} "
+            f"threads need {shared_bytes(n, S, threads)} bytes of shared "
+            f"memory, one CTA has {CTA_SHARED_LIMIT}; use route='global'")
+    route = triplet_route(n, S, threads) if route is None else route
+    device = torch.device(device)
+    if device.type == "cpu":
+        return fill_slabs(mu1, mu2, max_shift, gamma, delta, device=device)
+    if route == "shared":
+        t1, t2 = shared_tables(mu1, mu2, S, device)
+    else:
+        t1, t2 = (torch.as_tensor(mu).to(device=device, dtype=torch.int32)
+                  .contiguous() for mu in (mu1, mu2))
     shape = (n + m + 1, n + 1, 2 * S + 1)
     if ys is None:
         ys = torch.empty(shape, dtype=torch.int32, device=device)
@@ -244,9 +315,11 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
         raise ValueError(f"ys must be a contiguous int32 tensor {shape} on "
                          f"{t1.device}, got {ys.dtype} {tuple(ys.shape)} on "
                          f"{ys.device}")
-    _build.launch("bialign_triplet_fill", t1.device, ys, t1, t2, n, m, S,
-                  _int32(2 * gamma), _int32(gamma + delta), threads)
-    LAUNCHES["triplet_fill"] += 1
+    name = ("bialign_triplet_fill_shared" if route == "shared"
+            else "bialign_triplet_fill")
+    _build.launch(name, t1.device, ys, t1, t2, n, m, S, _int32(2 * gamma),
+                  _int32(gamma + delta), threads)
+    LAUNCHES[f"triplet_fill_{route}"] += 1
     return ys
 
 
@@ -303,13 +376,14 @@ class BiAlignerTriplet:
     ``eval_trace()`` (bialign_triplet.py:44-124).
 
     ``engine="cuda"`` (default) fills with the CUDA kernel
-    (:func:`fill_slabs_cuda`) on ``device`` (default ``"cuda"``), keeping
-    the band's slabs only; it is refused on a CPU ``device`` or where there
-    is no CUDA device, and a failed build or launch raises: it never gives
-    way to the twin.  ``engine="torch"`` fills with the plain twin
-    :func:`fill_slabs` on ``device`` (refused on ``"cuda"`` where there is
-    none); ``engine="numpy"`` with the host oracle :func:`fill_oracle` (the
-    JAX package's default engine), which ignores ``device``."""
+    (:func:`fill_slabs_cuda`, its route by :func:`triplet_route`) on
+    ``device`` (default ``"cuda"``), keeping the band's slabs only; it is
+    refused on a CPU ``device`` or where there is no CUDA device, and a
+    failed build or launch raises: it never gives way to the twin.
+    ``engine="torch"`` fills with the plain twin :func:`fill_slabs` on
+    ``device`` (refused on ``"cuda"`` where there is none);
+    ``engine="numpy"`` with the host oracle :func:`fill_oracle` (the JAX
+    package's default engine), which ignores ``device``."""
 
     ENGINES = ("cuda", "torch", "numpy")
 

@@ -54,12 +54,13 @@ package.  Phases, one line each:
    again on tie-heavy tables (values in {0, +-100}, costs of the same
    grain: many co-optimal cases a step, the first-minimum rule deciding),
    single-pair, block by block and batched, each equal to the host walk
-   over the same device memory.  The triplet fill (csrc/triplet.cu) against
-   its twin fill_slabs on slabs of garbage: n and m of 0-2, 31-33, 63-65
-   and 1023-1025 mixed, max_shift 0-4 and beyond the compiled widths, a
-   CTA of 1024 threads and of 100, random, tie-heavy and int32-wrapping
-   tables; the domain's cells equal to the twin's, every other cell
-   keeping its garbage;
+   over the same device memory.  The triplet fill (csrc/triplet.cu), both
+   routes ("shared" wherever triplet_route gives it, else a forced
+   "shared" must raise; "global" everywhere) against its twin fill_slabs on
+   slabs of garbage: n and m of 0-2, 31-33, 63-65 and 1023-1025 mixed,
+   max_shift 0-4 and beyond the compiled widths, a CTA of 1024 threads and
+   of 100, random, tie-heavy and int32-wrapping tables; the domain's cells
+   equal to the twin's, every other cell keeping its garbage;
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -142,16 +143,21 @@ package.  Phases, one line each:
    twins on garbage, timed; its fills at K = 1, 2, 4 in turns beside the
    one-device fills; in phase 7, the halo copies' share of a profiled
    K = 4 fill.
-   The triplet aligner: the DNA-Pol-1 pair at max_shift 1 with flat gaps
-   through BiAlignerTriplet on its default engine, the CUDA kernel: score,
-   trace, the three rows, the six with structures and the eval_trace lines
-   equal to the plain twin's on the CPU; the kernel's slabs equal to the
-   twin's on the card; the kernel's time (CUDA events, warm) beside
-   optimize() end to end, the twin on the card and on the CPU, its bound
-   and chain floor; the kernel on a 200 x 200 window against fill_oracle
-   in every banded cell;
+   The triplet aligner through BiAlignerTriplet on its default engine, the
+   CUDA kernel: the DNA-Pol-1 pair at max_shift 1 with flat gaps on route
+   "shared" (779500; score, trace, the three rows, the six with structures
+   and the eval_trace lines equal to the plain twin's on the CPU) and a
+   1500 x 1490 pair at max_shift 8 on route "global" (its ring, 306 KB,
+   beyond one CTA; score equal to the twin's last cell); at DNA-Pol-1 the
+   slabs of both routes (and of "shared" on 480 threads, the tables
+   staged) equal to the twin's on the card, at 1500 x 1490 the slabs of
+   "global"; each kernel's time alone (CUDA events, warm, in turns) and
+   through its wrapper beside optimize() end to end and its stages, the
+   twin on the card and on the CPU, the bounds and chain floors; the kernel
+   on a 200 x 200 window against fill_oracle in every banded cell;
 6. launch counts of the eight paths (the five above, the mesh phase, the
-   triplet and the stream), counted apart, each of which must be > 0;
+   triplet, both routes, and the stream), counted apart, each of which
+   must be > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
    (device busy and idle time, per-kernel times; score-only K3 as its one
@@ -405,9 +411,13 @@ KERNELS = {
                               "bialign_tpu/parallel/seqsplit.py:285"),
     "seqsplit_block_nonaffine": ("bialign_tpu_torch/csrc/seqsplit.cu",
                                  "bialign_tpu/parallel/seqsplit.py:285"),
-    # the triplet aligner's fill; the JAX package runs it as an XLA scan
-    "triplet_fill": ("bialign_tpu_torch/csrc/triplet.cu",
-                     "bialign_tpu/models/triplet.py:188"),
+    # the triplet aligner's fill, route "shared" (the last three diagonals
+    # in shared memory) and route "global" (pairs beyond one CTA's ring);
+    # the JAX package runs it as an XLA scan
+    "triplet_fill_shared": ("bialign_tpu_torch/csrc/triplet.cu",
+                            "bialign_tpu/models/triplet.py:188"),
+    "triplet_fill_global": ("bialign_tpu_torch/csrc/triplet.cu",
+                            "bialign_tpu/models/triplet.py:188"),
 }
 
 # the kernels of each counted path
@@ -437,8 +447,9 @@ PATHS = {
                  "walk_affine_block", "walk_nonaffine_block"),
     "mesh": ("conveyor_scores", "cta_scores", "batch_fill_affine",
              "walk_affine_batch"),
-    # the triplet aligner through BiAlignerTriplet on its default engine
-    "triplet": ("triplet_fill",),
+    # the triplet aligner through BiAlignerTriplet on its default engine:
+    # DNA-Pol-1 on route "shared", a pair beyond one CTA on "global"
+    "triplet": ("triplet_fill_shared", "triplet_fill_global"),
 }
 
 # The goldens at max_shift 3 (computed with the JAX package, engines "xla"
@@ -480,22 +491,29 @@ STREAM_SUBSET = 256
 STREAM_RENDER = 16
 
 # The triplet aligner: the DNA-Pol-1 pair with flat gaps (the affine
-# parameters but the gap opening), its fill also on a window of 200 x 200
-# residues against the oracle.  Phase 3 holds its kernel to the twin at n
-# and m of these lengths (the warp's and the CTA's edges), mixed, at
-# max_shift 0-4 and beyond the widths csrc/triplet.cu compiles as
-# constants, on a CTA of 1024 threads and of 100 (a thread several rows, in
-# a count that divides none of the row counts); random, tie-heavy and
-# int32-wrapping tables, each with its costs (gamma, Delta)
+# parameters but the gap opening), on route "shared"; its fill also on a
+# window of 200 x 200 residues against the oracle; and a pair of
+# TRIPLET_BIG (the DNA-Pol-1 sequences, each continued by its own start) at
+# max_shift 8, whose ring (306 KB) does not fit one CTA, on route "global".
+# Phase 3 holds both routes to the twin at n and m of these lengths (the
+# warp's and the CTA's edges), mixed, at max_shift 0-4 and beyond the
+# widths csrc/triplet.cu compiles as constants, on a CTA of 1024 threads and
+# of 100 (a thread several rows, in a count that divides none of the row
+# counts); random, tie-heavy and int32-wrapping tables, each with its costs
+# (gamma, Delta)
 TRIPLET_PARAMS = {k: v for k, v in DNAPOL_FULL.items()
                   if k != "gap_opening_cost"}
 TRIPLET_WINDOW = 200
+TRIPLET_BIG = (1500, 1490, 8)
+TRIPLET_DNAPOL_SCORE = 779500    # the twin's and the oracle's
+TRIPLET_FLOOR_M = 4000           # the chain probe: a pair of 0 x this
+TRIPLET_STAGED_THREADS = 480     # route "shared", two rows a thread
 TRIPLET_LENGTHS = (0, 1, 2, 31, 32, 33, 63, 64, 65, 1023, 1024, 1025)
 TRIPLET_STATIC_SHIFTS = 8
 TRIPLET_THREADS = (1024, 100)
 TRIPLET_COSTS = {"random": (-200, -250), "ties": (-100, 0),
                  "wrap": (-(1 << 30) + 7, (1 << 31) - 11)}
-TRIPLET_RUNS = 5                 # the kernel's timed runs, after a warm-up
+TRIPLET_RUNS = 5                 # each route's timed runs, after a warm-up
 TRIPLET_OPS_PER_CELL = 16        # int32 operations a cell: 7 adds, 7 maxes,
                                  # the sentinel's compare and select
 # what an alignment stream's peak may hold beyond the band and tables of
@@ -799,7 +817,8 @@ def phase_kernels(dev, errs: dict) -> None:
         checkpoints_windows_block_walks_and_tracebacks_equal=True,
         seqsplit_n_m_shift_kind_shards=split,
         seqsplit_rings_checkpoints_windows_equal=True,
-        triplet_n_m_shift_tables=triplet, triplet_threads=TRIPLET_THREADS,
+        triplet_n_m_shift_tables_routes=triplet,
+        triplet_threads=TRIPLET_THREADS,
         triplet_slabs_equal_off_domain_untouched=True,
         max_abs_err=errs, t_s_at_the_end_of=seconds)
 
@@ -3724,8 +3743,11 @@ def triplet_err(got, want, junk, n: int, m: int, S: int) -> int:
 
 
 def phase_triplet_kernels(dev, errs: dict) -> list:
-    """The triplet fill's kernel against its twin (on the CPU) on slabs of
-    garbage, at triplet_cases() and both thread counts."""
+    """The triplet fill's kernels against the twin (on the CPU) on slabs of
+    garbage, at triplet_cases() and both thread counts: route "global"
+    everywhere, route "shared" wherever triplet_route gives it (elsewhere a
+    forced "shared" must raise).  Returns the cases with, for each thread
+    count, the routes run."""
     rng = np.random.default_rng(SEED)
     ran = []
     for n, m, S, kind in triplet_cases():
@@ -3733,15 +3755,33 @@ def phase_triplet_kernels(dev, errs: dict) -> list:
         gamma, delta = TRIPLET_COSTS[kind]
         want = trip.fill_slabs(mu1, mu2, S, gamma, delta,
                                device="cpu").to(dev)
+        routes_of = []
         for threads in TRIPLET_THREADS:
-            junk = garbage_band(want.shape, dev)
-            got = trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta, device=dev,
-                                       threads=threads, ys=junk.clone())
-            e = triplet_err(got, want, junk, n, m, S)
-            check(e == 0, f"triplet_fill ({n}, {m}, {S}, {kind}, {threads} "
-                  f"threads): max |err| {e}")
-            errs["triplet_fill"] = max(errs["triplet_fill"], e)
-        ran.append((n, m, S, kind))
+            routes = trip.ROUTES
+            if trip.triplet_route(n, S, threads) == "global":
+                routes = ("global",)
+                try:
+                    trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta,
+                                         device=dev, threads=threads,
+                                         route="shared")
+                except ValueError:
+                    pass
+                else:
+                    raise RuntimeError(
+                        f"triplet ({n}, {m}, {S}) on {threads} threads: a "
+                        "forced 'shared' beyond one CTA did not raise")
+            for route in routes:
+                junk = garbage_band(want.shape, dev)
+                got = trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta,
+                                           device=dev, threads=threads,
+                                           ys=junk.clone(), route=route)
+                e = triplet_err(got, want, junk, n, m, S)
+                check(e == 0, f"triplet_fill_{route} ({n}, {m}, {S}, {kind}, "
+                      f"{threads} threads): max |err| {e}")
+                name = f"triplet_fill_{route}"
+                errs[name] = max(errs[name], e)
+            routes_of.append("+".join(routes))
+        ran.append((n, m, S, kind, *routes_of))
     return ran
 
 
@@ -3762,50 +3802,174 @@ def triplet_bound(n: int, m: int, S: int, cells: int):
                  cells * TRIPLET_OPS_PER_CELL)
 
 
-def phase_triplet(mol, dev, errs: dict) -> tuple:
-    """The triplet aligner on the DNA-Pol-1 pair at max_shift 1 through its
-    default engine, the CUDA kernel (counted launches): score, trace,
-    rows, rows with structures and eval_trace lines equal to the plain
-    twin's on the CPU (engine "torch").  Then, not counted: the slabs of
-    the kernel equal to the twin's on the card on the domain; the kernel's
-    time alone (CUDA events, warm) beside optimize() end to end and the
-    twin's on the card and on the CPU, the bound and the chain floor (the
-    diagonals x one dependent load from the L2, csrc/probe.cu); the kernel
-    on a 200 x 200 window against fill_oracle in every banded cell.
-    Returns (report, launches, (kernel ms, twin ms), bound)."""
+def triplet_big_pair(mol) -> tuple:
+    """(seqA, strA, seqB, strB) of TRIPLET_BIG's lengths: each DNA-Pol-1
+    sequence and structure continued by its own start."""
+    n, m, _ = TRIPLET_BIG
+
+    def grow(text, k):
+        return (text * (k // len(text) + 1))[:k]
+
     seqA, strA, seqB, strB = mol
+    return grow(seqA, n), grow(strA, n), grow(seqB, m), grow(strB, m)
+
+
+def triplet_launcher(route, mu1, mu2, S, gamma, delta, dev, threads=None):
+    """(call, ys): one launch of route's kernel alone, on tables laid out
+    once as fill_slabs_cuda lays them out, through the C entry (so not
+    counted), for timing."""
+    n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
+    threads = trip.default_threads(n) if threads is None else threads
+    if route == "shared":
+        t1, t2 = trip.shared_tables(mu1, mu2, S, dev)
+    else:
+        t1, t2 = (torch.as_tensor(mu).to(device=dev, dtype=torch.int32)
+                  .contiguous() for mu in (mu1, mu2))
+    ys = torch.empty((n + m + 1, n + 1, 2 * S + 1), dtype=torch.int32,
+                     device=dev)
+    name = ("bialign_triplet_fill_shared" if route == "shared"
+            else "bialign_triplet_fill")
+    args = (ys, t1, t2, n, m, S, trip._int32(2 * gamma),
+            trip._int32(gamma + delta), threads)
+    return (lambda: _build.launch(name, dev, *args)), ys
+
+
+def triplet_aligner(pair, **params):
+    seqA, strA, seqB, strB = pair
+    return BiAlignerTriplet(seqA, seqB, strA, strB, **params)
+
+
+def triplet_stages(ba, dev) -> dict:
+    """optimize()'s stages, TRIPLET_RUNS times, each on the host clock
+    closed by a device sync: the tables' upload, the kernel (on its
+    default route), the slabs' copy back (ys.cpu()), and _BandCells with
+    the traceback (the first-match walk on the host)."""
+    found = {k: [] for k in ("upload_ms", "kernel_ms", "copy_back_ms",
+                             "band_cells_and_traceback_ms")}
+    p = (ba.max_shift, ba.gamma, ba.delta)
+
+    def upload():
+        return [torch.as_tensor(mu).to(device=dev, dtype=torch.int32)
+                .contiguous() for mu in (ba.mu1, ba.mu2)]
+
+    def walk(host):
+        ba.M = trip._BandCells(host, ba.max_shift)
+        return ba.traceback()
+
+    for _ in range(TRIPLET_RUNS):
+        s_up, (t1, t2) = timed(upload)
+        s_fill, ys = timed(lambda: trip.fill_slabs_cuda(t1, t2, *p,
+                                                        device=dev))
+        s_copy, host = timed(lambda: ys.cpu().numpy())
+        s_walk, _ = timed(lambda: walk(host))
+        for key, sec in zip(found, (s_up, s_fill, s_copy, s_walk)):
+            found[key].append(sec * 1e3)
+    found["slab_bytes"] = int(ys.numel()) * 4
+    return found
+
+
+def phase_triplet(mol, dev, errs: dict) -> tuple:
+    """The triplet aligner through its default engine, the CUDA kernel
+    (counted launches): the DNA-Pol-1 pair at max_shift 1 (route "shared":
+    score TRIPLET_DNAPOL_SCORE, and score, trace, rows, rows with
+    structures and eval_trace lines equal to the plain twin's on the CPU),
+    and the TRIPLET_BIG pair at max_shift 8 (route "global").  Then, not
+    counted: at DNA-Pol-1 the slabs of both routes equal to the twin's on
+    the card on the domain; at TRIPLET_BIG the kernel's slabs equal to the
+    twin's on the card, and the aligner's score to the twin's cell; each
+    route's time (CUDA events, warm; at DNA-Pol-1 in turns, global,
+    shared, shared, global) beside the twin's on the card and on the CPU,
+    the bounds, the chain floors (one L2 load a diagonal, csrc/probe.cu,
+    for "global"; "shared" on a pair of one row, whose diagonals are a
+    barrier, the shared loads and the W-step chain alone); optimize()'s
+    stages; the kernel on a 200 x 200 window against fill_oracle in every
+    banded cell.  Returns (report, launches, {kernel: (ms, twin ms)},
+    {kernel: bound})."""
+    big = triplet_big_pair(mol)
+    big_params = dict(TRIPLET_PARAMS, max_shift=TRIPLET_BIG[2])
     reset_counts()
-    seconds, got = timed(lambda: triplet_outputs(
-        BiAlignerTriplet(seqA, seqB, strA, strB, **TRIPLET_PARAMS)))
+    seconds, (ba, got) = timed(lambda: (lambda bt: (
+        bt, triplet_outputs(bt)))(triplet_aligner(mol, **TRIPLET_PARAMS)))
+    big_s, (bb, big_got) = timed(lambda: (lambda bt: (
+        bt, triplet_outputs(bt)))(triplet_aligner(big, **big_params)))
     launches = path_counts("triplet")
-    ref = BiAlignerTriplet(seqA, seqB, strA, strB, engine="torch",
-                           device="cpu", **TRIPLET_PARAMS)
+    check(trip.triplet_route(len(mol[0]), ba.max_shift) == "shared"
+          and trip.triplet_route(len(big[0]), bb.max_shift) == "global",
+          "the triplet pairs' routes")
+    check(got[0] == TRIPLET_DNAPOL_SCORE, f"triplet DNA-Pol-1 score "
+          f"{got[0]}, not {TRIPLET_DNAPOL_SCORE}")
+    ref = triplet_aligner(mol, engine="torch", device="cpu", **TRIPLET_PARAMS)
     cpu_s, _ = timed(ref.optimize)
     check(got == triplet_outputs(ref), f"triplet on the kernel (score "
           f"{got[0]}) differs from the twin on the CPU")
 
-    ba = BiAlignerTriplet(seqA, seqB, strA, strB, **TRIPLET_PARAMS)
     optimize_s = [timed(ba.optimize)[0] for _ in range(3)]
-    n, m, S = len(seqA), len(seqB), ba.max_shift
+    stages = triplet_stages(ba, dev)
+    n, m, S = len(mol[0]), len(mol[2]), ba.max_shift
     t1, t2 = tables_to_torch(ba.mu1, ba.mu2, dev)
     p = (S, ba.gamma, ba.delta)
-    ys = trip.fill_slabs_cuda(t1, t2, *p, device=dev)
-    kernel_ms = [cuda_ms(lambda: trip.fill_slabs_cuda(t1, t2, *p, device=dev,
-                                                      ys=ys), 1)[0]
-                 for _ in range(TRIPLET_RUNS)]
     plain_ms, twin = cuda_ms(lambda: trip.fill_slabs(ba.mu1, ba.mu2, *p,
                                                      device=dev), 1)
     live = trip.domain(n, m, S, dev)
-    e = int((ys.long() - twin.long())[live].abs().max())
-    check(e == 0, f"triplet_fill at DNA-Pol-1: max |err| {e}")
-    errs["triplet_fill"] = max(errs["triplet_fill"], e)
+    ys = {route: trip.fill_slabs_cuda(t1, t2, *p, device=dev, route=route)
+          for route in trip.ROUTES}
+    # the kernels alone, in turns; route "shared" also staged (480 threads,
+    # two rows a thread: the tables in shared memory)
+    launch = {route: triplet_launcher(route, ba.mu1, ba.mu2, *p, dev)
+              for route in trip.ROUTES}
+    launch["staged"] = triplet_launcher("shared", ba.mu1, ba.mu2, *p, dev,
+                                        threads=TRIPLET_STAGED_THREADS)
+    for call, _ in launch.values():
+        call()
+    for route, slabs in [*ys.items(), *((r, v[1]) for r, v in launch.items())]:
+        e = int((slabs.long() - twin.long())[live].abs().max())
+        name = f"triplet_fill_{'shared' if route == 'staged' else route}"
+        check(e == 0, f"{name} ({route}) at DNA-Pol-1: max |err| {e}")
+        errs[name] = max(errs[name], e)
+    kernel_ms = {route: [] for route in launch}
+    for _ in range(TRIPLET_RUNS):
+        for route in ("global", "shared", "staged", "staged", "shared",
+                      "global"):
+            kernel_ms[route].append(cuda_ms(launch[route][0], 1)[0])
+    wrapper_ms = {route: min(cuda_ms(lambda: trip.fill_slabs_cuda(
+        t1, t2, *p, device=dev, ys=ys[route], route=route), 1)[0]
+        for _ in range(3)) for route in trip.ROUTES}
     cells = int(live.sum())
+    del ys, twin, live, launch
+
+    # the pair beyond one CTA, on route "global"
+    bn, bm, bS = TRIPLET_BIG
+    b1, b2 = tables_to_torch(bb.mu1, bb.mu2, dev)
+    bp = (bS, bb.gamma, bb.delta)
+    big_plain_ms, big_twin = cuda_ms(lambda: trip.fill_slabs(
+        bb.mu1, bb.mu2, *bp, device=dev), 1)
+    big_ys = trip.fill_slabs_cuda(b1, b2, *bp, device=dev)
+    big_live = trip.domain(bn, bm, bS, dev)
+    e = int((big_ys.long() - big_twin.long())[big_live].abs().max())
+    check(e == 0, f"triplet_fill_global at {TRIPLET_BIG}: max |err| {e}")
+    errs["triplet_fill_global"] = max(errs["triplet_fill_global"], e)
+    check(big_got[0] == int(big_twin[bn + bm, bn, bS]),
+          f"triplet at {TRIPLET_BIG}: score {big_got[0]} differs from the "
+          "twin's last cell")
+    big_call, _ = triplet_launcher("global", bb.mu1, bb.mu2, *bp, dev)
+    big_ms = [cuda_ms(big_call, 1)[0] for _ in range(3)]
+    big_cells = int(big_live.sum())
+    del big_ys, big_twin, big_live, big_call
+
+    # the chain floors: one L2 load a diagonal; a pair of one row on
+    # "shared", at DNA-Pol-1's threads
     l2_ns = chain_latency(dev)["ns_per_load_l2"]
+    fm = TRIPLET_FLOOR_M
+    f1 = np.zeros((1, fm + 1), dtype=np.int32)
+    floor_call, _ = triplet_launcher("shared", f1, f1, *p, dev,
+                                     threads=trip.default_threads(n))
+    floor_call()
+    floor_ms = min(cuda_ms(floor_call, 1)[0] for _ in range(3))
+    del floor_call
 
     w = TRIPLET_WINDOW
-    win = BiAlignerTriplet(seqA[100:100 + w], seqB[100:100 + w],
-                           strA[100:100 + w], strB[100:100 + w],
-                           **TRIPLET_PARAMS)
+    win = triplet_aligner(tuple(x[100:100 + w] for x in mol),
+                          **TRIPLET_PARAMS)
     window = trip.oracle_layout(
         trip.fill_slabs_cuda(win.mu1, win.mu2, S, win.gamma, win.delta,
                              device=dev).cpu().numpy(), w, w, S)
@@ -3816,19 +3980,38 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
     check(np.array_equal(window[band], want[band]),
           "the triplet kernel differs from fill_oracle on the window")
     b = triplet_bound(n, m, S, cells)
+    big_b = triplet_bound(bn, bm, bS, big_cells)
+    D = n + m + 1
+    floor_us = floor_ms * 1e3 / (fm + 1)
     found = dict(
         dnapol_score=got[0], trace_columns=len(got[1]),
         outputs_equal_to_twin_on_cpu=True, first_run_s=seconds,
-        optimize_s=optimize_s, kernel_ms=kernel_ms,
-        kernel_ms_min_max=(min(kernel_ms), max(kernel_ms)),
-        us_per_diagonal=min(kernel_ms) * 1e3 / (n + m + 1),
+        optimize_s=optimize_s, optimize_stages=stages,
+        kernel_ms=kernel_ms,
+        kernel_ms_min_max={r: (min(v), max(v)) for r, v in kernel_ms.items()},
+        us_per_diagonal={r: min(v) * 1e3 / D for r, v in kernel_ms.items()},
+        staged_threads=TRIPLET_STAGED_THREADS,
+        wrapper_ms=wrapper_ms,
         twin_on_card_ms=plain_ms, twin_on_cpu_s=cpu_s,
-        slabs_equal_to_twin_on_card=True, domain_cells=cells,
+        slabs_of_both_routes_equal_to_twin_on_card=True, domain_cells=cells,
         bound_ms=b[0], bound_by=b[1], ns_per_load_l2=l2_ns,
-        chain_floor_ms=(n + m + 1) * l2_ns * 1e-6,
+        chain_floor_global_ms=D * l2_ns * 1e-6,
+        one_row_us_per_diagonal=floor_us,
+        chain_floor_shared_ms=D * floor_us * 1e-3,
+        big=f"{bn}x{bm} max_shift {bS}", big_route="global",
+        big_score=big_got[0], big_trace_columns=len(big_got[1]),
+        big_first_run_s=big_s, big_kernel_ms=big_ms,
+        big_us_per_diagonal=min(big_ms) * 1e3 / (bn + bm + 1),
+        big_twin_on_card_ms=big_plain_ms, big_slabs_equal_to_twin=True,
+        big_domain_cells=big_cells, big_bound_ms=big_b[0],
+        big_bound_by=big_b[1],
+        big_shared_bytes=trip.shared_bytes(bn, bS),
         window=f"{w}x{w}", window_cells=int(band.sum()),
         window_equal_to_oracle=True)
-    return found, launches, (min(kernel_ms), plain_ms), b
+    times = {"triplet_fill_shared": (min(kernel_ms["shared"]), plain_ms),
+             "triplet_fill_global": (min(big_ms), big_plain_ms)}
+    bounds = {"triplet_fill_shared": b, "triplet_fill_global": big_b}
+    return found, launches, times, bounds
 
 
 # -- phase 5, mesh: data parallelism and the sequence split ------------------
@@ -4328,13 +4511,18 @@ def main() -> int:
     errs = dict.fromkeys(KERNELS, 0)
     if args.triplet_only:
         ran = phase_triplet_kernels(dev, errs)
-        say("3 kernels, triplet", triplet_n_m_shift_tables=ran,
-            triplet_threads=TRIPLET_THREADS, max_abs_err=errs["triplet_fill"])
-        triplet, triplet_launches, _times, _bound = phase_triplet(
+        say("3 kernels, triplet", triplet_n_m_shift_tables_routes=ran,
+            triplet_threads=TRIPLET_THREADS,
+            max_abs_err={k: errs[k] for k in PATHS["triplet"]})
+        triplet, triplet_launches, times, bounds = phase_triplet(
             dnapol_pair(), dev, errs)
         say("5 triplet", nvidia_smi=smi, launches=triplet_launches, **triplet)
-        check(triplet_launches["triplet_fill"] > 0,
-              "kernel triplet_fill not launched by the triplet path")
+        say("5 kernel times, triplet", nvidia_smi=smi, ms_kernel_vs_plain={
+            k: {"kernel_ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1]} for k, v in times.items()})
+        for name in PATHS["triplet"]:
+            check(triplet_launches[name] > 0,
+                  f"kernel {name} not launched by the triplet path")
         return 0
     if args.mesh_only:
         say("3 kernels, sequence split", max_abs_err=errs,
@@ -4403,14 +4591,14 @@ def main() -> int:
 
     # phase_triplet sets the counts to 0 before its path and reads them
     # after it, before the twins and the timing run
-    triplet, triplet_launches, triplet_times, triplet_bound = phase_triplet(
+    triplet, triplet_launches, triplet_times, triplet_bounds = phase_triplet(
         mol, dev, errs)
     launches.update(triplet_launches)
     say("5 triplet", nvidia_smi=smi, launches=triplet_launches, **triplet)
 
     times, bounds, more = phase_full_timing(mol, errs)
-    times["triplet_fill"] = triplet_times
-    bounds["triplet_fill"] = triplet_bound
+    times.update(triplet_times)
+    bounds.update(triplet_bounds)
     batch_times, batch_bounds, batch_more = phase_batch_timing(batches, errs)
     more.update(batch_more)
     times.update(batch_times)

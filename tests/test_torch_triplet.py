@@ -117,3 +117,52 @@ def test_fill_slabs_cuda_on_the_cpu_is_the_twin(n, m, S):
         n + 1)
     with pytest.raises(ValueError, match="one 2-D shape"):
         T.fill_slabs_cuda(mu1, mu2[:, :-1], S, -200, -250, device="cpu")
+
+
+@pytest.mark.parametrize("S,last_shared,threads", [
+    (1, 3873, None),       # default threads: one row a thread up to 1023,
+    (0, 8300, None),       # then staged tables
+    (8, 1023, None),       # one row a thread; staged would need 291,100 B
+    (9, 734, None),        # run-time widths: always staged
+    (8, 817, 512),         # several rows a thread: staged
+])
+def test_triplet_route_at_its_boundary(S, last_shared, threads):
+    """``triplet_route`` is "shared" while ring (and staged tables) fit one
+    CTA's 232,448 bytes, and "global" one row beyond."""
+    W = 2 * S + 1
+
+    def staged(n):
+        t = T.default_threads(n) if threads is None else threads
+        return S > T.STATIC_SHIFTS or n + 1 > t
+
+    for n in (last_shared, last_shared + 1):
+        want = 4 * (n + 1) * (3 * W + (W + 3 if staged(n) else 0))
+        assert T.shared_bytes(n, S, threads) == want
+    assert T.shared_bytes(last_shared, S, threads) <= T.CTA_SHARED_LIMIT
+    assert T.shared_bytes(last_shared + 1, S, threads) > T.CTA_SHARED_LIMIT
+    assert T.triplet_route(last_shared, S, threads) == "shared"
+    assert T.triplet_route(last_shared + 1, S, threads) == "global"
+    assert T.triplet_route(928, 1) == "shared"         # DNA-Pol-1
+    assert T.triplet_route(1500, 8) == "global"        # its ring: 306 KB
+
+
+def test_forced_shared_route_beyond_one_cta_raises():
+    """A forced "shared" that does not fit raises and names the bytes, on
+    any device (the arguments are checked before the CPU's twin runs); a
+    forced "global", or the default route, runs there."""
+    mu = np.zeros((3875, 2), dtype=np.int32)            # n = 3874, m = 1
+    with pytest.raises(ValueError, match="232500 bytes"):
+        T.fill_slabs_cuda(mu, mu, 1, -200, -250, device="cpu",
+                          route="shared")
+    with pytest.raises(ValueError, match="291100 bytes"):
+        T.fill_slabs_cuda(mu[:1025], mu[:1025], 8, -200, -250,
+                          device="cpu", route="shared")
+    with pytest.raises(ValueError, match="route must be"):
+        T.fill_slabs_cuda(mu[:3], mu[:3], 1, -200, -250, device="cpu",
+                          route="cta")
+    rng = np.random.default_rng(4)
+    mu1, mu2 = _rand_tables(rng, 6, 5)
+    want = T.fill_slabs(mu1, mu2, 1, -200, -250, device="cpu")
+    for route in (None, "shared", "global"):
+        assert torch.equal(T.fill_slabs_cuda(mu1, mu2, 1, -200, -250,
+                                             device="cpu", route=route), want)
