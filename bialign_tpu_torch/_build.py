@@ -78,9 +78,11 @@ _SIGNATURES = {
     "bialign_seqsplit_block_affine": [_P, _I, _P] + [_I] * 5,
     "bialign_seqsplit_block_nonaffine": [_P, _I, _P] + [_I] * 5,
     # ys, mu1, mu2, n, m, S, 2 gamma, gamma + delta, threads, device, stream
-    # (csrc/triplet.cu: routes "global" and "shared")
+    # (csrc/triplet.cu: routes "global" and "shared"; route "cluster" takes
+    # the cluster's CTAs after the threads)
     "bialign_triplet_fill": [_P] * 3 + [_I] * 7 + [_P],
     "bialign_triplet_fill_shared": [_P] * 3 + [_I] * 7 + [_P],
+    "bialign_triplet_fill_cluster": [_P] * 3 + [_I] * 8 + [_P],
     # next, hops, sink, device, stream (csrc/probe.cu, for chip_smoke.py)
     "bialign_probe_chase": [_P, _I, _P, _I, _P],
 }

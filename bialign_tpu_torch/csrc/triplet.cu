@@ -1,19 +1,20 @@
 // The triplet aligner's fill: a 3-D banded max-plus wavefront over one copy
 // of A and two copies of B (bialign_tpu_torch/models/triplet.py), one CTA
-// for the pair.
+// for the pair, or one thread-block cluster of CTAs.
 //
 // Replaces bialign_tpu/models/triplet.py:fill_xla, the XLA scan over the
-// anti-diagonals d = i + j (jit at :188).  Both routes leave what the plain
+// anti-diagonals d = i + j (jit at :188).  Every route leaves what the plain
 // twin fill_slabs leaves: the slabs ys[d, i, sk] int32 [n+m+1, n+1, 2S+1],
 // the band offset sk = k - j + S, on every cell of the domain (rows
 // max(0, d-m) <= i <= min(n, d), 0 <= k <= m) and nowhere else: a cell off
 // the domain is never written, and by the guards never read.  The host
 // (models/triplet.py triplet_route) picks the route before the launch.
 //
-// Route "shared" (`triplet_fill_shared`, bialign_triplet_fill_shared).  One
-// CTA runs every diagonal, one __syncthreads() between two; a thread takes
-// the rows i = threadIdx.x (mod blockDim.x) and, for each, the band offsets
-// sk in increasing order.  The working set stays on the SM:
+// Route "shared" (`triplet_fill_ring<kW, kStaged, false>`,
+// bialign_triplet_fill_shared).  One CTA runs every diagonal, one
+// __syncthreads() between two; a thread takes the rows i = threadIdx.x (mod
+// blockDim.x) and, for each, the band offsets sk in increasing order.  The
+// working set stays on the SM:
 //  - the last three diagonals, a ring [3, n+1, W] of int32 in dynamic
 //    shared memory: diagonal d goes to slot d % 3, and the six cases that
 //    advance i or j read diagonals d-1 and d-2 there.  The kernel reads no
@@ -56,18 +57,64 @@
 //    branches would put a chain of divergent branches, each waiting on a
 //    shared load, on the edge rows that every barrier waits for.
 // Shared memory: (n+1) W 12 bytes for the ring, (n+1) (W+3) 4 bytes more
-// when staged (triplet_shared_bytes; the host's shared_bytes is the same
+// when staged (triplet_ring_bytes; the host's shared_bytes is the same
 // sum), at most the 227 KB a CTA can have: one row a thread up to 1023
 // rows at max_shift 0-8; staged up to 3873 rows at max_shift 1 and 817 at 8.
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W; tools/triplet_probe.py,
 // PERF.md, Findings): one SM issues every live row's ~100 instructions a
 // diagonal and its shared and global accesses (9 loads, 3 + 3 stores); at
-// DNA-Pol-1 a diagonal takes ~1,240 cycles, a warp waits ~40 of them at
-// the barrier, and a pair of one row still takes ~800 a diagonal, its
+// DNA-Pol-1 a diagonal takes ~1,180 cycles, a warp waits ~45 of them at
+// the barrier, and a pair of one row still takes ~790 a diagonal, its
 // chain's.
 //
+// Route "cluster" (`triplet_fill_ring<kW, kStaged, true>`,
+// bialign_triplet_fill_cluster), for pairs whose ring does not fit one CTA:
+// one launch of one thread-block cluster of C CTAs, each on an SM of its
+// own.  It replaces the same XLA scan.  CTA r (its rank in the cluster)
+// takes the contiguous rows [r R, min(n+1, (r+1) R)), R = ceil((n+1) / C),
+// and runs route "shared"'s body on them: the same thread-to-row mapping,
+// the same row functions, the tables in registers (a row a thread, W
+// compiled) or staged (its own rows' anti-diagonals only).  Its ring
+// [3, R+1, W] holds the last three diagonals of its rows and, as local row
+// 0, the halo: row r R - 1, the last row of CTA r-1, which row r R reads as
+// its row i-1.  The dependence between rows is one row deep, so in each
+// diagonal d the thread of a CTA's last row stores that row's W values
+// into the next CTA's halo, slot d % 3, through distributed shared memory
+// (cooperative_groups map_shared_rank: a store to shared::cluster), and
+// one cluster barrier a diagonal publishes it.  Three slots are enough
+// with one barrier a diagonal: slot d % 3 of the halo held diagonal d-3,
+// which CTA r+1 last read in diagonal d-1, before the barrier that ends
+// d-1 and so before CTA r stores diagonal d there.  Every thread of every
+// CTA meets every barrier, live rows or not (a CTA with no rows too), the
+// first before any store to another CTA (all have started), the last
+// after the last such store: no CTA exits while another may still write
+// into it.
+// The barrier is the CTA's __syncthreads() (its own rows, for its next
+// diagonal) and the cluster's barrier.cluster.arrive.relaxed / .wait
+// (acquire), with a fence.acq_rel.cluster in the one thread that stored a
+// halo row before it: an arrive with release semantics compiles to a
+// MEMBAR.ALL.GPU in every thread, which waits for all the thread's stores
+// (0.5 us a diagonal more at 1500 x 1490; the probe's variant release).  The
+// slabs do not go to ys from the rows' threads: a row's W values from one
+// lane are W stores each to a sector of its own.  The CTA flushes
+// diagonal d-1 from its ring slot between the arrive and the wait of
+// diagonal d, neighbouring threads on neighbouring cells of ys, and with a
+// row a thread only warps added after the rows' flush (where enough fit),
+// so that the edge warp, the last to arrive, does not add a flush to each
+// diagonal.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; tools/triplet_probe.py;
+// PERF.md, Findings), at 1500 x 1490, max_shift 8, C = 8 (188 rows a CTA,
+// W = 17): 2.20 us, ~4,400 cycles a diagonal, 130x the byte bound.  The
+// slowest warp a diagonal works ~2,200 cycles: the warp of row 0 (i = 0
+// masks four cases, so it runs the guarded form while row 0 is live) or a
+// warp at one of the domain's two edges; the others' rows take less.  The
+// barrier, with the loop's own work, ~1,500 (variant barriers_only: 0.77
+// us a diagonal); the flush 0.75 us a diagonal more than none, the halo
+// 0.05.  The guarded form at the edges and row 0, and the barrier, are
+// what a further redesign has to take.
+//
 // Route "global" (`triplet_fill`, bialign_triplet_fill), for pairs whose
-// ring does not fit one CTA.  The same CTA and rows, but the six cases read
+// ring no cluster holds.  The same CTA and rows, but the six cases read
 // diagonals d-1 and d-2 back from ys, which the kernel wrote before the
 // barrier (the last two diagonals stay in the L1 and the L2), and the
 // tables are read where a cell needs them.
@@ -84,6 +131,8 @@
 
 #include <algorithm>
 
+#include <cluster_barrier.cuh>
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -94,6 +143,15 @@ namespace {
 // Band widths W = 2S+1 compiled as constants (S = 0..kTripletStaticShifts);
 // a larger S runs the same code with W read at run time.
 constexpr int kTripletStaticShifts = 8;
+// With a row a thread, up to this W a group's four diagonals are four
+// inlined steps, each naming its registers; above it one call site in a
+// loop selects them, so that the rows' code stands in the kernel once a
+// group and not four times: at W = 17 four copies outgrow the SM's
+// instruction cache (1500 x 1490, max_shift 8: 2.54 against 2.20 us a
+// diagonal; at W = 3 the selects cost more, 0.54 against 0.60 at
+// DNA-Pol-1; tools/triplet_probe.py, variant four_steps, NVIDIA H100 80GB
+// HBM3, 700 W).  W = 5 to 15 are not measured.
+constexpr int kInlinedStepsW = 5;
 constexpr int kTripletMaxThreads = 1024;
 // Dynamic shared memory of one CTA on an H100: at most, and without the
 // opt-in attribute
@@ -177,38 +235,55 @@ cudaError_t launch(int32_t* ys, const int32_t* mu1, const int32_t* mu2, int n,
   return cudaGetLastError();
 }
 
-// -- route "shared" ----------------------------------------------------------
+// -- routes "shared" and "cluster" -------------------------------------------
 
-// Whether route "shared" stages the tables in shared memory: several rows a
-// thread, or W at run time.
-inline bool triplet_staged(int n, int S, int threads) {
-  return S > kTripletStaticShifts || n + 1 > threads;
+// Threads of a CTA of route "cluster" at most: its rows are a share of the
+// pair's, and a compiled W up to 17 wants more than the 64 registers a
+// thread that 1024 threads leave.
+constexpr int kClusterMaxThreads = 512;
+// CTAs of a cluster: at most, and without the non-portable opt-in
+constexpr int kClusterMax = 16;
+constexpr int kClusterPortable = 8;
+
+// Whether a CTA stages the tables in shared memory: several rows a thread,
+// or W at run time.
+inline bool triplet_staged(int rows, int S, int threads) {
+  return S > kTripletStaticShifts || rows > threads;
 }
 
-// Bytes of route "shared"'s dynamic shared memory: the ring [3, n+1, W],
-// and when staged mu2's anti-diagonals [W+1, n+1] and mu1's [2, n+1].
-inline size_t triplet_shared_bytes(int n, int S, bool staged) {
+// Bytes of a CTA's dynamic shared memory for `rows` rows of its own: the
+// ring [3, rows + halo, W] (halo 1 on route "cluster": the row before the
+// CTA's first), and when staged mu2's anti-diagonals [W+1, rows] and mu1's
+// [2, rows].  Route "shared": rows n+1, halo 0.
+inline size_t triplet_ring_bytes(int rows, int halo, int S, bool staged) {
   const size_t W = 2 * static_cast<size_t>(S) + 1;
-  return static_cast<size_t>(n + 1) * (3 * W + (staged ? W + 3 : 0)) *
+  return (3 * static_cast<size_t>(rows + halo) * W +
+          (staged ? static_cast<size_t>(rows) * (W + 3) : 0)) *
          sizeof(int32_t);
 }
 
-// One row's W values of diagonal d (route "shared"): the ring's rows `a`
-// (d-1, i), `b` (d-1, i-1) and `c` (d-2, i-1), mu1[i, j] `m1` and
-// mu2[i, j+sk-S] as `m2_at(sk)`; each value of the domain goes to the
-// ring's row `here` and to ys at `out`.  No branch: with W compiled the
-// 3W predecessors are loaded at once, before any maximum (at i = 0 `b` and
-// `c` are row i's own, in the ring and never taken), and every case the
-// guards exclude gives INVALID to the maximum, so that a value off the
-// domain may be loaded with its row but never enters a maximum; the six
-// cases that advance i or j meet in a tree of maxima, and only (0,0,1)
-// waits for the value at sk-1.  With W at run time each predecessor is
-// read under its case's guard.
+// One row's W values of diagonal d (routes "shared" and "cluster"): the
+// ring's rows `a` (d-1, i), `b` (d-1, i-1) and `c` (d-2, i-1), mu1[i, j]
+// `m1` and mu2[i, j+sk-S] as `m2_at(sk)`; each value of the domain goes to
+// the ring's row `here`, on route "shared" to ys at `out` (on route
+// "cluster" null: the CTA flushes its rows a diagonal later) and, for the
+// last row of a CTA that has a right neighbour, to that CTA's halo row
+// `halo` (else null).
+// No branch: with W compiled the 3W predecessors are loaded at once,
+// before any maximum (at i = 0 `b` and `c` are row i's own, in the ring
+// and never taken), and every case the guards exclude gives INVALID to the
+// maximum, so that a value off the domain may be loaded with its row but
+// never enters a maximum; the six cases that advance i or j meet in a tree
+// of maxima, and only (0,0,1) waits for the value at sk-1.  With W at run
+// time each predecessor is read under its case's guard.
 template <int kW, class M2At>
 __device__ __forceinline__ void row_values(
-    int32_t* here, int32_t* out, const int32_t* a, const int32_t* b,
-    const int32_t* c, int32_t m1, const M2At& m2_at, int d, int i, int j,
-    int m, int S, int32_t two_gamma, int32_t gamma_delta) {
+    int32_t* here, int32_t* out, int32_t* halo, const int32_t* a,
+    const int32_t* b, const int32_t* c, int32_t m1, const M2At& m2_at, int d,
+    int i, int j, int m, int S, int32_t two_gamma, int32_t gamma_delta) {
+  // S and W as constants where kW is compiled, so that each step's guards
+  // compare j with a constant
+  const int Sx = kW > 0 ? (kW - 1) / 2 : S;
   const int W = kW > 0 ? kW : 2 * S + 1;
   int32_t A[kW > 0 ? kW : 1], B[kW > 0 ? kW : 1], C[kW > 0 ? kW : 1];
   if constexpr (kW > 0) {
@@ -226,12 +301,14 @@ __device__ __forceinline__ void row_values(
       return row[x];
   };
   const bool up = i >= 1, left = j >= 1;
+  const int jm = j - m;
   int32_t prev = NEG_INF;                           // the value at sk-1
 #pragma unroll
   for (int sk = 0; sk < W; ++sk) {
-    const int k = j + sk - S;
-    const bool live = k >= 0 && k <= m;
-    const bool deep = live && k >= 1, wide = live && sk + 1 < W;
+    // k = j + sk - S: live 0 <= k <= m, deep k >= 1
+    const int off = Sx - sk;
+    const bool live = j >= off && jm <= off;
+    const bool deep = live && j > off, wide = live && sk + 1 < W;
     const int32_t m2 = m2_at(sk);
     const int32_t t111 = up && left && deep                   // (1,1,1)
         ? wrap_add(at(c, C, sk), m1, m2) : INVALID;
@@ -250,12 +327,15 @@ __device__ __forceinline__ void row_values(
     if (deep && sk >= 1)                                      // (0,0,1)
       best = max(best, wrap_add(prev, gamma_delta));
     int32_t v = best == INVALID ? NEG_INF : best;
-    if (d == 0 && sk == S) v = 0;                             // the origin
-    if (live) {
-      here[sk] = v;
-      out[sk] = v;
-      prev = v;
-    }
+    if (sk == Sx && d == 0) v = 0;                            // the origin
+    // (no branch: a store each under its predicate, and `prev` always v,
+    // since where sk is off the domain so is the (0,0,1) term of sk+1 or
+    // sk+1 itself; a branch a step kept the compiler from overlapping
+    // the steps)
+    if (live) here[sk] = v;
+    if (live && out != nullptr) out[sk] = v;
+    if (live && halo != nullptr) halo[sk] = v;
+    prev = v;
   }
 }
 
@@ -266,9 +346,9 @@ __device__ __forceinline__ void row_values(
 template <int kW, class M2At>
 __device__ __forceinline__ void row_inside(
     int32_t* __restrict__ here, int32_t* __restrict__ out,
-    const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-    const int32_t* __restrict__ c, int32_t m1, const M2At& m2_at,
-    int32_t two_gamma, int32_t gamma_delta) {
+    int32_t* __restrict__ halo, const int32_t* __restrict__ a,
+    const int32_t* __restrict__ b, const int32_t* __restrict__ c, int32_t m1,
+    const M2At& m2_at, int32_t two_gamma, int32_t gamma_delta) {
   int32_t A[kW], B[kW], C[kW];
 #pragma unroll
   for (int x = 0; x < kW; ++x) {
@@ -291,19 +371,20 @@ __device__ __forceinline__ void row_inside(
                  wrap_add(prev, gamma_delta));                     // (0,0,1)
     const int32_t v = best == INVALID ? NEG_INF : best;
     here[sk] = v;
-    out[sk] = v;
+    if (out != nullptr) out[sk] = v;
+    if (halo != nullptr) halo[sk] = v;
     prev = v;
   }
 }
 
-// The tables of route "shared" (models/triplet.py shared_tables), each
-// skewed: value (i, k) at X[(i + k) (n+1) + i], rows e = i + k from 0 to
-// triplet_skew_rows - 1, zero where k lies outside [0, m].  Row e of mu1
-// holds the values mu1[i, e-i] that diagonal e brings to each row i, and
-// row d+S of mu2 the values mu2[i, d-i+S]: a warp's rows read them from
-// one or two cache lines, where rows of the tables' own layout lie in as
-// many lines as the warp has lanes.  Row kappa is also the anti-diagonal
-// that kStaged copies.
+// The tables of routes "shared" and "cluster" (models/triplet.py
+// shared_tables), each skewed: value (i, k) at X[(i + k) (n+1) + i], rows
+// e = i + k from 0 to triplet_skew_rows - 1, zero where k lies outside
+// [0, m].  Row e of mu1 holds the values mu1[i, e-i] that diagonal e
+// brings to each row i, and row d+S of mu2 the values mu2[i, d-i+S]: a
+// warp's rows read them from one or two cache lines, where rows of the
+// tables' own layout lie in as many lines as the warp has lanes.  Row
+// kappa is also the anti-diagonal that kStaged copies.
 __host__ __device__ __forceinline__ int triplet_skew_rows(int n, int m,
                                                           int S) {
   return n + m + S + 8;
@@ -317,62 +398,138 @@ __device__ __forceinline__ int4 skewed_quad(const int32_t* __restrict__ x,
               __ldg(at + 3 * P)};
 }
 
-// Row kappa of a skewed table (the rows i of anti-diagonal kappa) into
-// dst[i], asynchronously, by the whole CTA (kStaged true).
+// Row kappa of a skewed table, the CTA's rows i in [first, end) of
+// anti-diagonal kappa, into dst[i - first], asynchronously, by the whole
+// CTA (kStaged true).
 __device__ __forceinline__ void stage_antidiagonal(
-    int32_t* dst, const int32_t* __restrict__ x, int kappa, int n, int m) {
+    int32_t* dst, const int32_t* __restrict__ x, int kappa, int n, int m,
+    int first, int end) {
   const int32_t* row = x + static_cast<long long>(kappa) * (n + 1);
-  for (int i = max(0, kappa - m) + threadIdx.x; i <= min(n, kappa);
+  for (int i = max(first, kappa - m) + threadIdx.x; i <= min(end - 1, kappa);
        i += blockDim.x)
-    __pipeline_memcpy_async(dst + i, row + i, sizeof(int32_t));
+    __pipeline_memcpy_async(dst + i - first, row + i, sizeof(int32_t));
 }
 
-// Route "shared": the fill of ys [n+m+1, n+1, W] (only the domain's cells
-// written), the last three diagonals in shared memory; kW = W, or 0 for W
-// at run time (then kStaged).  kStaged false needs n+1 <= blockDim.x.  The
-// tables skewed, as above.
-template <int kW, bool kStaged>
-__global__ void __launch_bounds__(kTripletMaxThreads)
-    triplet_fill_shared(int32_t* ys, const int32_t* __restrict__ mu1,
-                        const int32_t* __restrict__ mu2, int n, int m, int S,
-                        int32_t two_gamma, int32_t gamma_delta) {
+// The barrier between two diagonals: the CTA's (route "shared"), or on
+// route "cluster" the CTA's (its own rows) and then the cluster's
+// (csrc/cluster_barrier.cuh), whose arrive is relaxed: the thread that
+// stored a halo row into the next CTA's shared memory orders it by a
+// fence at cluster scope first (`halo`).  (An arrive with release
+// semantics is a MEMBAR.ALL.GPU in every thread, which waits for all its
+// stores to ys.)  On route "cluster" the work `between` runs after the
+// arrive and before the wait.
+template <bool kCluster, class Between>
+__device__ __forceinline__ void ring_barrier(bool halo,
+                                             const Between& between) {
+  __syncthreads();
+  if constexpr (kCluster) {
+    if (halo) cluster_fence();
+    cluster_arrive_relaxed();
+    between();
+    cluster_wait();
+  }
+}
+
+// Routes "shared" (kCluster false: one CTA, all n+1 rows) and "cluster"
+// (kCluster true: CTA r of a cluster of C the rows [r R, min(n+1, (r+1)
+// R)), R = `rows`): the fill of ys [n+m+1, n+1, W] (only the domain's
+// cells written), the last three diagonals of the CTA's rows in its shared
+// memory; kW = W, or 0 for W at run time (then kStaged).  kStaged false
+// needs `rows` <= blockDim.x.  The tables skewed, as above.
+template <int kW, bool kStaged, bool kCluster>
+__global__ void __launch_bounds__(kCluster ? kClusterMaxThreads
+                                           : kTripletMaxThreads)
+    triplet_fill_ring(int32_t* ys, const int32_t* __restrict__ mu1,
+                      const int32_t* __restrict__ mu2, int n, int m, int S,
+                      int32_t two_gamma, int32_t gamma_delta, int rows) {
   static_assert(kStaged || kW > 0, "registers hold compiled widths only");
   extern __shared__ int32_t smem[];
   const int W = kW > 0 ? kW : 2 * S + 1;
   const int P = n + 1;
-  const int slab = P * W;
+  // this CTA's rows [first, end), at local rows i - first + kHalo of the
+  // ring; local row 0 of a CTA of route "cluster" is its halo, the last
+  // row of the CTA before it (none for the first)
+  constexpr int kHalo = kCluster ? 1 : 0;
+  int rank = 0;
+  if constexpr (kCluster)
+    rank = cooperative_groups::this_cluster().block_rank();
+  const int first = min(P, rank * rows), end = min(P, first + rows);
+  const int slab = (rows + kHalo) * W;
   const int T = blockDim.x, t = threadIdx.x;
-  int32_t* ring = smem;                     // [3][P][W]: slot d % 3
-  int32_t* m2s = ring + 3 * slab;           // [W+1][P]: slot kappa % (W+1)
-  int32_t* m1s = m2s + (W + 1) * P;         // [2][P]: slot d % 2
+  int32_t* ring = smem;                     // [3][rows + kHalo][W]: d % 3
+  int32_t* m2s = ring + 3 * slab;           // [W+1][rows]: kappa % (W+1)
+  int32_t* m1s = m2s + (W + 1) * rows;      // [2][rows]: d % 2
+  // the ring of the CTA after this one, whose halo this CTA's last row is
+  int32_t* next = nullptr;
+  if constexpr (kCluster)
+    if (end < P)
+      next = cooperative_groups::this_cluster().map_shared_rank(ring,
+                                                                rank + 1);
 
   // One diagonal: each of this thread's live rows, its W values from the
   // ring's diagonals d-1 and d-2 and the tables' values `m1` and
-  // `m2_at(sk)` (of the row i), to the ring and to ys.
+  // `m2_at(sk)` (of the row i), to the ring and on route "shared" to ys,
+  // and the CTA's last row also to the next CTA's halo.
   int r0 = 0, r1 = 2, r2 = 1;               // slots of d, d-1, d-2
   // (`inside`: every live row of this thread's warp lies inside)
   auto diagonal_rows = [&](int d, int i, const auto& m1_of,
                            const auto& m2_of, bool inside) {
-    int32_t* here = ring + r0 * slab + i * W;
-    int32_t* out = ys + (static_cast<long long>(d) * P + i) * W;
-    const int32_t* a = ring + r1 * slab + i * W;   // d-1, row i
+    const int at = (i - first + kHalo) * W;
+    int32_t* here = ring + r0 * slab + at;
+    int32_t* out = kCluster ? nullptr
+                            : ys + (static_cast<long long>(d) * P + i) * W;
+    int32_t* halo = i == end - 1 && next != nullptr ? next + r0 * slab
+                                                    : nullptr;
+    const int32_t* a = ring + r1 * slab + at;      // d-1, row i
     const int up = i >= 1 ? W : 0;
     const int32_t* b = a - up;                     // d-1, row i-1
-    const int32_t* c = ring + r2 * slab + i * W - up;   // d-2, row i-1
+    const int32_t* c = ring + r2 * slab + at - up;  // d-2, row i-1
     const auto m2_at = [&](int sk) { return m2_of(i, sk); };
     if constexpr (kW > 0) {
       if (inside) {
-        row_inside<kW>(here, out, a, b, c, m1_of(i), m2_at, two_gamma,
+        row_inside<kW>(here, out, halo, a, b, c, m1_of(i), m2_at, two_gamma,
                        gamma_delta);
         return;
       }
     }
-    row_values<kW>(here, out, a, b, c, m1_of(i), m2_at, d, i, d - i, m, S,
-                   two_gamma, gamma_delta);
+    row_values<kW>(here, out, halo, a, b, c, m1_of(i), m2_at, d, i, d - i,
+                   m, S, two_gamma, gamma_delta);
   };
-  // the barrier that ends diagonal d
-  auto end_diagonal = [&] {
-    __syncthreads();
+  // Route "cluster": the CTA's live rows of diagonal e (e >= 0), from the
+  // ring's slot `slot` to ys: the rows lie side by side in both, so
+  // neighbouring threads store neighbouring cells (a row's W values from
+  // its thread are W stores a lane, each to a sector of its own).  Only the
+  // cells of the domain.  With a row a thread, the whole warps after the
+  // rows' (the host gives a warp for ~1024 cells where they fit) flush,
+  // and the rows' warps do not: the last warp to arrive at a barrier, an
+  // edge's, would otherwise take its share after it; else every thread
+  // flushes.
+  const int row_threads = kStaged ? T : (rows + 31) / 32 * 32;
+  const int f0 = T - row_threads >= 32 ? row_threads : 0;
+  auto flush = [&](int e, int slot) {
+    const int lo = max(first, e - m), hi = min(end - 1, e);
+    const int32_t* from = ring + slot * slab + (lo - first + kHalo) * W;
+    int32_t* to = ys + (static_cast<long long>(e) * P + lo) * W;
+    if (t < f0) return;
+#pragma unroll 4
+    for (int x = t - f0; x < (hi - lo + 1) * W; x += T - f0) {
+      const int sk = x % W, k = e - lo - x / W + sk - S;
+      if (k >= 0 && k <= m) to[x] = from[x];
+    }
+  };
+  // The barrier that ends diagonal d; on route "cluster" between its
+  // halves the flush of diagonal d-1 (published by the barrier that ended
+  // d-1, overwritten in d+2), which so waits for no barrier.  Every thread
+  // of every CTA meets n+m+2 barriers (one before diagonal 0), live rows
+  // or not; after the last, the flush of n+m.
+  auto end_diagonal = [&](int d) {
+    // whether this thread stored the CTA's last row, live on d, as the next
+    // CTA's halo
+    const bool halo = next != nullptr && t == (end - 1 - first) % T &&
+                      d >= end - 1 && d - (end - 1) <= m;
+    ring_barrier<kCluster>(halo, [&] {
+      if (d >= 1) flush(d - 1, r1);
+    });
     const int r = r2;
     r2 = r1;
     r1 = r0;
@@ -383,99 +540,184 @@ __global__ void __launch_bounds__(kTripletMaxThreads)
     // The tables' anti-diagonals: diagonal d reads mu2's kappa = d-S ..
     // d+S and mu1's kappa = d, staged a diagonal ahead.
     for (int kappa = 0; kappa <= S; ++kappa)
-      stage_antidiagonal(m2s + kappa % (W + 1) * P, mu2, kappa, n, m);
-    stage_antidiagonal(m1s, mu1, 0, n, m);
+      stage_antidiagonal(m2s + kappa % (W + 1) * rows, mu2, kappa, n, m,
+                         first, end);
+    stage_antidiagonal(m1s, mu1, 0, n, m, first, end);
     __pipeline_commit();
     __pipeline_wait_prior(0);
-    __syncthreads();
+    ring_barrier<kCluster>(false, [] {});
     for (int d = 0; d <= n + m; ++d) {
-      stage_antidiagonal(m2s + (d + 1 + S) % (W + 1) * P, mu2, d + 1 + S, n,
-                         m);
-      stage_antidiagonal(m1s + (d + 1) % 2 * P, mu1, d + 1, n, m);
+      stage_antidiagonal(m2s + (d + 1 + S) % (W + 1) * rows, mu2, d + 1 + S,
+                         n, m, first, end);
+      stage_antidiagonal(m1s + (d + 1) % 2 * rows, mu1, d + 1, n, m, first,
+                         end);
       __pipeline_commit();
-      const int lo = max(0, d - m), hi = min(n, d);
-      const int32_t* m1d = m1s + d % 2 * P;
+      const int lo = max(first, d - m), hi = min(end - 1, d);
+      const int32_t* m1d = m1s + d % 2 * rows;
       const int kslot = (d - S + S * (W + 1)) % (W + 1);   // kappa = d - S
-      for (int i = lo + (t + T - lo % T) % T; i <= hi; i += T)
+      // the first live row whose local row is t (mod T)
+      for (int i = lo + (t + T - (lo - first) % T) % T; i <= hi; i += T)
         diagonal_rows(
-            d, i, [&](int row) { return m1d[row]; },
+            d, i, [&](int row) { return m1d[row - first]; },
             [&](int row, int sk) {
               const int s = kslot + sk;
-              return m2s[(s >= W + 1 ? s - (W + 1) : s) * P + row];
+              return m2s[(s >= W + 1 ? s - (W + 1) : s) * rows + row - first];
             },
             false);
       __pipeline_wait_prior(0);
-      end_diagonal();
+      end_diagonal(d);
     }
   } else {
-    // Row i = t in registers: mu1[t, d-t] and a window of mu2[t, d-t-S ..
-    // d-t+S] on diagonal d, from rows of the skewed tables four at a time:
-    // on the diagonals d = 4g .. 4g+3 of group g, mu1's rows d and mu2's
-    // rows d+1+S (the value the window takes after diagonal d).  Even
-    // groups read (qa1, qa2) and load (qb1, qb2) for the next group, odd
-    // ones the other way round; the four steps of a group name their
+    // Row i = first + t in registers: mu1[i, d-i] and a window of mu2[i,
+    // d-i-S .. d-i+S] on diagonal d, from rows of the skewed tables four
+    // at a time: on the diagonals d = 4g .. 4g+3 of group g, mu1's rows d
+    // and mu2's rows d+1+S (the value the window takes after diagonal d).
+    // Even groups read (qa1, qa2) and load (qb1, qb2) for the next group,
+    // odd ones the other way round; the four steps of a group name their
     // registers, so nothing selects among them at run time.
-    const bool mine = t <= n;
+    const int i = first + t;
+    const bool mine = i < end;
     int32_t w2[kW];
     int4 qa1{}, qa2{}, qb1{}, qb2{};
-    if (mine) {     // diagonal 0: mu2[t, -t-S .. -t+S]; rows e < 0 unused
+    if (mine) {     // diagonal 0: mu2[i, -i-S .. -i+S]; rows e < 0 unused
 #pragma unroll
       for (int sk = 0; sk < kW; ++sk)
-        w2[sk] = sk < S ? 0 : mu2[static_cast<long long>(sk - S) * P + t];
-      qa1 = skewed_quad(mu1, 0, P, t);
-      qa2 = skewed_quad(mu2, 1 + S, P, t);
+        w2[sk] = sk < S ? 0 : mu2[static_cast<long long>(sk - S) * P + i];
+      qa1 = skewed_quad(mu1, 0, P, i);
+      qa2 = skewed_quad(mu2, 1 + S, P, i);
     }
-    __syncthreads();
+    ring_barrier<kCluster>(false, [] {});
     int d = 0;
-    // diagonal d with mu1[t, d-t] = m1; then the window takes v2
+    // diagonal d with mu1[i, d-i] = m1; then the window takes v2
     const auto step = [&](int32_t m1, int32_t v2) {
-      if (mine && d >= t && d - t <= m) {
+      if (mine && d >= i && d - i <= m) {
         // this warp's live rows, all inside the domain or not (the same
         // answer on every lane: no divergence)
-        const int w0 = t & ~31;
-        const bool inside = max(max(0, d - m), w0) >= max(1, d - m + S) &&
-                            min(min(n, d), w0 + 31) <= d - S - 1;
+        const int w0 = first + (t & ~31);
+        const bool inside =
+            max(max(0, d - m), w0) >= max(1, d - m + S) &&
+            min(min(min(n, d), w0 + 31), end - 1) <= d - S - 1;
         diagonal_rows(
-            d, t, [&](int) { return m1; },
+            d, i, [&](int) { return m1; },
             [&](int, int sk) { return w2[sk]; }, inside);
       }
 #pragma unroll
       for (int sk = 0; sk + 1 < kW; ++sk) w2[sk] = w2[sk + 1];
       w2[kW - 1] = v2;
-      end_diagonal();
+      end_diagonal(d);
       return ++d <= n + m;
     };
     const auto group = [&](const int4& use1, const int4& use2, int4& next1,
                            int4& next2) {
-      // the next group, if the window is still to meet row t's diagonals
+      // the next group, if the window is still to meet row i's diagonals
       const int e = d + 4;
-      if (mine && e + 3 >= t - kW - 1 && e <= t + m) {
-        next1 = skewed_quad(mu1, e, P, t);
-        next2 = skewed_quad(mu2, e + 1 + S, P, t);
+      if (mine && e + 3 >= i - kW - 1 && e <= i + m) {
+        next1 = skewed_quad(mu1, e, P, i);
+        next2 = skewed_quad(mu2, e + 1 + S, P, i);
       }
-      return step(use1.x, use2.x) && step(use1.y, use2.y) &&
-             step(use1.z, use2.z) && step(use1.w, use2.w);
+      if constexpr (kW <= kInlinedStepsW) {
+        return step(use1.x, use2.x) && step(use1.y, use2.y) &&
+               step(use1.z, use2.z) && step(use1.w, use2.w);
+      } else {
+        // the group's four steps from one call site, each taking its
+        // values of registers loaded a group before (none in flight)
+#pragma unroll 1
+        for (int s = 0; s < 4; ++s)
+          if (!step(s == 0 ? use1.x : s == 1 ? use1.y : s == 2 ? use1.z
+                                                       : use1.w,
+                    s == 0 ? use2.x : s == 1 ? use2.y : s == 2 ? use2.z
+                                                       : use2.w))
+            return false;
+        return true;
+      }
     };
     while (group(qa1, qa2, qb1, qb2) && group(qb1, qb2, qa1, qa2)) {
     }
   }
+  if constexpr (kCluster) flush(n + m, r1);
 }
 
-template <int kW, bool kStaged>
-cudaError_t launch_shared(int32_t* ys, const int32_t* mu1, const int32_t* mu2,
-                          int n, int m, int S, int32_t two_gamma,
-                          int32_t gamma_delta, int threads, size_t bytes,
-                          cudaStream_t st) {
-  const auto kernel = triplet_fill_shared<kW, kStaged>;
-  if (bytes > kTripletSharedDefault) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+// One launch of route "shared" (kCluster false, cluster 1) or of one
+// cluster of `cluster` CTAs (route "cluster"), `rows` rows a CTA, `bytes`
+// of dynamic shared memory each.  A cluster that the card cannot make
+// resident is refused before the launch: cudaErrorLaunchOutOfResources.
+template <int kW, bool kStaged, bool kCluster>
+cudaError_t launch_ring(int32_t* ys, const int32_t* mu1, const int32_t* mu2,
+                        int n, int m, int S, int32_t two_gamma,
+                        int32_t gamma_delta, int threads, int cluster,
+                        int rows, size_t bytes, cudaStream_t st) {
+  const auto kernel = triplet_fill_ring<kW, kStaged, kCluster>;
+  cudaError_t err = cudaSuccess;
+  if (bytes > kTripletSharedDefault)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+  if (err == cudaSuccess && cluster > kClusterPortable)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = bytes;
+  config.stream = st;
+  cudaLaunchAttribute attr = {};
+  if constexpr (kCluster) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveClusters(
+        &resident, reinterpret_cast<const void*>(kernel), &config);
     if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorLaunchOutOfResources;
   }
-  kernel<<<1, threads, bytes, st>>>(ys, mu1, mu2, n, m, S, two_gamma,
-                                    gamma_delta);
-  return cudaGetLastError();
+  err = cudaLaunchKernelEx(&config, kernel, ys, mu1, mu2, n, m, S, two_gamma,
+                           gamma_delta, rows);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Routes "shared" and "cluster" behind one switch over the compiled widths.
+template <bool kCluster>
+int fill_ring(int32_t* ys, const int32_t* mu1, const int32_t* mu2, int n,
+              int m, int S, int two_gamma, int gamma_delta, int threads,
+              int cluster, int rows, int device, void* stream) {
+  const bool staged = triplet_staged(rows, S, threads);
+  const size_t bytes = triplet_ring_bytes(rows, kCluster ? 1 : 0, S, staged);
+  if (bytes > kTripletSharedLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BIALIGN_TRY(cudaSetDevice(device));
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (S) {
+#define BIALIGN_TRIPLET_CASE(s)                                              \
+  case s:                                                                    \
+    err = staged ? launch_ring<2 * s + 1, true, kCluster>(                   \
+                       ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,        \
+                       threads, cluster, rows, bytes, st)                    \
+                 : launch_ring<2 * s + 1, false, kCluster>(                  \
+                       ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,        \
+                       threads, cluster, rows, bytes, st);                   \
+    break;
+    BIALIGN_TRIPLET_CASE(0)
+    BIALIGN_TRIPLET_CASE(1)
+    BIALIGN_TRIPLET_CASE(2)
+    BIALIGN_TRIPLET_CASE(3)
+    BIALIGN_TRIPLET_CASE(4)
+    BIALIGN_TRIPLET_CASE(5)
+    BIALIGN_TRIPLET_CASE(6)
+    BIALIGN_TRIPLET_CASE(7)
+    BIALIGN_TRIPLET_CASE(8)
+#undef BIALIGN_TRIPLET_CASE
+    default:
+      err = launch_ring<0, true, kCluster>(ys, mu1, mu2, n, m, S, two_gamma,
+                                           gamma_delta, threads, cluster,
+                                           rows, bytes, st);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -528,7 +770,7 @@ extern "C" int bialign_triplet_fill(int32_t* ys, const int32_t* mu1,
 // skewed, triplet_skew_rows(n, m, S) rows of n+1 values each (the host's
 // shared_tables).  Returns cudaErrorInvalidValue, before any launch, for a
 // CTA beyond its 227 KB of shared memory (the host's triplet_route sends
-// such a pair to "global").
+// such a pair to "cluster" or "global").
 extern "C" int bialign_triplet_fill_shared(int32_t* ys, const int32_t* mu1,
                                            const int32_t* mu2, int n, int m,
                                            int S, int two_gamma,
@@ -538,36 +780,28 @@ extern "C" int bialign_triplet_fill_shared(int32_t* ys, const int32_t* mu1,
   if (n < 0 || m < 0 || S < 0 || threads < 1 ||
       threads > kTripletMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool staged = triplet_staged(n, S, threads);
-  const size_t bytes = triplet_shared_bytes(n, S, staged);
-  if (bytes > kTripletSharedLimit)
+  return fill_ring<false>(ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,
+                          threads, 1, n + 1, device, stream);
+}
+
+// Route "cluster": the same fill and arguments as route "shared", and the
+// cluster's CTAs `cluster` (1-16), each of `threads` threads (1-512) and
+// ceil((n+1) / cluster) rows.  Returns cudaErrorInvalidValue, before any
+// launch, for a CTA beyond its 227 KB of shared memory, and the card's
+// error, or cudaErrorLaunchOutOfResources, when no such cluster can be
+// resident (above 8 CTAs the card may have no GPC with enough free SMs);
+// it never falls back to another route.
+extern "C" int bialign_triplet_fill_cluster(int32_t* ys, const int32_t* mu1,
+                                            const int32_t* mu2, int n, int m,
+                                            int S, int two_gamma,
+                                            int gamma_delta, int threads,
+                                            int cluster, int device,
+                                            void* stream) {
+  using namespace bialign;
+  if (n < 0 || m < 0 || S < 0 || threads < 1 ||
+      threads > kClusterMaxThreads || cluster < 1 || cluster > kClusterMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  BIALIGN_TRY(cudaSetDevice(device));
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (S) {
-#define BIALIGN_TRIPLET_CASE(s)                                              \
-  case s:                                                                    \
-    err = staged ? launch_shared<2 * s + 1, true>(                           \
-                       ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,        \
-                       threads, bytes, st)                                   \
-                 : launch_shared<2 * s + 1, false>(                          \
-                       ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,        \
-                       threads, bytes, st);                                  \
-    break;
-    BIALIGN_TRIPLET_CASE(0)
-    BIALIGN_TRIPLET_CASE(1)
-    BIALIGN_TRIPLET_CASE(2)
-    BIALIGN_TRIPLET_CASE(3)
-    BIALIGN_TRIPLET_CASE(4)
-    BIALIGN_TRIPLET_CASE(5)
-    BIALIGN_TRIPLET_CASE(6)
-    BIALIGN_TRIPLET_CASE(7)
-    BIALIGN_TRIPLET_CASE(8)
-#undef BIALIGN_TRIPLET_CASE
-    default:
-      err = launch_shared<0, true>(ys, mu1, mu2, n, m, S, two_gamma,
-                                   gamma_delta, threads, bytes, st);
-  }
-  return static_cast<int>(err);
+  const int rows = (n + cluster) / cluster;       // ceil((n+1) / cluster)
+  return fill_ring<true>(ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,
+                         threads, cluster, rows, device, stream);
 }

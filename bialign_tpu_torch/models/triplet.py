@@ -19,10 +19,13 @@ flat (non-affine) gap model of the main aligner:
 
 Engines: the CUDA kernels of ``csrc/triplet.cu`` (:func:`fill_slabs_cuda`,
 the counterpart of the JAX package's XLA scan ``fill_xla``: one CTA runs
-the anti-diagonal wavefront over ``d = i + j``, a thread its rows, on the
-tables in their own layout; route ``"shared"`` keeps the last three
-diagonals in shared memory, route ``"global"`` reads them back from the
-slabs, for pairs whose ring does not fit one CTA: :func:`triplet_route`),
+the anti-diagonal wavefront over ``d = i + j``, a thread its rows; route
+``"shared"`` keeps the last three diagonals in shared memory; route
+``"cluster"``, for pairs whose ring does not fit one CTA, splits the rows
+over the CTAs of one thread-block cluster, each with the last three
+diagonals of its rows and the row before them, passed on through
+distributed shared memory; route ``"global"`` reads them back from the
+slabs, for pairs that no cluster holds: :func:`triplet_route`),
 its plain PyTorch twin on any device (:func:`fill_slabs`, and
 :func:`fill_torch` in the oracle's layout), both with the band offset ``sk
 = k - j + S`` on a small axis, and a numpy oracle (``fill_oracle``, a copy
@@ -53,10 +56,26 @@ TRIPLET_COLS = (
 INVALID = -(1 << 30) - (1 << 29)
 
 # Launches of csrc/triplet.cu (one a fill), by route, for run reports.
-LAUNCHES = {"triplet_fill_shared": 0, "triplet_fill_global": 0}
-ROUTES = ("shared", "global")
+LAUNCHES = {"triplet_fill_shared": 0, "triplet_fill_cluster": 0,
+            "triplet_fill_global": 0}
+ROUTES = ("shared", "cluster", "global")
 # Threads of the kernel's one CTA: at most, and a multiple of a warp.
 MAX_THREADS, WARP = 1024, 32
+# Route "cluster" (csrc/triplet.cu kClusterMaxThreads, kClusterPortable,
+# kClusterMax): threads of a CTA at most; the CTAs of a cluster that every
+# card can make resident, and at most (beyond 8 only where the card says
+# so at the launch)
+CLUSTER_MAX_THREADS = 512
+CLUSTER_PORTABLE, CLUSTER_MAX = 8, 16
+# The rows of a CTA that route "cluster" aims for when it picks C itself
+# (cluster_shape): at 1500 x 1490, max_shift 8, 188 rows a CTA (C = 8)
+# was the fastest portable cluster (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# §6, PR 14)
+CLUSTER_ROWS = 192
+# Cells of a CTA's diagonal that one warp of route "cluster" stores to ys
+# (cluster_threads): a CTA adds warps after its rows' for them, at least 2,
+# where a thread takes one row and they fit CLUSTER_MAX_THREADS
+CLUSTER_FLUSH_CELLS = 1024
 # max_shift compiled as constants (csrc/triplet.cu kTripletStaticShifts):
 # up to it route "shared" keeps a row's tables in registers
 STATIC_SHIFTS = 8
@@ -219,25 +238,101 @@ def default_threads(n: int) -> int:
     return min(MAX_THREADS, -(-(n + 1) // WARP) * WARP)
 
 
+def ring_bytes(rows: int, halo: int, max_shift: int, staged: bool) -> int:
+    """Dynamic shared memory of a CTA of ``rows`` rows of its own
+    (``csrc/triplet.cu`` ``triplet_ring_bytes``): the ring of the last three
+    diagonals ``[3, rows + halo, W]`` int32 (``halo`` 1 on route
+    ``"cluster"``: the row before the CTA's first), and when ``staged`` the
+    tables' anti-diagonals ``[W+3, rows]``."""
+    W = 2 * max_shift + 1
+    return 4 * (3 * (rows + halo) * W + ((W + 3) * rows if staged else 0))
+
+
 def shared_bytes(n: int, max_shift: int, threads=None) -> int:
     """Dynamic shared memory of route ``"shared"`` on n+1 rows at
     ``threads`` threads (default :func:`default_threads`): the ring of the
     last three diagonals ``[3, n+1, W]`` int32, and, when a thread takes
     several rows or max_shift exceeds :data:`STATIC_SHIFTS`, the tables'
-    anti-diagonals ``[W+3, n+1]`` (``csrc/triplet.cu``
-    ``triplet_shared_bytes``)."""
+    anti-diagonals ``[W+3, n+1]``."""
     threads = default_threads(n) if threads is None else int(threads)
-    W = 2 * max_shift + 1
     staged = max_shift > STATIC_SHIFTS or n + 1 > threads
-    return 4 * (n + 1) * (3 * W + (W + 3 if staged else 0))
+    return ring_bytes(n + 1, 0, max_shift, staged)
+
+
+def cluster_rows(n: int, cluster: int) -> int:
+    """Rows of a CTA of route ``"cluster"``: ceil((n+1) / C)."""
+    return -(-(n + 1) // cluster)
+
+
+def cluster_threads(n: int, max_shift: int, cluster: int) -> int:
+    """Threads of a CTA of route ``"cluster"`` by default: a thread a row
+    of the CTA's, in whole warps, and where the tables stay in registers
+    (max_shift up to :data:`STATIC_SHIFTS`) warps more that store the rows
+    to ys, a warp for :data:`CLUSTER_FLUSH_CELLS` cells of a diagonal and
+    at least two, where they all fit :data:`CLUSTER_MAX_THREADS` (else
+    none: every thread stores, which measured faster than too few such
+    warps, 376 rows at max_shift 8, PERF.md); at most that many."""
+    rows = cluster_rows(n, cluster)
+    row_threads = -(-rows // WARP) * WARP
+    spare = (CLUSTER_MAX_THREADS - row_threads) // WARP
+    want = max(2, -(-rows * (2 * max_shift + 1) // CLUSTER_FLUSH_CELLS))
+    if max_shift > STATIC_SHIFTS or spare < want:
+        return min(CLUSTER_MAX_THREADS, row_threads)
+    return row_threads + WARP * want
+
+
+def cluster_bytes(n: int, max_shift: int, cluster: int, threads=None) -> int:
+    """Dynamic shared memory of a CTA of route ``"cluster"`` on n+1 rows
+    over ``cluster`` CTAs of ``threads`` threads (default
+    :func:`cluster_threads`)."""
+    rows = cluster_rows(n, cluster)
+    if threads is None:
+        threads = cluster_threads(n, max_shift, cluster)
+    staged = max_shift > STATIC_SHIFTS or rows > threads
+    return ring_bytes(rows, 1, max_shift, staged)
+
+
+def cluster_shape(n: int, max_shift: int, cluster=None, threads=None):
+    """``(C, threads, bytes)`` of route ``"cluster"`` for n+1 rows: C CTAs
+    of ``threads`` threads (default :func:`cluster_threads`) with ``bytes``
+    of dynamic shared memory each; ``None`` where no such cluster fits one
+    CTA's shared memory.  ``cluster`` forces C (1 to :data:`CLUSTER_MAX`);
+    by default C is the least of 2 to :data:`CLUSTER_PORTABLE` that fits
+    and leaves a CTA at most :data:`CLUSTER_ROWS` rows, else the least that
+    fits.  From ``chip_smoke.py --triplet-only`` on an NVIDIA H100 80GB
+    HBM3 at 700 W (PERF.md §6, PR 14): at 1500 x 1490, max_shift 8, the
+    kernel took 14.8 ms at C = 2, 7.9 at 4, 6.6 at 8 and 6.3 at 16, so the
+    most CTAs help, and 8 is the most that every card makes resident.
+    Pure: the card is not asked (a C above 8 may still be refused at the
+    launch)."""
+    if cluster is not None:
+        sizes = (int(cluster),)
+    else:
+        wanted = max(2, min(CLUSTER_PORTABLE,
+                            -(-(n + 1) // CLUSTER_ROWS)))
+        sizes = range(wanted, CLUSTER_PORTABLE + 1)
+    for C in sizes:
+        t = (cluster_threads(n, max_shift, C) if threads is None
+             else int(threads))
+        need = cluster_bytes(n, max_shift, C, t)
+        if need <= CTA_SHARED_LIMIT:
+            return C, t, need
+    return None
 
 
 def triplet_route(n: int, max_shift: int, threads=None) -> str:
     """The kernel of a pair of n+1 rows: ``"shared"`` when its
-    :func:`shared_bytes` fit one CTA's shared memory, else ``"global"``.
-    Chosen from the shape before the launch, never after a failure."""
-    fits = shared_bytes(n, max_shift, threads) <= CTA_SHARED_LIMIT
-    return "shared" if fits else "global"
+    :func:`shared_bytes` fit one CTA's shared memory (at ``threads``
+    threads), else ``"cluster"`` when :func:`cluster_shape` gives a cluster
+    of at most :data:`CLUSTER_PORTABLE` CTAs that holds it, else
+    ``"global"``.  "shared" keeps the pairs it holds: at DNA-Pol-1 it took
+    0.97-1.02 ms, a forced "cluster" 1.44-1.72 at 2-8 CTAs; at 1500 x 1490
+    "cluster" took 6.6 ms and "global" 67.8 (NVIDIA H100 80GB HBM3, 700 W;
+    PERF.md §6, PR 14).  Chosen from the shape before the launch, never
+    after a failure."""
+    if shared_bytes(n, max_shift, threads) <= CTA_SHARED_LIMIT:
+        return "shared"
+    return "cluster" if cluster_shape(n, max_shift) is not None else "global"
 
 
 def skew_rows(n: int, m: int, max_shift: int) -> int:
@@ -266,20 +361,24 @@ def shared_tables(mu1, mu2, max_shift, device) -> tuple:
 
 
 def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
-                    threads=None, ys=None, route=None):
+                    threads=None, ys=None, route=None, cluster=None):
     """:func:`fill_slabs` by a CUDA kernel of ``csrc/triplet.cu`` on a CUDA
     ``device``: the tables ``[n+1, m+1]`` (numpy or tensors) go to the card
-    once as int32, one launch of one CTA of ``threads`` threads (default
-    :func:`default_threads`) fills ``ys`` int32 ``[n+m+1, n+1, 2S+1]`` on
-    the card.  ``route`` (default :func:`triplet_route`): ``"shared"``, the
-    last three diagonals in shared memory, the tables skewed by
-    :func:`shared_tables`; ``"global"``, read back from ``ys``.
-    A forced ``"shared"`` that does not fit one CTA raises ``ValueError``.
-    Only the cells of the domain (rows ``max(0, d-m) <= i <= min(n, d)``,
-    ``0 <= k <= m``) are written, so ``ys`` (default: fresh memory) keeps
-    whatever it held elsewhere.  The arguments are checked on any device;
-    on a CPU ``device`` the plain twin :func:`fill_slabs` runs instead: no
-    kernel runs there."""
+    once as int32, one launch fills ``ys`` int32 ``[n+m+1, n+1, 2S+1]`` on
+    the card.  ``route`` (default :func:`triplet_route`): ``"shared"``, one
+    CTA of ``threads`` threads (default :func:`default_threads`), the last
+    three diagonals in shared memory, the tables skewed by
+    :func:`shared_tables`; ``"cluster"``, one cluster of C CTAs (``cluster``
+    forces C, else :func:`cluster_shape`), each of ``threads`` threads
+    (default: its rows', up to :data:`CLUSTER_MAX_THREADS`), the same
+    tables; ``"global"``, one CTA, the diagonals read back from ``ys``.  A
+    forced ``"shared"`` or ``"cluster"`` that does not fit raises
+    ``ValueError``, as does ``cluster`` on another route.  Only the cells of
+    the domain (rows ``max(0, d-m) <= i <= min(n, d)``, ``0 <= k <= m``)
+    are written, so ``ys`` (default: fresh memory) keeps whatever it held
+    elsewhere.  The arguments are checked on any device; on a CPU
+    ``device`` the plain twin :func:`fill_slabs` runs instead: no kernel
+    runs there."""
     if len(mu1.shape) != 2 or tuple(mu1.shape) != tuple(mu2.shape):
         raise ValueError(f"mu1 {tuple(mu1.shape)} and mu2 "
                          f"{tuple(mu2.shape)} must be one 2-D shape")
@@ -287,26 +386,47 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
     S = int(max_shift)
     if S < 0:
         raise ValueError(f"max_shift must be >= 0, got {S}")
-    threads = default_threads(n) if threads is None else int(threads)
-    if not 1 <= threads <= MAX_THREADS:
-        raise ValueError(f"threads must be 1-{MAX_THREADS}, got {threads}")
     if route is not None and route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES} or None, got "
                          f"{route!r}")
-    if route == "shared" and triplet_route(n, S, threads) != "shared":
+    if threads is not None and not 1 <= int(threads) <= MAX_THREADS:
+        raise ValueError(f"threads must be 1-{MAX_THREADS}, got {threads}")
+    route = triplet_route(n, S, threads) if route is None else route
+    if cluster is not None and route != "cluster":
+        raise ValueError(f"cluster={cluster} is for route 'cluster', not "
+                         f"{route!r}")
+    if route == "cluster":
+        if cluster is not None and not 1 <= int(cluster) <= CLUSTER_MAX:
+            raise ValueError(f"cluster must be 1-{CLUSTER_MAX}, got "
+                             f"{cluster}")
+        if threads is not None and int(threads) > CLUSTER_MAX_THREADS:
+            raise ValueError(f"threads of route 'cluster' must be "
+                             f"1-{CLUSTER_MAX_THREADS}, got {threads}")
+        shape = cluster_shape(n, S, cluster, threads)
+        if shape is None:
+            C = CLUSTER_PORTABLE if cluster is None else int(cluster)
+            raise ValueError(
+                f"route='cluster': {n + 1} rows at max_shift {S} over {C} "
+                f"CTAs need {cluster_bytes(n, S, C, threads)} bytes of "
+                f"shared memory a CTA, one CTA has {CTA_SHARED_LIMIT}; use "
+                "route='global'")
+        cluster, threads, _ = shape
+    else:
+        threads = default_threads(n) if threads is None else int(threads)
+    if route == "shared" and shared_bytes(n, S, threads) > CTA_SHARED_LIMIT:
         raise ValueError(
             f"route='shared': {n + 1} rows at max_shift {S} on {threads} "
             f"threads need {shared_bytes(n, S, threads)} bytes of shared "
-            f"memory, one CTA has {CTA_SHARED_LIMIT}; use route='global'")
-    route = triplet_route(n, S, threads) if route is None else route
+            f"memory, one CTA has {CTA_SHARED_LIMIT}; use route='cluster' "
+            "or 'global'")
     device = torch.device(device)
     if device.type == "cpu":
         return fill_slabs(mu1, mu2, max_shift, gamma, delta, device=device)
-    if route == "shared":
-        t1, t2 = shared_tables(mu1, mu2, S, device)
-    else:
+    if route == "global":
         t1, t2 = (torch.as_tensor(mu).to(device=device, dtype=torch.int32)
                   .contiguous() for mu in (mu1, mu2))
+    else:
+        t1, t2 = shared_tables(mu1, mu2, S, device)
     shape = (n + m + 1, n + 1, 2 * S + 1)
     if ys is None:
         ys = torch.empty(shape, dtype=torch.int32, device=device)
@@ -315,10 +435,14 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
         raise ValueError(f"ys must be a contiguous int32 tensor {shape} on "
                          f"{t1.device}, got {ys.dtype} {tuple(ys.shape)} on "
                          f"{ys.device}")
-    name = ("bialign_triplet_fill_shared" if route == "shared"
-            else "bialign_triplet_fill")
-    _build.launch(name, t1.device, ys, t1, t2, n, m, S, _int32(2 * gamma),
-                  _int32(gamma + delta), threads)
+    args = (ys, t1, t2, n, m, S, _int32(2 * gamma), _int32(gamma + delta),
+            threads)
+    if route == "cluster":
+        _build.launch("bialign_triplet_fill_cluster", t1.device, *args,
+                      cluster)
+    else:
+        _build.launch("bialign_triplet_fill_shared" if route == "shared"
+                      else "bialign_triplet_fill", t1.device, *args)
     LAUNCHES[f"triplet_fill_{route}"] += 1
     return ys
 

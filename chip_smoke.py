@@ -54,13 +54,15 @@ package.  Phases, one line each:
    again on tie-heavy tables (values in {0, +-100}, costs of the same
    grain: many co-optimal cases a step, the first-minimum rule deciding),
    single-pair, block by block and batched, each equal to the host walk
-   over the same device memory.  The triplet fill (csrc/triplet.cu), both
-   routes ("shared" wherever triplet_route gives it, else a forced
-   "shared" must raise; "global" everywhere) against its twin fill_slabs on
-   slabs of garbage: n and m of 0-2, 31-33, 63-65 and 1023-1025 mixed,
-   max_shift 0-4 and beyond the compiled widths, a CTA of 1024 threads and
-   of 100, random, tie-heavy and int32-wrapping tables; the domain's cells
-   equal to the twin's, every other cell keeping its garbage;
+   over the same device memory.  The triplet fill (csrc/triplet.cu), every
+   route ("shared" wherever triplet_route gives it, else a forced
+   "shared" must raise; "global" everywhere; "cluster" on clusters of 3
+   and 8 CTAs wherever cluster_shape holds the pair, else a forced
+   "cluster" must raise) against its twin fill_slabs on slabs of garbage:
+   n and m of 0-2, 31-33, 63-65 and 1023-1025 mixed, max_shift 0-4 and
+   beyond the compiled widths, a CTA of 1024 threads and of 100, random,
+   tie-heavy and int32-wrapping tables; the domain's cells equal to the
+   twin's, every other cell keeping its garbage;
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -147,17 +149,19 @@ package.  Phases, one line each:
    CUDA kernel: the DNA-Pol-1 pair at max_shift 1 with flat gaps on route
    "shared" (779500; score, trace, the three rows, the six with structures
    and the eval_trace lines equal to the plain twin's on the CPU) and a
-   1500 x 1490 pair at max_shift 8 on route "global" (its ring, 306 KB,
-   beyond one CTA; score equal to the twin's last cell); at DNA-Pol-1 the
-   slabs of both routes (and of "shared" on 480 threads, the tables
-   staged) equal to the twin's on the card, at 1500 x 1490 the slabs of
-   "global"; each kernel's time alone (CUDA events, warm, in turns) and
-   through its wrapper beside optimize() end to end and its stages, the
-   twin on the card and on the CPU, the bounds and chain floors; the kernel
-   on a 200 x 200 window against fill_oracle in every banded cell;
+   1500 x 1490 pair at max_shift 8 on route "cluster" (its ring, 306 KB,
+   beyond one CTA; score 1246400, equal to the twin's last cell), that
+   pair's fill also forced onto route "global"; at DNA-Pol-1 the slabs of
+   every route (and of "shared" on 480 threads, the tables staged, and of
+   "cluster" on 2, 4 and 8 CTAs) equal to the twin's on the card, at 1500
+   x 1490 the slabs of "global" and of "cluster" on 2, 4, 8 and 16 CTAs;
+   each kernel's time alone (CUDA events, warm, in turns) and through its
+   wrapper beside optimize() end to end and its stages (at both pairs),
+   the twin on the card and on the CPU, the bounds and chain floors; the
+   kernel on a 200 x 200 window against fill_oracle in every banded cell;
 6. launch counts of the eight paths (the five above, the mesh phase, the
-   triplet, both routes, and the stream), counted apart, each of which
-   must be > 0;
+   triplet, its three routes, and the stream), counted apart, each of
+   which must be > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
    (device busy and idle time, per-kernel times; score-only K3 as its one
@@ -412,10 +416,13 @@ KERNELS = {
     "seqsplit_block_nonaffine": ("bialign_tpu_torch/csrc/seqsplit.cu",
                                  "bialign_tpu/parallel/seqsplit.py:285"),
     # the triplet aligner's fill, route "shared" (the last three diagonals
-    # in shared memory) and route "global" (pairs beyond one CTA's ring);
-    # the JAX package runs it as an XLA scan
+    # in shared memory), route "cluster" (pairs beyond one CTA's ring: the
+    # rows split over a thread-block cluster) and route "global" (pairs that
+    # no cluster holds); the JAX package runs it as an XLA scan
     "triplet_fill_shared": ("bialign_tpu_torch/csrc/triplet.cu",
                             "bialign_tpu/models/triplet.py:188"),
+    "triplet_fill_cluster": ("bialign_tpu_torch/csrc/triplet.cu",
+                             "bialign_tpu/models/triplet.py:188"),
     "triplet_fill_global": ("bialign_tpu_torch/csrc/triplet.cu",
                             "bialign_tpu/models/triplet.py:188"),
 }
@@ -448,8 +455,10 @@ PATHS = {
     "mesh": ("conveyor_scores", "cta_scores", "batch_fill_affine",
              "walk_affine_batch"),
     # the triplet aligner through BiAlignerTriplet on its default engine:
-    # DNA-Pol-1 on route "shared", a pair beyond one CTA on "global"
-    "triplet": ("triplet_fill_shared", "triplet_fill_global"),
+    # DNA-Pol-1 on route "shared", a pair beyond one CTA on "cluster"; that
+    # pair's fill forced onto route "global" through fill_slabs_cuda
+    "triplet": ("triplet_fill_shared", "triplet_fill_cluster",
+                "triplet_fill_global"),
 }
 
 # The goldens at max_shift 3 (computed with the JAX package, engines "xla"
@@ -494,13 +503,17 @@ STREAM_RENDER = 16
 # parameters but the gap opening), on route "shared"; its fill also on a
 # window of 200 x 200 residues against the oracle; and a pair of
 # TRIPLET_BIG (the DNA-Pol-1 sequences, each continued by its own start) at
-# max_shift 8, whose ring (306 KB) does not fit one CTA, on route "global".
-# Phase 3 holds both routes to the twin at n and m of these lengths (the
-# warp's and the CTA's edges), mixed, at max_shift 0-4 and beyond the
-# widths csrc/triplet.cu compiles as constants, on a CTA of 1024 threads and
-# of 100 (a thread several rows, in a count that divides none of the row
-# counts); random, tie-heavy and int32-wrapping tables, each with its costs
-# (gamma, Delta)
+# max_shift 8, whose ring (306 KB) does not fit one CTA, on route "cluster"
+# (and forced onto "global").  Phase 3 holds the routes to the twin at n
+# and m of these lengths (the warp's and the CTA's edges), mixed, at
+# max_shift 0-4 and beyond the widths csrc/triplet.cu compiles as
+# constants: "shared" and "global" on a CTA of 1024 threads and of 100 (a
+# thread several rows, in a count that divides none of the row counts),
+# "cluster" on clusters of TRIPLET_CLUSTERS CTAs; random, tie-heavy and
+# int32-wrapping tables, each with its costs (gamma, Delta).  Route
+# "cluster" is timed at TRIPLET_BIG on TRIPLET_BIG_CLUSTERS CTAs (16 where
+# the card can make such a cluster resident) and at DNA-Pol-1 on
+# TRIPLET_DNAPOL_CLUSTERS beside "shared"
 TRIPLET_PARAMS = {k: v for k, v in DNAPOL_FULL.items()
                   if k != "gap_opening_cost"}
 TRIPLET_WINDOW = 200
@@ -511,6 +524,9 @@ TRIPLET_STAGED_THREADS = 480     # route "shared", two rows a thread
 TRIPLET_LENGTHS = (0, 1, 2, 31, 32, 33, 63, 64, 65, 1023, 1024, 1025)
 TRIPLET_STATIC_SHIFTS = 8
 TRIPLET_THREADS = (1024, 100)
+TRIPLET_CLUSTERS = (3, 8)
+TRIPLET_BIG_CLUSTERS = (2, 4, 8, 16)
+TRIPLET_DNAPOL_CLUSTERS = (2, 4, 8)
 TRIPLET_COSTS = {"random": (-200, -250), "ties": (-100, 0),
                  "wrap": (-(1 << 30) + 7, (1 << 31) - 11)}
 TRIPLET_RUNS = 5                 # each route's timed runs, after a warm-up
@@ -3744,12 +3760,32 @@ def triplet_err(got, want, junk, n: int, m: int, S: int) -> int:
 
 def phase_triplet_kernels(dev, errs: dict) -> list:
     """The triplet fill's kernels against the twin (on the CPU) on slabs of
-    garbage, at triplet_cases() and both thread counts: route "global"
-    everywhere, route "shared" wherever triplet_route gives it (elsewhere a
-    forced "shared" must raise).  Returns the cases with, for each thread
-    count, the routes run."""
+    garbage, at triplet_cases(): route "global" everywhere and route
+    "shared" wherever triplet_route gives it (elsewhere a forced "shared"
+    must raise), both at TRIPLET_THREADS; route "cluster" on each of
+    TRIPLET_CLUSTERS CTAs wherever cluster_shape holds the pair (elsewhere
+    a forced "cluster" must raise).  Returns the cases with, for each
+    thread count and then each cluster size, the routes run."""
     rng = np.random.default_rng(SEED)
     ran = []
+
+    def refused(what, **kw):
+        try:
+            trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta, device=dev, **kw)
+        except ValueError:
+            return
+        raise RuntimeError(f"triplet ({n}, {m}, {S}): a forced {what} that "
+                           "does not fit did not raise")
+
+    def held(**kw):
+        junk = garbage_band(want.shape, dev)
+        got = trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta, device=dev,
+                                   ys=junk.clone(), **kw)
+        e = triplet_err(got, want, junk, n, m, S)
+        name = f"triplet_fill_{kw['route']}"
+        check(e == 0, f"{name} ({n}, {m}, {S}, {kind}, {kw}): max |err| {e}")
+        errs[name] = max(errs[name], e)
+
     for n, m, S, kind in triplet_cases():
         mu1, mu2 = triplet_tables(rng, n, m, kind)
         gamma, delta = TRIPLET_COSTS[kind]
@@ -3757,30 +3793,20 @@ def phase_triplet_kernels(dev, errs: dict) -> list:
                                device="cpu").to(dev)
         routes_of = []
         for threads in TRIPLET_THREADS:
-            routes = trip.ROUTES
-            if trip.triplet_route(n, S, threads) == "global":
+            routes = ("shared", "global")
+            if trip.triplet_route(n, S, threads) != "shared":
                 routes = ("global",)
-                try:
-                    trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta,
-                                         device=dev, threads=threads,
-                                         route="shared")
-                except ValueError:
-                    pass
-                else:
-                    raise RuntimeError(
-                        f"triplet ({n}, {m}, {S}) on {threads} threads: a "
-                        "forced 'shared' beyond one CTA did not raise")
+                refused("'shared'", threads=threads, route="shared")
             for route in routes:
-                junk = garbage_band(want.shape, dev)
-                got = trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta,
-                                           device=dev, threads=threads,
-                                           ys=junk.clone(), route=route)
-                e = triplet_err(got, want, junk, n, m, S)
-                check(e == 0, f"triplet_fill_{route} ({n}, {m}, {S}, {kind}, "
-                      f"{threads} threads): max |err| {e}")
-                name = f"triplet_fill_{route}"
-                errs[name] = max(errs[name], e)
+                held(threads=threads, route=route)
             routes_of.append("+".join(routes))
+        for C in TRIPLET_CLUSTERS:
+            if trip.cluster_shape(n, S, C) is None:
+                refused(f"'cluster' of {C}", route="cluster", cluster=C)
+                routes_of.append("-")
+            else:
+                held(route="cluster", cluster=C)
+                routes_of.append(f"cluster{C}")
         ran.append((n, m, S, kind, *routes_of))
     return ran
 
@@ -3814,23 +3840,31 @@ def triplet_big_pair(mol) -> tuple:
     return grow(seqA, n), grow(strA, n), grow(seqB, m), grow(strB, m)
 
 
-def triplet_launcher(route, mu1, mu2, S, gamma, delta, dev, threads=None):
-    """(call, ys): one launch of route's kernel alone, on tables laid out
-    once as fill_slabs_cuda lays them out, through the C entry (so not
-    counted), for timing."""
+def triplet_launcher(route, mu1, mu2, S, gamma, delta, dev, threads=None,
+                     cluster=None):
+    """(call, ys): one launch of route's kernel alone (route "cluster" on
+    ``cluster`` CTAs, default cluster_shape's), on tables laid out once as
+    fill_slabs_cuda lays them out, through the C entry (so not counted),
+    for timing."""
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
-    threads = trip.default_threads(n) if threads is None else threads
-    if route == "shared":
-        t1, t2 = trip.shared_tables(mu1, mu2, S, dev)
-    else:
+    more = ()
+    if route == "cluster":
+        cluster, threads, _ = trip.cluster_shape(n, S, cluster, threads)
+        more = (cluster,)
+    elif threads is None:
+        threads = trip.default_threads(n)
+    if route == "global":
         t1, t2 = (torch.as_tensor(mu).to(device=dev, dtype=torch.int32)
                   .contiguous() for mu in (mu1, mu2))
+    else:
+        t1, t2 = trip.shared_tables(mu1, mu2, S, dev)
     ys = torch.empty((n + m + 1, n + 1, 2 * S + 1), dtype=torch.int32,
                      device=dev)
-    name = ("bialign_triplet_fill_shared" if route == "shared"
-            else "bialign_triplet_fill")
+    name = {"shared": "bialign_triplet_fill_shared",
+            "cluster": "bialign_triplet_fill_cluster",
+            "global": "bialign_triplet_fill"}[route]
     args = (ys, t1, t2, n, m, S, trip._int32(2 * gamma),
-            trip._int32(gamma + delta), threads)
+            trip._int32(gamma + delta), threads, *more)
     return (lambda: _build.launch(name, dev, *args)), ys
 
 
@@ -3868,33 +3902,51 @@ def triplet_stages(ba, dev) -> dict:
     return found
 
 
+def triplet_turns(launch: dict, runs: int) -> dict:
+    """{name: [ms of each run]} of the launchers (CUDA events, warm), in
+    turns: the names in order, then in reverse, ``runs`` times."""
+    found = {name: [] for name in launch}
+    order = list(launch) + list(launch)[::-1]
+    for _ in range(runs):
+        for name in order:
+            found[name].append(cuda_ms(launch[name], 1)[0])
+    return found
+
+
 def phase_triplet(mol, dev, errs: dict) -> tuple:
     """The triplet aligner through its default engine, the CUDA kernel
     (counted launches): the DNA-Pol-1 pair at max_shift 1 (route "shared":
     score TRIPLET_DNAPOL_SCORE, and score, trace, rows, rows with
     structures and eval_trace lines equal to the plain twin's on the CPU),
-    and the TRIPLET_BIG pair at max_shift 8 (route "global").  Then, not
-    counted: at DNA-Pol-1 the slabs of both routes equal to the twin's on
-    the card on the domain; at TRIPLET_BIG the kernel's slabs equal to the
-    twin's on the card, and the aligner's score to the twin's cell; each
-    route's time (CUDA events, warm; at DNA-Pol-1 in turns, global,
-    shared, shared, global) beside the twin's on the card and on the CPU,
+    the TRIPLET_BIG pair at max_shift 8 (route "cluster"), and that pair's
+    fill forced onto route "global" through fill_slabs_cuda.  Then, not
+    counted: at DNA-Pol-1 the slabs of every route (route "cluster" on each
+    of TRIPLET_DNAPOL_CLUSTERS CTAs) equal to the twin's on the card on the
+    domain; at TRIPLET_BIG the aligner's slabs, route "global"'s and
+    route "cluster"'s on each of TRIPLET_BIG_CLUSTERS CTAs (16 where the
+    card makes such a cluster resident) equal to the twin's on the card,
+    and the aligner's score to the twin's cell; each route's time (CUDA
+    events, warm, in turns) beside the twin's on the card and on the CPU,
     the bounds, the chain floors (one L2 load a diagonal, csrc/probe.cu,
     for "global"; "shared" on a pair of one row, whose diagonals are a
     barrier, the shared loads and the W-step chain alone); optimize()'s
-    stages; the kernel on a 200 x 200 window against fill_oracle in every
-    banded cell.  Returns (report, launches, {kernel: (ms, twin ms)},
-    {kernel: bound})."""
+    stages at DNA-Pol-1 and at TRIPLET_BIG; the kernel on a 200 x 200
+    window against fill_oracle in every banded cell.  Returns (report,
+    launches, {kernel: (ms, twin ms)}, {kernel: bound})."""
     big = triplet_big_pair(mol)
     big_params = dict(TRIPLET_PARAMS, max_shift=TRIPLET_BIG[2])
+    bn, bm, bS = TRIPLET_BIG
     reset_counts()
     seconds, (ba, got) = timed(lambda: (lambda bt: (
         bt, triplet_outputs(bt)))(triplet_aligner(mol, **TRIPLET_PARAMS)))
     big_s, (bb, big_got) = timed(lambda: (lambda bt: (
         bt, triplet_outputs(bt)))(triplet_aligner(big, **big_params)))
+    bp = (bS, bb.gamma, bb.delta)
+    big_global = trip.fill_slabs_cuda(bb.mu1, bb.mu2, *bp, device=dev,
+                                      route="global")
     launches = path_counts("triplet")
     check(trip.triplet_route(len(mol[0]), ba.max_shift) == "shared"
-          and trip.triplet_route(len(big[0]), bb.max_shift) == "global",
+          and trip.triplet_route(len(big[0]), bb.max_shift) == "cluster",
           "the triplet pairs' routes")
     check(got[0] == TRIPLET_DNAPOL_SCORE, f"triplet DNA-Pol-1 score "
           f"{got[0]}, not {TRIPLET_DNAPOL_SCORE}")
@@ -3914,47 +3966,73 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
     ys = {route: trip.fill_slabs_cuda(t1, t2, *p, device=dev, route=route)
           for route in trip.ROUTES}
     # the kernels alone, in turns; route "shared" also staged (480 threads,
-    # two rows a thread: the tables in shared memory)
+    # two rows a thread: the tables in shared memory), route "cluster" on
+    # each of TRIPLET_DNAPOL_CLUSTERS CTAs
     launch = {route: triplet_launcher(route, ba.mu1, ba.mu2, *p, dev)
-              for route in trip.ROUTES}
+              for route in ("global", "shared")}
     launch["staged"] = triplet_launcher("shared", ba.mu1, ba.mu2, *p, dev,
                                         threads=TRIPLET_STAGED_THREADS)
+    for C in TRIPLET_DNAPOL_CLUSTERS:
+        launch[f"cluster{C}"] = triplet_launcher(
+            "cluster", ba.mu1, ba.mu2, *p, dev, cluster=C)
     for call, _ in launch.values():
         call()
     for route, slabs in [*ys.items(), *((r, v[1]) for r, v in launch.items())]:
+        name = ("triplet_fill_" + ("shared" if route == "staged" else
+                                   "cluster" if route.startswith("cluster")
+                                   else route))
         e = int((slabs.long() - twin.long())[live].abs().max())
-        name = f"triplet_fill_{'shared' if route == 'staged' else route}"
         check(e == 0, f"{name} ({route}) at DNA-Pol-1: max |err| {e}")
         errs[name] = max(errs[name], e)
-    kernel_ms = {route: [] for route in launch}
-    for _ in range(TRIPLET_RUNS):
-        for route in ("global", "shared", "staged", "staged", "shared",
-                      "global"):
-            kernel_ms[route].append(cuda_ms(launch[route][0], 1)[0])
+    kernel_ms = triplet_turns({r: v[0] for r, v in launch.items()},
+                              TRIPLET_RUNS)
     wrapper_ms = {route: min(cuda_ms(lambda: trip.fill_slabs_cuda(
         t1, t2, *p, device=dev, ys=ys[route], route=route), 1)[0]
         for _ in range(3)) for route in trip.ROUTES}
     cells = int(live.sum())
     del ys, twin, live, launch
 
-    # the pair beyond one CTA, on route "global"
-    bn, bm, bS = TRIPLET_BIG
+    # the pair beyond one CTA: the aligner's route "cluster", "global"
+    # forced, and route "cluster" on each of TRIPLET_BIG_CLUSTERS CTAs
     b1, b2 = tables_to_torch(bb.mu1, bb.mu2, dev)
-    bp = (bS, bb.gamma, bb.delta)
     big_plain_ms, big_twin = cuda_ms(lambda: trip.fill_slabs(
         bb.mu1, bb.mu2, *bp, device=dev), 1)
-    big_ys = trip.fill_slabs_cuda(b1, b2, *bp, device=dev)
     big_live = trip.domain(bn, bm, bS, dev)
-    e = int((big_ys.long() - big_twin.long())[big_live].abs().max())
-    check(e == 0, f"triplet_fill_global at {TRIPLET_BIG}: max |err| {e}")
-    errs["triplet_fill_global"] = max(errs["triplet_fill_global"], e)
+    big_launch = {"global": triplet_launcher("global", bb.mu1, bb.mu2, *bp,
+                                             dev)}
+    not_resident = {}
+    big_C = trip.cluster_shape(bn, bS)[0]       # the route's own
+    for C in sorted({*TRIPLET_BIG_CLUSTERS, big_C}):
+        call, slabs = triplet_launcher("cluster", bb.mu1, bb.mu2, *bp, dev,
+                                       cluster=C)
+        try:
+            call()
+        except RuntimeError as exc:
+            # a cluster beyond the portable 8 CTAs that the card cannot
+            # make resident is refused before its launch, by design
+            if C <= trip.CLUSTER_PORTABLE:
+                raise
+            not_resident[C] = str(exc)
+            continue
+        big_launch[f"cluster{C}"] = (call, slabs)
+    big_launch["global"][0]()
+    for route, slabs in [
+            ("cluster", torch.from_numpy(bb.M.ys).to(dev)),
+            ("global", big_global),
+            *((r, v[1]) for r, v in big_launch.items())]:
+        name = "triplet_fill_" + ("cluster" if route.startswith("cluster")
+                                  else route)
+        e = int((slabs.long() - big_twin.long())[big_live].abs().max())
+        check(e == 0, f"{name} ({route}) at {TRIPLET_BIG}: max |err| {e}")
+        errs[name] = max(errs[name], e)
     check(big_got[0] == int(big_twin[bn + bm, bn, bS]),
           f"triplet at {TRIPLET_BIG}: score {big_got[0]} differs from the "
           "twin's last cell")
-    big_call, _ = triplet_launcher("global", bb.mu1, bb.mu2, *bp, dev)
-    big_ms = [cuda_ms(big_call, 1)[0] for _ in range(3)]
+    big_ms = triplet_turns({r: v[0] for r, v in big_launch.items()}, 3)
     big_cells = int(big_live.sum())
-    del big_ys, big_twin, big_live, big_call
+    del big_global, big_twin, big_live, big_launch
+    big_optimize_s = [timed(bb.optimize)[0] for _ in range(3)]
+    big_stages = triplet_stages(bb, dev)
 
     # the chain floors: one L2 load a diagonal; a pair of one row on
     # "shared", at DNA-Pol-1's threads
@@ -3981,7 +4059,7 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
           "the triplet kernel differs from fill_oracle on the window")
     b = triplet_bound(n, m, S, cells)
     big_b = triplet_bound(bn, bm, bS, big_cells)
-    D = n + m + 1
+    D, big_D = n + m + 1, bn + bm + 1
     floor_us = floor_ms * 1e3 / (fm + 1)
     found = dict(
         dnapol_score=got[0], trace_columns=len(got[1]),
@@ -3991,17 +4069,28 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
         kernel_ms_min_max={r: (min(v), max(v)) for r, v in kernel_ms.items()},
         us_per_diagonal={r: min(v) * 1e3 / D for r, v in kernel_ms.items()},
         staged_threads=TRIPLET_STAGED_THREADS,
+        dnapol_cluster_shapes={C: trip.cluster_shape(n, S, C)
+                               for C in TRIPLET_DNAPOL_CLUSTERS},
         wrapper_ms=wrapper_ms,
         twin_on_card_ms=plain_ms, twin_on_cpu_s=cpu_s,
-        slabs_of_both_routes_equal_to_twin_on_card=True, domain_cells=cells,
+        slabs_of_every_route_equal_to_twin_on_card=True, domain_cells=cells,
         bound_ms=b[0], bound_by=b[1], ns_per_load_l2=l2_ns,
         chain_floor_global_ms=D * l2_ns * 1e-6,
         one_row_us_per_diagonal=floor_us,
         chain_floor_shared_ms=D * floor_us * 1e-3,
-        big=f"{bn}x{bm} max_shift {bS}", big_route="global",
+        big=f"{bn}x{bm} max_shift {bS}", big_route="cluster",
+        big_cluster_shape=trip.cluster_shape(bn, bS),
+        big_cluster_shapes={C: trip.cluster_shape(bn, bS, C)
+                            for C in TRIPLET_BIG_CLUSTERS},
+        big_not_resident=not_resident,
         big_score=big_got[0], big_trace_columns=len(big_got[1]),
-        big_first_run_s=big_s, big_kernel_ms=big_ms,
-        big_us_per_diagonal=min(big_ms) * 1e3 / (bn + bm + 1),
+        big_first_run_s=big_s, big_optimize_s=big_optimize_s,
+        big_optimize_stages=big_stages, big_kernel_ms=big_ms,
+        big_kernel_ms_min_max={r: (min(v), max(v))
+                               for r, v in big_ms.items()},
+        big_us_per_diagonal={r: min(v) * 1e3 / big_D
+                             for r, v in big_ms.items()},
+        big_ratio_to_bound={r: min(v) / big_b[0] for r, v in big_ms.items()},
         big_twin_on_card_ms=big_plain_ms, big_slabs_equal_to_twin=True,
         big_domain_cells=big_cells, big_bound_ms=big_b[0],
         big_bound_by=big_b[1],
@@ -4009,8 +4098,11 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
         window=f"{w}x{w}", window_cells=int(band.sum()),
         window_equal_to_oracle=True)
     times = {"triplet_fill_shared": (min(kernel_ms["shared"]), plain_ms),
-             "triplet_fill_global": (min(big_ms), big_plain_ms)}
-    bounds = {"triplet_fill_shared": b, "triplet_fill_global": big_b}
+             "triplet_fill_cluster": (min(big_ms[f"cluster{big_C}"]),
+                                      big_plain_ms),
+             "triplet_fill_global": (min(big_ms["global"]), big_plain_ms)}
+    bounds = {"triplet_fill_shared": b, "triplet_fill_cluster": big_b,
+              "triplet_fill_global": big_b}
     return found, launches, times, bounds
 
 

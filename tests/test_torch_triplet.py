@@ -128,7 +128,8 @@ def test_fill_slabs_cuda_on_the_cpu_is_the_twin(n, m, S):
 ])
 def test_triplet_route_at_its_boundary(S, last_shared, threads):
     """``triplet_route`` is "shared" while ring (and staged tables) fit one
-    CTA's 232,448 bytes, and "global" one row beyond."""
+    CTA's 232,448 bytes, and "cluster" one row beyond (a cluster of CTAs
+    holds it)."""
     W = 2 * S + 1
 
     def staged(n):
@@ -141,9 +142,9 @@ def test_triplet_route_at_its_boundary(S, last_shared, threads):
     assert T.shared_bytes(last_shared, S, threads) <= T.CTA_SHARED_LIMIT
     assert T.shared_bytes(last_shared + 1, S, threads) > T.CTA_SHARED_LIMIT
     assert T.triplet_route(last_shared, S, threads) == "shared"
-    assert T.triplet_route(last_shared + 1, S, threads) == "global"
+    assert T.triplet_route(last_shared + 1, S, threads) == "cluster"
     assert T.triplet_route(928, 1) == "shared"         # DNA-Pol-1
-    assert T.triplet_route(1500, 8) == "global"        # its ring: 306 KB
+    assert T.triplet_route(1500, 8) == "cluster"       # its ring: 306 KB
 
 
 def test_forced_shared_route_beyond_one_cta_raises():
@@ -166,3 +167,85 @@ def test_forced_shared_route_beyond_one_cta_raises():
     for route in (None, "shared", "global"):
         assert torch.equal(T.fill_slabs_cuda(mu1, mu2, 1, -200, -250,
                                              device="cpu", route=route), want)
+
+
+# route "cluster": (max_shift, the last n of route "shared", the last n
+# that a cluster of at most 8 CTAs holds)
+CLUSTER_BOUNDS = [(8, 1023, 6535), (4, 1489, 11911), (1, 3873, 30983),
+                  (T.STATIC_SHIFTS + 1, 734, 5871)]
+
+
+@pytest.mark.parametrize("S,last_shared,last_cluster", CLUSTER_BOUNDS)
+def test_cluster_shape_and_route_at_their_boundaries(S, last_shared,
+                                                     last_cluster):
+    """``triplet_route``: "shared" up to the last pair one CTA holds,
+    "cluster" from the next one to the last pair that a cluster of 8 CTAs
+    holds (its CTAs' rings and staged tables, ``ring_bytes`` with the halo
+    row, within 232,448 bytes each), "global" beyond."""
+    assert T.triplet_route(last_shared, S) == "shared"
+    assert T.triplet_route(last_shared + 1, S) == "cluster"
+    assert T.triplet_route(last_cluster, S) == "cluster"
+    assert T.triplet_route(last_cluster + 1, S) == "global"
+    assert T.cluster_shape(last_cluster + 1, S) is None
+    C, threads, need = T.cluster_shape(last_cluster, S)
+    assert C == T.CLUSTER_PORTABLE and need <= T.CTA_SHARED_LIMIT
+    rows = T.cluster_rows(last_cluster, C)
+    assert rows == -(-(last_cluster + 1) // C)
+    staged = S > T.STATIC_SHIFTS or rows > threads
+    assert staged and need == T.ring_bytes(rows, 1, S, True)
+    over = T.cluster_bytes(last_cluster + 1, S, C)
+    assert over == T.ring_bytes(rows + 1, 1, S, True) > T.CTA_SHARED_LIMIT
+    for n in (last_shared + 1, (last_shared + last_cluster) // 2):
+        C, threads, need = T.cluster_shape(n, S)
+        assert 2 <= C <= T.CLUSTER_PORTABLE and need <= T.CTA_SHARED_LIMIT
+        assert 1 <= threads <= T.CLUSTER_MAX_THREADS and threads % 32 == 0
+
+
+def test_cluster_threads_and_forced_sizes():
+    """A CTA's threads: its rows' warps and, with the tables in registers,
+    warps that store its cells to ys; a forced C of 1 to 16 wherever its
+    CTAs' shared memory holds the pair."""
+    assert T.cluster_threads(1500, 8, 16) == 96 + 64       # 94 rows
+    assert T.cluster_threads(1500, 8, 8) == 192 + 128      # 3196 cells
+    assert T.cluster_threads(1500, 8, 2) == 512            # staged
+    assert T.cluster_threads(40, 9, 2) == 32               # W at run time
+    for C in range(1, T.CLUSTER_MAX + 1):
+        shape = T.cluster_shape(1500, 8, C)
+        assert (shape is None) == (C == 1)                 # 306 KB on one
+        if shape is not None:
+            assert shape[0] == C and shape[2] == T.cluster_bytes(
+                1500, 8, C, shape[1])
+
+
+def test_forced_cluster_route_beyond_its_capacity_raises():
+    """A forced "cluster" that does not fit raises and names the bytes, on
+    any device; so do a cluster size out of 1-16, threads beyond a CTA of
+    the route and a cluster size on another route.  Where it fits, the
+    wrapper on a CPU device runs the twin."""
+    mu = np.zeros((6537, 2), dtype=np.int32)            # n = 6536, m = 1
+    with pytest.raises(ValueError, match="232516 bytes"):
+        T.fill_slabs_cuda(mu, mu, 8, -200, -250, device="cpu",
+                          route="cluster")
+    with pytest.raises(ValueError, match="over 2 CTAs need"):
+        T.fill_slabs_cuda(mu[:3001], mu[:3001], 8, -200, -250,
+                          device="cpu", route="cluster", cluster=2)
+    for bad in (dict(cluster=0), dict(cluster=17),
+                dict(cluster=2, threads=513)):
+        with pytest.raises(ValueError, match="cluster|threads"):
+            T.fill_slabs_cuda(mu[:4], mu[:4], 1, -200, -250, device="cpu",
+                              route="cluster", **bad)
+    with pytest.raises(ValueError, match="route 'cluster'"):
+        T.fill_slabs_cuda(mu[:4], mu[:4], 1, -200, -250, device="cpu",
+                          route="shared", cluster=2)
+    rng = np.random.default_rng(8)
+    mu1, mu2 = _rand_tables(rng, 9, 7)
+    want = T.fill_slabs(mu1, mu2, 2, -200, -250, device="cpu")
+    for C in (None, 1, 3, 16):
+        assert torch.equal(T.fill_slabs_cuda(mu1, mu2, 2, -200, -250,
+                                             device="cpu", route="cluster",
+                                             cluster=C), want)
+
+
+def test_launch_counts_name_every_route():
+    assert T.ROUTES == ("shared", "cluster", "global")
+    assert set(T.LAUNCHES) == {f"triplet_fill_{r}" for r in T.ROUTES}

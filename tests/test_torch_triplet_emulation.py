@@ -3,22 +3,27 @@
 ``bialign_tpu_torch/csrc/triplet.cu`` (one CTA runs the whole wavefront, a
 thread its rows, a barrier between diagonals; route "global" reads the last
 two diagonals back from the slabs, route "shared" keeps the last three in
-shared memory and the tables in registers or staged there) runs only on the
+shared memory and the tables in registers or staged there, route "cluster"
+splits the rows over the CTAs of a thread-block cluster, each passing its
+last row to the next through distributed shared memory) runs only on the
 card, where ``chip_smoke.py`` holds it to its plain twin.  Here the same
 source is built with the host's C++20 compiler against ``tests/cuda_host/``
 (the CTA as std::threads meeting at a std::barrier for each
 ``__syncthreads()``, its shared buffer a host buffer filled with a pattern,
-its launches rewritten to ``host_launch``) and held to the twin
+its ``<<<>>>`` launches rewritten to ``host_launch``; a cluster's CTAs run at
+once, each with a buffer of its own, and meet at one std::barrier for each
+cluster barrier) and held to the twin
 ``models.triplet.fill_slabs(device="cpu")`` with tolerance 0: on slabs of
 garbage, the cells of the domain equal to the twin's and every other cell
-keeps its garbage.  Both routes; thread counts of 32 and 48 (not a warp's
-multiple), so that a thread takes one row or several (route "shared" with
-the tables in registers, or staged); max_shift 0-4 and one beyond the widths
-the kernel compiles as constants; tie-heavy tables and tables whose sums
-wrap int32.  One case a route also goes to the JAX ``fill_xla`` through the
-oracle's layout.  This checks the kernels' indexing, guards, barriers and
-staging; it says nothing of their speed and does not replace the card's
-check.
+keeps its garbage.  Every route; thread counts of 32 and 48 (not a warp's
+multiple), so that a thread takes one row or several (the tables in
+registers, or staged); clusters of 2, 3 and 4 CTAs, rows that C does not
+divide, CTAs without rows and CTAs without a live row for whole diagonals;
+max_shift 0-4 and one beyond the widths the kernel compiles as constants;
+tie-heavy tables and tables whose sums wrap int32.  One case a route also
+goes to the JAX ``fill_xla`` through the oracle's layout.  This checks the
+kernels' indexing, guards, barriers and staging; it says nothing of their
+speed and does not replace the card's check.
 """
 
 import ctypes
@@ -46,37 +51,41 @@ MORE_SHAPES = [(70, 65, 1), (33, 40, 2)] + [
 def lib(tmp_path_factory):
     cxx = emu.compiler()
     work = tmp_path_factory.mktemp("triplet_host")
-    csrc = emu.copy_csrc(work / "csrc", {"triplet.cu": (1, 2)})
+    csrc = emu.copy_csrc(work / "csrc", {"triplet.cu": (1, 1)})
     return emu.build(cxx, [csrc / "triplet.cu"], work / "libtriplet_host.so")
 
 
 # the C entry of each route
 ENTRY = {"global": "bialign_triplet_fill",
-         "shared": "bialign_triplet_fill_shared"}
+         "shared": "bialign_triplet_fill_shared",
+         "cluster": "bialign_triplet_fill_cluster"}
 
 
 def kernel_fill(lib, mu1, mu2, S, gamma, delta, threads, junk,
-                route="global"):
-    """The kernel's slabs, started from a copy of ``junk``."""
+                route="global", cluster=None):
+    """The kernel's slabs, started from a copy of ``junk``; route
+    "cluster" on ``cluster`` CTAs of ``threads`` threads each."""
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
     ys = junk.clone()
-    if route == "shared":
-        t1, t2 = T.shared_tables(mu1, mu2, S, "cpu")
-    else:
+    if route == "global":
         t1, t2 = torch.from_numpy(mu1), torch.from_numpy(mu2)
+    else:
+        t1, t2 = T.shared_tables(mu1, mu2, S, "cpu")
+    more = () if cluster is None else (cluster,)
     emu.call(lib, ENTRY[route], ys, t1, t2, n, m, S, T._int32(2 * gamma),
-             T._int32(gamma + delta), threads)
+             T._int32(gamma + delta), threads, *more)
     return ys
 
 
 def check_against_twin(lib, mu1, mu2, S, gamma, delta, threads, seed,
-                       route="global"):
+                       route="global", cluster=None):
     """The kernel on slabs of garbage: the twin's values on the domain,
     the garbage elsewhere; returns the kernel's slabs."""
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
     junk = emu.garbage(np.random.default_rng(seed), (n + m + 1, n + 1,
                                                       2 * S + 1))
-    got = kernel_fill(lib, mu1, mu2, S, gamma, delta, threads, junk, route)
+    got = kernel_fill(lib, mu1, mu2, S, gamma, delta, threads, junk, route,
+                      cluster)
     want = T.fill_slabs(mu1, mu2, S, gamma, delta, device="cpu")
     live = T.domain(n, m, S)
     assert torch.equal(got, torch.where(live, want, junk))
@@ -257,6 +266,124 @@ def test_shared_route_refuses_what_does_not_fit(lib):
     assert torch.equal(ys, before)
 
 
+# -- route "cluster": the rows split over the CTAs of a cluster -------------
+
+CLUSTERS = (2, 3, 4)
+# rows that C divides and rows that it does not; CTAs with no rows (n+1 <
+# C); CTAs without a live row for whole diagonals (n >> m, n << m)
+CLUSTER_SHAPES = [(11, 9, 1), (10, 13, 2), (63, 9, 1), (5, 70, 3),
+                  (47, 40, 2)]
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("threads", THREADS)
+@pytest.mark.parametrize("n,m,S", SHAPES + MORE_SHAPES + CLUSTER_SHAPES)
+def test_cluster_route_equals_the_twin(lib, n, m, S, threads, cluster):
+    """Route "cluster" on garbage, every shape at 32 and 48 threads a CTA
+    and 2, 3 and 4 CTAs: a CTA's rows up to its threads keep the tables in
+    registers, more rows (and max_shift beyond the compiled widths) stage
+    them; n+1 of 1 and 2 leave CTAs without rows."""
+    rng = np.random.default_rng(n * 31 + m * 7 + S)
+    mu1, mu2 = _rand_tables(rng, n, m)
+    check_against_twin(lib, mu1, mu2, S, GAMMA, DELTA, threads,
+                       n + m + S + cluster, "cluster", cluster)
+
+
+@pytest.mark.parametrize("n,m,S,threads,cluster", [
+    (250, 240, 1, 128, 2), (255, 300, 3, 128, 2), (100, 90, 2, 64, 3)])
+def test_cluster_route_in_warps_of_larger_ctas(lib, n, m, S, threads,
+                                               cluster):
+    """CTAs of several warps, a row a thread: each warp takes the unguarded
+    form where all its live rows lie inside the domain, the last row of a
+    CTA among them, whose values also go to the next CTA's halo."""
+    rng = np.random.default_rng(5000 + n + m + S)
+    mu1, mu2 = _rand_tables(rng, n, m)
+    check_against_twin(lib, mu1, mu2, S, GAMMA, DELTA, threads, S,
+                       "cluster", cluster)
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("n,m,S", [(60, 50, 1), (95, 99, 4), (33, 40, 8),
+                                   (7, 30, 2)])
+def test_cluster_route_at_its_default_threads(lib, n, m, S, cluster):
+    """The threads of models.triplet.cluster_threads: the rows' warps and
+    two warps more that store the rows to ys while the others compute
+    (the rows' warps do not store)."""
+    threads = T.cluster_threads(n, S, cluster)
+    assert threads >= -(-T.cluster_rows(n, cluster) // 32) * 32 + 64
+    rng = np.random.default_rng(6000 + n + m + S)
+    mu1, mu2 = _rand_tables(rng, n, m)
+    check_against_twin(lib, mu1, mu2, S, GAMMA, DELTA, threads, cluster,
+                       "cluster", cluster)
+
+
+@pytest.mark.parametrize("cluster", (2, 3))
+@pytest.mark.parametrize("threads", THREADS)
+@pytest.mark.parametrize("n,m,S", [(12, 10, 1), (40, 37, 3),
+                                   (20, 21, STATIC_SHIFTS + 1)])
+def test_cluster_route_on_tie_heavy_tables(lib, n, m, S, threads, cluster):
+    rng = np.random.default_rng(1000 + n + m + S)
+    mu1, mu2 = tie_tables(rng, n, m)
+    check_against_twin(lib, mu1, mu2, S, -100, 0, threads, 7 * n + S,
+                       "cluster", cluster)
+
+
+@pytest.mark.parametrize("cluster", (2, 4))
+@pytest.mark.parametrize("threads", THREADS)
+@pytest.mark.parametrize("n,m,S", [(20, 23, 2), (50, 47, 1),
+                                   (6, 7, STATIC_SHIFTS + 1)])
+def test_cluster_route_where_sums_wrap_int32(lib, n, m, S, threads, cluster):
+    rng = np.random.default_rng(2000 + n + m + S)
+    mu1, mu2 = wrap_tables(rng, n, m)
+    got = check_against_twin(lib, mu1, mu2, S, *WRAP_COSTS, threads, S,
+                             "cluster", cluster)
+    oracle = T.fill_oracle(mu1, mu2, S, *WRAP_COSTS)
+    ys = T.oracle_layout(got.numpy(), n, m, S)
+    assert not np.array_equal(ys, oracle)      # the int64 oracle differs
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_cluster_route_equals_fill_xla(lib, cluster):
+    n, m, S = 40, 33, 2
+    mu1, mu2 = _rand_tables(np.random.default_rng(6), n, m)
+    got = check_against_twin(lib, mu1, mu2, S, GAMMA, DELTA, 32, 13,
+                             "cluster", cluster)
+    assert np.array_equal(T.oracle_layout(got.numpy(), n, m, S),
+                          J.fill_xla(mu1, mu2, S, GAMMA, DELTA))
+
+
+def test_cluster_route_refuses_what_cannot_run(lib):
+    """Threads beyond a CTA of the route (512), none, no CTA or more than
+    16, a CTA's ring beyond its shared memory (the bytes of
+    models.triplet.cluster_bytes), and a cluster that the card cannot make
+    resident (here: a stand-in card that holds clusters of 2 CTAs at most)
+    are refused before any launch: the slabs keep their garbage, and no
+    other route runs in its place."""
+    mu = T.shared_tables(*[np.zeros((3, 3), np.int32)] * 2, 1, "cpu")[0]
+    ys = emu.garbage(np.random.default_rng(0), (5, 3, 3))
+    before = ys.clone()
+
+    def entry(n, S, threads, cluster):
+        return lib.bialign_triplet_fill_cluster(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (ys, mu, mu)),
+            *(ctypes.c_int(v) for v in (n, 2, S, 0, 0, threads, cluster, 0)),
+            None)
+
+    for n, S, threads, cluster in [(2, 1, 0, 2), (2, 1, 513, 2),
+                                   (2, 1, 32, 0), (2, 1, 32, 17),
+                                   (6536, 8, 512, 8), (5872, 9, 512, 8)]:
+        assert (threads in (0, 513) or cluster in (0, 17)
+                or T.cluster_bytes(n, S, cluster, threads) > T.CTA_SHARED_LIMIT)
+        assert entry(n, S, threads, cluster) != 0
+    lib.host_cluster_limit(2)
+    try:
+        assert entry(2, 1, 32, 3) == 701       # cudaErrorLaunchOutOfResources
+        assert torch.equal(ys, before)
+        assert entry(2, 1, 32, 2) == 0         # a cluster it does hold
+    finally:
+        lib.host_cluster_limit(16)
+
+
 _EXTERN = re.compile(r'extern "C" int (bialign_\w+)\((.*?)\)\s*\{', re.S)
 
 
@@ -269,6 +396,6 @@ def test_the_c_signatures_match_the_loader():
         for name, params in _EXTERN.findall(src.read_text()):
             found[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
                            for p in params.split(",")]
-    assert {"bialign_triplet_fill",
-            "bialign_triplet_fill_shared"} <= set(found)
+    assert {"bialign_triplet_fill", "bialign_triplet_fill_shared",
+            "bialign_triplet_fill_cluster"} <= set(found)
     assert found == _build._SIGNATURES
