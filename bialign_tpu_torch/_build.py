@@ -68,15 +68,16 @@ _SIGNATURES = {
     # stream
     "bialign_walk_affine_block": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
     "bialign_walk_nonaffine_block": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
-    # shards (host table [K, 8]), K, cases, n, m, S (csrc/seqsplit.cu)
-    "bialign_seqsplit_score_affine": [_P, _I, _P] + [_I] * 3,
-    "bialign_seqsplit_score_nonaffine": [_P, _I, _P] + [_I] * 3,
+    # shards (host table [K, 11]), K, cases, n, m, S (csrc/seqsplit.cu; each
+    # entry also on route "resident", bialign_seqsplit_resident_*)
+    **{f"bialign_seqsplit_{route}score_{kind}": [_P, _I, _P] + [_I] * 3
+       for route in ("", "resident_") for kind in ("affine", "nonaffine")},
     # ... and C
-    "bialign_seqsplit_ckpt_affine": [_P, _I, _P] + [_I] * 4,
-    "bialign_seqsplit_ckpt_nonaffine": [_P, _I, _P] + [_I] * 4,
+    **{f"bialign_seqsplit_{route}ckpt_{kind}": [_P, _I, _P] + [_I] * 4
+       for route in ("", "resident_") for kind in ("affine", "nonaffine")},
     # ... and d0, C
-    "bialign_seqsplit_block_affine": [_P, _I, _P] + [_I] * 5,
-    "bialign_seqsplit_block_nonaffine": [_P, _I, _P] + [_I] * 5,
+    **{f"bialign_seqsplit_{route}block_{kind}": [_P, _I, _P] + [_I] * 5
+       for route in ("", "resident_") for kind in ("affine", "nonaffine")},
     # ys, mu1, mu2, n, m, S, 2 gamma, gamma + delta, threads, device, stream
     # (csrc/triplet.cu: routes "global" and "shared"; route "cluster" takes
     # the cluster's CTAs after the threads)

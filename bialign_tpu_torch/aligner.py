@@ -174,7 +174,8 @@ class BiAligner:
                 axis=self._params.get("seqsplit_axis", "sp"),
                 affine=self._affine,
                 block=self._params.get("checkpoint_block") or None,
-                engine=self._engine)
+                engine=self._engine,
+                route=self._params.get("seqsplit_route"))
             self._mu1_t, self._mu2_t = self._band.mu1, self._band.mu2
             return
         mu1, mu2 = tables_to_torch(self.mu1, self.mu2, self.device)

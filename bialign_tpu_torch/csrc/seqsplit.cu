@@ -1,11 +1,17 @@
-// The sequence split: one pair's lattice rows in K contiguous shards, each
-// shard's diagonals on a stream of its own (on one card or several), the
-// tile kernel of csrc/tile_diag.cuh in its row-shard form.  Three entry
-// points, each affine and non-affine:
+// The sequence split: one pair's lattice rows in K contiguous shards (on
+// one card or several), the tile kernel of csrc/tile_diag.cuh in its
+// row-shard form.  Three entry points, each affine and non-affine, each on
+// two routes:
 //   * the score-only ring fill (K1/K2 score-only mode, split);
 //   * the checkpointed fill (K9/K11, split);
 //   * the fill of one block into a window from its checkpoint (K10/K12,
 //     split).
+// Route "streams" (bialign_seqsplit_*): a host loop over the diagonals and
+// the shards, a launch a shard and diagonal on the shard's stream, the
+// halo copied between events.  Route "resident"
+// (bialign_seqsplit_resident_*): one cooperative launch a card for the
+// whole diagonal range, each CTA its own rows, progress flags between
+// neighbouring CTAs (below).
 //
 // Replaces, in bialign_tpu/parallel/seqsplit.py: `_make_shard_step` (the
 // halo step, run there by `lax.scan` under `shard_map` on the XLA step of
@@ -21,35 +27,66 @@
 //
 // The one dependency across shards: a value of row i reads row i-1 of
 // diagonals d-1 and d-2.  So after shard k writes diagonal d, its row b_k
-// of slab d goes to slot 0 of shard k+1's slab d: `cells` values P_k apart
-// to `cells` values P_{k+1} apart, one cudaMemcpy2DAsync (a peer copy
-// between two cards), issued on the receiving shard's stream after an event
-// that marks shard k's diagonal d.  Shard k+1's diagonal d+1 then finds it
-// in place, and so does its d+2.  Not copied when row b_k is off diagonal
-// d: nothing reads it then.
+// of slab d goes to slot 0 of shard k+1's slab d, `cells` values P_k apart
+// to `cells` values P_{k+1} apart, where row b_k lies on diagonal d (else
+// nothing reads it).  Shard k+1's diagonal d+1 then finds it in place, and
+// so does its d+2.  Checkpoints and windows hold the halo too: the slabs
+// saved before diagonal b*C carry slot 0 as the halo left it, which is what
+// the block fill needs for its first two diagonals.
 //
-// Write after read on a ring.  Shard k+1's copy of diagonal d reads slab
-// d % 3 of shard k, which shard k's diagonal d+3 overwrites; so before that
-// diagonal, shard k's stream waits for an event that marks the copy.  On
-// the receiving side the copy overwrites slot 0 of slab d % 3, which
-// shard k+1's diagonal d-1 read (as d-3 = d-1-2): that diagonal is on the
-// same stream, before the copy.  A window is written once a diagonal a
-// block: no such wait.
+// Route "streams".  The halo is one cudaMemcpy2DAsync (a peer copy between
+// two cards), issued on the receiving shard's stream after an event that
+// marks shard k's diagonal d.  Write after read on a ring: shard k+1's copy
+// of diagonal d reads slab d % 3 of shard k, which shard k's diagonal d+3
+// overwrites; so before that diagonal, shard k's stream waits for an event
+// that marks the copy.  On the receiving side the copy overwrites slot 0 of
+// slab d % 3, which shard k+1's diagonal d-1 read (as d-3 = d-1-2): that
+// diagonal is on the same stream, before the copy.  A window is written
+// once a diagonal a block: no such wait.  The caller orders the shards'
+// streams against its own (bialign_tpu_torch/parallel/seqsplit.py: each
+// shard's stream waits for its device's current stream first, and that
+// stream waits for it after).  What bounds it: the host, which issues K
+// launches, K event records and waits and a copy a boundary for every
+// diagonal from one thread (PERF.md).
 //
-// Checkpoints and windows hold the halo too: the slabs saved before
-// diagonal b*C carry slot 0 as the copies left it, which is what the block
-// fill needs for its first two diagonals.
-//
-// The caller orders the shards' streams against its own (the wrappers in
-// bialign_tpu_torch/parallel/seqsplit.py: each shard's stream waits for its
-// device's current stream first, and that stream waits for it after).
-// What bounds it: the tile kernel's launches, K of them a diagonal, and the
-// copies, one a shard boundary a diagonal; on one card the launches of all
-// shards come from one host thread (PERF.md).
+// Route "resident".  One launch a card (cudaLaunchCooperativeKernel, so
+// that every CTA is resident at once; a grid the card cannot hold is
+// refused, cudaErrorCooperativeLaunchTooLarge, and not cut down), on the
+// card's stream of the caller.  Its grid covers the rows of every shard on
+// that card: CTA j of shard k owns rows a_k + j*rows .. (one or more tiles
+// of Tile::rows(S) rows; `rows` a field of the table, 0 for the fewest
+// whole tiles that keep the card's grid resident) and walks the diagonals
+// itself, each diagonal's live rows of its range by `fill_tile`, tile by
+// tile.  CTA order across shards is row order: the CTA above CTA 0 of
+// shard k is the last of shard k-1, possibly on another card.  Each CTA
+// publishes its progress, p = d - d_first + 2 after diagonal d (1 before
+// the first), in an int32 of device memory that the caller zeroes, and
+// before diagonal d waits for two neighbours only:
+//   * above >= d-1: its staged rows reach one row up, row r0-1 of
+//     diagonals d-1 and d-2, which the CTA above writes;
+//   * below >= d-1 (rings only): diagonal d goes to slab d % 3 over
+//     diagonal d-3, whose row r1 the CTA below reads for its diagonals d-2
+//     and d-1 (as their d-1 and d-2).  So the ring stays at three slabs,
+//     as the twins' (ops/cuda_dp.RING): the below-wait is the price of the
+//     third slab's reuse; a window is written once a diagonal and needs
+//     only the first wait.
+// No grid barrier.  The halo is a pull: CTA 0 of shard k+1, after its
+// above-wait and before it fills diagonal d, copies row b_k of diagonal d-1
+// from shard k's slab into its own slot 0 (a load through peer memory
+// between cards, the flags then at system scope), where row b_k lies on
+// d-1; one step past the last diagonal it pulls that diagonal's halo, so
+// slot 0 holds what the twin's does in every slab.  A checkpoint is saved
+// after the pull and before the fill of diagonal b*C, each CTA its own rows
+// (CTA 0 of a shard also slot 0); a window's first two slabs are copied
+// from the checkpoint the same way before the first publish.  Every wait is
+// bounded (csrc/neighbour_flags.cuh): a flag that never comes traps.
+// What bounds it: a diagonal's chain, the neighbour's handoff through the
+// L2 and one tile's stage, compute and store (PERF.md).
 #include <algorithm>
 #include <cstdint>
 
 #include "ckpt_diag.cuh"
+#include <neighbour_flags.cuh>
 
 namespace bialign {
 namespace {
@@ -63,7 +100,10 @@ enum ShardField {
   kFirst,      // a_k
   kLast,       // b_k
   kDevice,
-  kStream,
+  kStream,     // "streams": the shard's; "resident": its card's
+  kFlags,      // "resident": an int32 a row of the shard, zeroed; else 0
+  kRows,       // "resident": rows a CTA, 0 for the default
+  kFault,      // "resident": the fault word, int32 [4] of pinned host memory
   kShardFields
 };
 
@@ -194,12 +234,270 @@ int run_shards(const int64_t* table, int K, const int32_t* consts, int n,
   return 0;
 }
 
+// -- route "resident" -------------------------------------------------------
+
+constexpr int kMaxResident = 32;
+
+// A shard as the resident kernel sees it, on its card or another.
+struct ResidentShard {
+  int32_t* slabs;          // a ring, or a window moved back (window_base)
+  const int32_t* mu1;
+  const int32_t* mu2;
+  int32_t* extra;          // checkpoints [NB, 2, ...] or a checkpoint [2, ...]
+  int32_t* flags;          // its CTAs' progress, on its card
+  int a, b, rows, ctas;    // its rows, rows a CTA, CTAs
+  int first;               // its first CTA in this launch; -1 on another card
+  int sys_above, sys_below;  // the neighbouring shard on another card
+};
+
+struct ResidentArgs {
+  ResidentShard sh[kMaxResident];
+  int32_t* fault;
+  int K, n, m, S, d_first, d_last, C;
+};
+static_assert(sizeof(ResidentArgs) + sizeof(AffineConsts) <= 4000,
+              "a kernel's arguments hold at most 4 KB");
+
+// Own rows (and slot 0 for a shard's CTA 0) of every cell: `to` <- `from`,
+// two slabs of lines of P rows.
+__device__ __forceinline__ void copy_rows(int32_t* to, const int32_t* from,
+                                          int cells, int P, int lr0,
+                                          int lr1, int threads) {
+  const int width = lr1 - lr0 + 1;
+  for (int x = threadIdx.x; x < cells * width; x += threads) {
+    const int cell = x / width;
+    const int at = cell * P + lr0 + (x - cell * width);
+    to[at] = from[at];
+  }
+}
+
+// Diagonals d_first..d_last of every shard on this card, a CTA its rows.
+template <class Tile, int kS, bool kRing>
+__global__ void __launch_bounds__(Tile::kThreads)
+    resident_split(const __grid_constant__ ResidentArgs args,
+                   const __grid_constant__ typename Tile::Consts cs) {
+  extern __shared__ int32_t smem[];
+  constexpr int R = Tile::rows(kS);
+  const int bx = static_cast<int>(blockIdx.x);
+  int k = 0;
+  while (k + 1 < args.K &&
+         !(args.sh[k].first >= 0 && bx >= args.sh[k].first &&
+           bx < args.sh[k].first + args.sh[k].ctas))
+    ++k;
+  const ResidentShard& s = args.sh[k];
+  const int n = args.n, m = args.m;
+  const int S = kS >= 0 ? kS : args.S;
+  const int cells = Tile::kStates * (2 * S + 1) * (2 * S + 1);
+  const int P = s.b - s.a + 2, row0 = s.a - 1;
+  const size_t slab = static_cast<size_t>(cells) * P;
+  const int j = bx - s.first;
+  const int r0 = s.a + j * s.rows, r1 = min(s.b, r0 + s.rows - 1);
+  // its own rows in the line, with slot 0 for CTA 0
+  const int lr0 = j == 0 ? 0 : r0 - row0, lr1 = r1 - row0;
+  const ResidentShard* up = k > 0 ? &args.sh[k - 1] : nullptr;
+  const ResidentShard* down = k + 1 < args.K ? &args.sh[k + 1] : nullptr;
+  const int32_t* above = j > 0 ? s.flags + j - 1
+                         : up ? up->flags + up->ctas - 1 : nullptr;
+  const int32_t* below = j + 1 < s.ctas ? s.flags + j + 1
+                         : down ? down->flags : nullptr;
+  const bool sys_above = j == 0 && s.sys_above;
+  const bool sys_below = j + 1 == s.ctas && s.sys_below;
+  const bool pulls = j == 0 && up != nullptr;
+  int32_t* mine = s.flags + j;
+  const int base = args.d_first - 2;     // progress after diagonal d: d - base
+
+  if (!kRing && args.d_first > 0) {      // slabs 0, 1 <- ck[1], ck[0]
+    copy_rows(s.slabs + slab_of<false>(args.d_first - 2) * slab,
+              s.extra + slab, cells, P, lr0, lr1, Tile::kThreads);
+    copy_rows(s.slabs + slab_of<false>(args.d_first - 1) * slab, s.extra,
+              cells, P, lr0, lr1, Tile::kThreads);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) flag_release(mine, 1, sys_above || sys_below);
+
+  for (int d = args.d_first; d <= args.d_last + 1; ++d) {
+    const bool tail = d > args.d_last;   // the last diagonal's halo only
+    if (tail && !pulls) break;
+    if (threadIdx.x == 0) {
+      if (above)
+        flag_wait(above, d - 1 - base, sys_above, args.fault, d, 1);
+      if (kRing && !tail && below)
+        flag_wait(below, d - 1 - base, sys_below, args.fault, d, 2);
+    }
+    __syncthreads();
+    const int e = d - 1;                 // the halo of diagonal d-1
+    if (pulls && e >= args.d_first && up->b >= e - m && up->b <= e) {
+      const int Pu = up->b - up->a + 2;
+      const int32_t* from =
+          up->slabs + slab_of<kRing>(e) * (static_cast<size_t>(cells) * Pu) +
+          Pu - 1;
+      int32_t* to = s.slabs + slab_of<kRing>(e) * slab;
+      for (int x = threadIdx.x; x < cells; x += Tile::kThreads)
+        to[x * P] = from[x * Pu];
+      __syncthreads();
+    }
+    if (tail) break;
+    if (kRing && args.C > 0 && d > 0 && d % args.C == 0) {
+      int32_t* ck = s.extra + static_cast<size_t>(d / args.C) * 2 * slab;
+      copy_rows(ck, s.slabs + slab_of<true>(d - 1) * slab, cells, P, lr0,
+                lr1, Tile::kThreads);
+      copy_rows(ck + slab, s.slabs + slab_of<true>(d - 2) * slab, cells, P,
+                lr0, lr1, Tile::kThreads);
+    }
+    const int lo = max(max(0, d - m), r0), hi = min(min(n, d), r1);
+    for (int i0 = lo; i0 <= hi; i0 += R)
+      fill_tile<Tile, kS, kRing>(smem, s.slabs, s.mu1, s.mu2, cs, n, m,
+                                 m + 1, P, row0, S, d, i0,
+                                 min(hi, i0 + R - 1));
+    __syncthreads();
+    if (threadIdx.x == 0)
+      flag_release(mine, d - base, sys_above || sys_below);
+  }
+}
+
+// CTAs of a shard of `own` rows at `rows` a CTA
+inline int ctas_of(int own, int rows) { return (own + rows - 1) / rows; }
+
+// Diagonals d_first..d_last over the K shards of `table` on route
+// "resident", as run_shards takes them.  Returns 0 or the first CUDA error
+// (cudaErrorPeerAccessUnsupported for neighbouring shards on cards that
+// cannot reach each other, cudaErrorCooperativeLaunchTooLarge for a forced
+// `rows` whose grid a card cannot hold).
+template <class Tile, bool kRing>
+int run_resident(const int64_t* table, int K, const int32_t* consts, int n,
+                 int m, int S, int d_first, int d_last, int C) {
+  if (K < 1 || K > kMaxResident)
+    return static_cast<int>(cudaErrorInvalidValue);
+  struct Caller {        // made current again on every return
+    int device = 0;
+    ~Caller() { cudaSetDevice(device); }
+  } caller;
+  BIALIGN_TRY(cudaGetDevice(&caller.device));
+  const typename Tile::Consts cs = consts_from<Tile>(consts);
+  const int cells = Tile::kStates * (2 * S + 1) * (2 * S + 1);
+  ResidentArgs args = {};
+  args.K = K;
+  args.n = n;
+  args.m = m;
+  args.S = S;
+  args.d_first = d_first;
+  args.d_last = d_last;
+  args.C = C;
+  int device[kMaxResident];
+  cudaStream_t stream[kMaxResident];
+  size_t widest = 0;
+  for (int k = 0; k < K; ++k) {
+    const int64_t* f = table + k * kShardFields;
+    ResidentShard& s = args.sh[k];
+    s.a = static_cast<int>(f[kFirst]);
+    s.b = static_cast<int>(f[kLast]);
+    const int a_want = k == 0 ? 0 : args.sh[k - 1].b + 1;
+    if (s.a != a_want || s.b < s.a || (k == K - 1 && s.b != n) ||
+        f[kRows] < 0 || f[kFlags] == 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t slab = static_cast<size_t>(cells) * (s.b - s.a + 2);
+    widest = std::max(widest, slab);
+    int32_t* slabs = reinterpret_cast<int32_t*>(f[kSlabs]);
+    s.slabs = kRing ? slabs : window_base(slabs, slab, d_first);
+    s.mu1 = reinterpret_cast<const int32_t*>(f[kMu1]);
+    s.mu2 = reinterpret_cast<const int32_t*>(f[kMu2]);
+    s.extra = reinterpret_cast<int32_t*>(f[kExtra]);
+    s.flags = reinterpret_cast<int32_t*>(f[kFlags]);
+    s.rows = static_cast<int>(f[kRows]);
+    device[k] = static_cast<int>(f[kDevice]);
+    stream[k] = reinterpret_cast<cudaStream_t>(f[kStream]);
+  }
+  if (table[kFault] != 0) {
+    void* mapped = nullptr;
+    BIALIGN_TRY(cudaHostGetDevicePointer(
+        &mapped, reinterpret_cast<void*>(table[kFault]), 0));
+    args.fault = static_cast<int32_t*>(mapped);
+  }
+  // neighbouring shards on two cards: peer access both ways
+  for (int k = 1; k < K; ++k) {
+    if (device[k] == device[k - 1]) continue;
+    args.sh[k].sys_above = args.sh[k - 1].sys_below = 1;
+    for (int x = 0; x < 2; ++x) {
+      const int from = device[k - x], to = device[k - 1 + x];
+      int can = 0;
+      BIALIGN_TRY(cudaDeviceCanAccessPeer(&can, from, to));
+      if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+      BIALIGN_TRY(cudaSetDevice(from));
+      const cudaError_t err = cudaDeviceEnablePeerAccess(to, 0);
+      if (err == cudaErrorPeerAccessAlreadyEnabled)
+        cudaGetLastError();
+      else if (err != cudaSuccess)
+        return static_cast<int>(err);
+    }
+  }
+  return with_shift(S, [&](auto shift) -> int {
+    const auto kernel = resident_split<Tile, decltype(shift)::value, kRing>;
+    const TileGeometry g = tile_geometry<Tile>(S);
+    const auto own = [&](int x) { return args.sh[x].b - args.sh[x].a + 1; };
+    // each card's default rows a CTA: the fewest whole tiles that keep its
+    // grid within what the card holds at once
+    bool seen[kMaxResident] = {};
+    for (int k = 0; k < K; ++k) {
+      if (seen[k]) continue;
+      const int dev = device[k];
+      BIALIGN_TRY(cudaSetDevice(dev));
+      BIALIGN_TRY(tile_ready(kernel, g, widest));
+      int per_sm = 0, sms = 0;
+      BIALIGN_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, g.threads, g.bytes));
+      BIALIGN_TRY(
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+      int rows = g.rows;
+      for (;;) {
+        int grid = 0;
+        for (int x = k; x < K; ++x)
+          if (device[x] == dev)
+            grid += ctas_of(own(x), args.sh[x].rows ? args.sh[x].rows : rows);
+        if (grid <= per_sm * sms || rows > n) break;
+        rows += g.rows;
+      }
+      for (int x = k; x < K; ++x) {
+        if (device[x] != dev) continue;
+        seen[x] = true;
+        if (args.sh[x].rows == 0) args.sh[x].rows = rows;
+        args.sh[x].ctas = ctas_of(own(x), args.sh[x].rows);
+      }
+    }
+    // one launch a card, its shards' CTAs in row order
+    for (int k = 0; k < K; ++k) seen[k] = false;
+    for (int k = 0; k < K; ++k) {
+      if (seen[k]) continue;
+      int grid = 0;
+      for (int x = 0; x < K; ++x) {
+        const bool here = device[x] == device[k];
+        args.sh[x].first = here ? grid : -1;
+        if (here) {
+          grid += args.sh[x].ctas;
+          seen[x] = true;
+        }
+      }
+      BIALIGN_TRY(cudaSetDevice(device[k]));
+      void* params[] = {&args, const_cast<typename Tile::Consts*>(&cs)};
+      const cudaError_t err = cudaLaunchCooperativeKernel(
+          kernel, dim3(grid), dim3(g.threads), params, g.bytes, stream[k]);
+      if (err != cudaSuccess) {
+        // the refusal is returned here, not left as the runtime's last
+        // error for another launcher's cudaGetLastError() to report
+        cudaGetLastError();
+        return static_cast<int>(err);
+      }
+    }
+    return 0;
+  });
+}
+
 }  // namespace
 }  // namespace bialign
 
-// Score-only ring fill of one pair over K shards: `shards`, K x 8 int64 in
-// host memory, a row a shard (ring [3, 9, W, W, P_k] with any contents,
-// mu1, mu2 on its device, 0, a_k, b_k, device, stream).  The last diagonal
+// Score-only ring fill of one pair over K shards, route "streams":
+// `shards`, K x 11 int64 in host memory, a row a shard (ring [3, 9, W, W,
+// P_k] with any contents, mu1, mu2 on its device, 0, a_k, b_k, device,
+// stream, then 0, 0, 0).  The last diagonal
 // is left in slab (n+m) % 3 of each ring; the score is read from the last
 // shard's, which owns row n.  `consts`: the int32 [9, 15] case constants in
 // host memory.  Returns 0, or the first CUDA error.
@@ -253,5 +551,55 @@ extern "C" int bialign_seqsplit_block_nonaffine(const int64_t* shards, int K,
                                                 const int32_t* consts, int n,
                                                 int m, int S, int d0, int C) {
   return bialign::run_shards<bialign::NonaffineTile, false>(
+      shards, K, consts, n, m, S, d0, std::min(d0 + C - 1, n + m), 0);
+}
+
+// Route "resident" of the six entries above, the same arguments; each
+// shard's row of the table also names its progress flags (an int32 a row
+// of the shard, zeroed, on its device), its rows a CTA (0: the default)
+// and the fault word (int32 [4] of pinned host memory, or 0), and its
+// stream field is its card's stream for the launch.  One cooperative
+// launch a card.
+extern "C" int bialign_seqsplit_resident_score_affine(
+    const int64_t* shards, int K, const int32_t* consts, int n, int m,
+    int S) {
+  return bialign::run_resident<bialign::AffineTile, true>(
+      shards, K, consts, n, m, S, 0, n + m, 0);
+}
+
+extern "C" int bialign_seqsplit_resident_score_nonaffine(
+    const int64_t* shards, int K, const int32_t* consts, int n, int m,
+    int S) {
+  return bialign::run_resident<bialign::NonaffineTile, true>(
+      shards, K, consts, n, m, S, 0, n + m, 0);
+}
+
+extern "C" int bialign_seqsplit_resident_ckpt_affine(
+    const int64_t* shards, int K, const int32_t* consts, int n, int m, int S,
+    int C) {
+  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return bialign::run_resident<bialign::AffineTile, true>(
+      shards, K, consts, n, m, S, 0, n + m, C);
+}
+
+extern "C" int bialign_seqsplit_resident_ckpt_nonaffine(
+    const int64_t* shards, int K, const int32_t* consts, int n, int m, int S,
+    int C) {
+  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return bialign::run_resident<bialign::NonaffineTile, true>(
+      shards, K, consts, n, m, S, 0, n + m, C);
+}
+
+extern "C" int bialign_seqsplit_resident_block_affine(
+    const int64_t* shards, int K, const int32_t* consts, int n, int m, int S,
+    int d0, int C) {
+  return bialign::run_resident<bialign::AffineTile, false>(
+      shards, K, consts, n, m, S, d0, std::min(d0 + C - 1, n + m), 0);
+}
+
+extern "C" int bialign_seqsplit_resident_block_nonaffine(
+    const int64_t* shards, int K, const int32_t* consts, int n, int m, int S,
+    int d0, int C) {
+  return bialign::run_resident<bialign::NonaffineTile, false>(
       shards, K, consts, n, m, S, d0, std::min(d0 + C - 1, n + m), 0);
 }

@@ -14,13 +14,20 @@ the one-row halo that the JAX package sends by ``ppermute``.
   ``[NB, 2, (9,) W, W, P_k]``.  The tables ``mu1``, ``mu2`` are whole on
   every device (one copy a device), read by absolute row.
 * The kernels (``csrc/seqsplit.cu``, the tile kernel of
-  ``csrc/tile_diag.cuh`` in its row-shard form) run one C host loop over the
-  diagonals and, inside it, over the shards, each shard on a stream of its
-  own, the halo copied by ``cudaMemcpy2DAsync`` on the receiving shard's
-  stream between events (:data:`LAUNCHES`, one count a call):
-  ``seqsplit_score_*`` the score-only ring fill (K1/K2 score-only, split),
-  ``seqsplit_ckpt_*`` the checkpointed fill (K9/K11), ``seqsplit_block_*``
-  one block of C diagonals into a window from its checkpoint (K10/K12).
+  ``csrc/tile_diag.cuh`` in its row-shard form) take one of two routes
+  (:func:`split_route`; ``route=`` forces one).  Route ``"resident"``: one
+  cooperative launch a device for the whole call, every CTA resident at
+  once and owning fixed rows, progress flags in device memory between
+  neighbouring CTAs, the halo pulled by the next shard's first CTA (a load
+  through peer memory between cards).  Route ``"streams"``: one C host
+  loop over the diagonals and, inside it, over the shards, each shard on a
+  stream of its own, the halo copied by ``cudaMemcpy2DAsync`` on the
+  receiving shard's stream between events.  :data:`LAUNCHES` counts a call
+  of each route's entry points under names of their own:
+  ``seqsplit_[resident_]score_*`` the score-only ring fill (K1/K2
+  score-only, split), ``seqsplit_[resident_]ckpt_*`` the checkpointed fill
+  (K9/K11), ``seqsplit_[resident_]block_*`` one block of C diagonals into
+  a window from its checkpoint (K10/K12).
 * ``*_plain`` are their twins: the per-diagonal steps of
   :mod:`~bialign_tpu_torch.ops.cuda_dp` over a ``_Geometry`` of each
   shard's rows, the halo copied after each diagonal as the kernels copy
@@ -36,13 +43,16 @@ the one-row halo that the JAX package sends by ``ppermute``.
   aligner's decode path take it unchanged.
 
 ``engine="cuda"`` (default) runs the kernels and needs every device of the
-axis to be a CUDA device; ``engine="torch"`` runs the twins on any devices.
+axis to be a CUDA device; ``engine="torch"`` runs the twins on any devices
+(the route then only checked).
 Scores, checkpoints, windows and traces equal the single-device paths'
-(tests/test_torch_seqsplit.py, tests/test_torch_tile_emulation.py).
+(tests/test_torch_seqsplit.py, tests/test_torch_tile_emulation.py,
+tests/test_torch_seqsplit_resident.py).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -62,11 +72,17 @@ from ..ops.checkpoint_dp import (
 from .mesh import joined, mesh_devices, shard_stream, split
 
 ENGINES = ("cuda", "torch")
+ROUTES = ("resident", "streams")
+# the most shards of a call on route "resident" (csrc/seqsplit.cu
+# kMaxResident: the shards go by value in the kernel's arguments)
+RESIDENT_MAX_SHARDS = 32
 
-# Kernel launches per wrapper (one per call of a C host loop).
-LAUNCHES = {"seqsplit_score_affine": 0, "seqsplit_score_nonaffine": 0,
-            "seqsplit_ckpt_affine": 0, "seqsplit_ckpt_nonaffine": 0,
-            "seqsplit_block_affine": 0, "seqsplit_block_nonaffine": 0}
+# Calls of each entry point: one a call of a route "streams" host loop, or
+# of a route "resident" launcher (one cooperative launch a device).
+LAUNCHES = {f"seqsplit_{route}{what}_{kind}": 0
+            for route in ("", "resident_")
+            for what in ("score", "ckpt", "block")
+            for kind in ("affine", "nonaffine")}
 
 
 @dataclass(frozen=True)
@@ -177,18 +193,71 @@ def _on_cpu(shards) -> bool:
     return types == {"cpu"}
 
 
+# -- the routes --------------------------------------------------------------
+
+def split_route(shards) -> str:
+    """``"resident"`` when every two neighbouring shards lie on one device
+    or on CUDA devices that reach each other's memory
+    (``torch.cuda.can_device_access_peer``) and there are at most
+    :data:`RESIDENT_MAX_SHARDS`; else ``"streams"``.  Each device's grid is
+    then resident at once: its rows a CTA default to the fewest whole tiles
+    that keep it so (``csrc/seqsplit.cu``)."""
+    if len(shards) > RESIDENT_MAX_SHARDS:
+        return "streams"
+    for up, down in zip(shards, shards[1:]):
+        if up.device == down.device:
+            continue
+        if (up.device.type != "cuda" or down.device.type != "cuda"
+                or not torch.cuda.can_device_access_peer(up.device.index,
+                                                         down.device.index)
+                or not torch.cuda.can_device_access_peer(down.device.index,
+                                                         up.device.index)):
+            return "streams"
+    return "resident"
+
+
+def _route(shards, route, rows=None) -> str:
+    """``route`` checked against the shards (and ``rows``, a CTA's rows,
+    which only route "resident" takes), or their own route."""
+    if route is None:
+        route = split_route(shards)
+    if rows is not None and (route != "resident" or rows < 1):
+        raise ValueError(f"rows={rows}: a CTA's rows (>= 1) on route "
+                         f"'resident' only, not on {route!r}")
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} or None, got "
+                         f"{route!r}")
+    if route == "resident" and split_route(shards) != "resident":
+        raise ValueError(
+            f"route 'resident' cannot run on shards of "
+            f"{[str(s.device) for s in shards]}: more than "
+            f"{RESIDENT_MAX_SHARDS} shards, or neighbouring devices without "
+            "peer access; route 'streams' runs there")
+    return route
+
+
 # -- the kernels -------------------------------------------------------------
 
-def shard_table(shards, slabs, extras) -> torch.Tensor:
-    """The int64 ``[K, 8]`` host table of a C host loop
+def shard_table(shards, slabs, extras, *, streams=None, flags=None,
+                rows: int = 0, fault=None) -> torch.Tensor:
+    """The int64 ``[K, 11]`` host table of the split's C entry points
     (``csrc/seqsplit.cu`` ``ShardField``): a shard's slabs (ring or window),
     tables, ``extras`` (its checkpoints, or None), rows a and b, device
-    index and stream handle (a CUDA stream's, or an int)."""
+    index and stream handle (``streams``, else the shard's: a CUDA
+    stream's, or an int); for route "resident" also its progress
+    ``flags`` (an int32 tensor a shard), its ``rows`` a CTA (0: the
+    default) and the ``fault`` word."""
+    K = len(shards)
+    streams = streams or [s.stream for s in shards]
+    flags = flags or [None] * K
     return torch.tensor(
         [[sl.data_ptr(), s.mu1.data_ptr(), s.mu2.data_ptr(),
           0 if ex is None else ex.data_ptr(), s.a, s.b, s.device.index or 0,
-          getattr(s.stream, "cuda_stream", s.stream or 0)]
-         for s, sl, ex in zip(shards, slabs, extras)], dtype=torch.int64)
+          getattr(st, "cuda_stream", st or 0),
+          0 if fl is None else fl.data_ptr(), rows,
+          0 if fault is None else fault.data_ptr()]
+         for s, sl, ex, st, fl in zip(shards, slabs, extras, streams, flags)],
+        dtype=torch.int64)
 
 
 def _launch(name: str, shards, slabs, extras, *ints) -> None:
@@ -199,6 +268,85 @@ def _launch(name: str, shards, slabs, extras, *ints) -> None:
     with joined((s.device, s.stream) for s in shards):
         _build.call(f"bialign_{name}", table, len(shards), *ints)
     LAUNCHES[name] += 1
+
+
+def flag_memory(shards) -> list:
+    """Zeroed progress flags on each shard's device, an int32 a row of the
+    shard (enough for a CTA a row): one tensor a device, a view a shard."""
+    sizes = {}
+    for s in shards:
+        sizes[s.device] = sizes.get(s.device, 0) + s.b - s.a + 1
+    whole = {dev: torch.zeros(size, dtype=torch.int32, device=dev)
+             for dev, size in sizes.items()}
+    at, out = dict.fromkeys(sizes, 0), []
+    for s in shards:
+        out.append(whole[s.device][at[s.device]:at[s.device] + s.b - s.a + 1])
+        at[s.device] += s.b - s.a + 1
+    return out
+
+
+_FAULT = []
+
+
+def fault_word() -> torch.Tensor:
+    """The fault word of route "resident" (int32 [4] of pinned host memory,
+    one a process): a wait that outlasts its budget writes 1, the CTA, the
+    diagonal and which neighbour (1 above, 2 below), then traps, and the
+    next synchronisation fails."""
+    if not _FAULT:
+        _FAULT.append(torch.zeros(4, dtype=torch.int32, pin_memory=True))
+    return _FAULT[0]
+
+
+@contextmanager
+def _in_step(devices):
+    """Over several CUDA devices, their current streams wait for each other
+    before the body and after it: launches that read each other's memory
+    (flags, the halo) start after what every device queued before them
+    (the flags' zeroing, the slabs' contents) and end before what any
+    queues next (which may reuse that memory)."""
+    streams = ([torch.cuda.current_stream(d) for d in devices]
+               if len(devices) > 1 else [])
+
+    def meet():
+        for s in streams:
+            for other in streams:
+                if other is not s:
+                    s.wait_stream(other)
+    meet()
+    yield
+    meet()
+
+
+def _launch_resident(name: str, shards, slabs, extras, *ints,
+                     rows=None) -> None:
+    """The launcher ``bialign_<name>``: one cooperative launch a device on
+    its current stream, the devices' streams in step (:func:`_in_step`);
+    raises if an earlier launch faulted."""
+    fault = fault_word()
+    if int(fault[0]):
+        raise RuntimeError(
+            f"{name}: an earlier route 'resident' launch trapped: CTA "
+            f"{int(fault[1])} waited out its budget for its neighbour "
+            f"{'above' if int(fault[3]) == 1 else 'below'} at diagonal "
+            f"{int(fault[2])}")
+    streams = [torch.cuda.current_stream(s.device) for s in shards]
+    table = shard_table(shards, slabs, extras, streams=streams,
+                        flags=flag_memory(shards), rows=rows or 0,
+                        fault=fault)
+    with _in_step(list(dict.fromkeys(s.device for s in shards))):
+        _build.call(f"bialign_{name}", table, len(shards), *ints)
+    LAUNCHES[name] += 1
+
+
+def _launch_route(route: str, what: str, affine: bool, shards, slabs,
+                  extras, *ints, rows=None) -> None:
+    kind = "affine" if affine else "nonaffine"
+    if route == "resident":
+        _launch_resident(f"seqsplit_resident_{what}_{kind}", shards, slabs,
+                         extras, *ints, rows=rows)
+    else:
+        _launch(f"seqsplit_{what}_{kind}", shards, slabs, extras, *ints)
 
 
 # -- the twins ---------------------------------------------------------------
@@ -237,21 +385,24 @@ def _ring_shape(s: Shard, S: int, affine: bool) -> tuple:
 
 
 def seqsplit_last_slabs(shards, max_shift: int, params, affine: bool, *,
-                        rings=None) -> list:
+                        rings=None, route=None, rows=None) -> list:
     """The score-only fill over the shards (K1/K2 score-only, split): each
-    shard's ring, diagonal n+m in its slab (n+m) % 3.  The kernels for
-    shards on CUDA devices, the twin for shards on the CPU.  ``rings``: a
-    ``[3, (9,) W, W, P_k]`` a shard to use, whatever it holds."""
+    shard's ring, diagonal n+m in its slab (n+m) % 3.  The kernels of
+    ``route`` (None: :func:`split_route`; ``rows``: a CTA's rows on route
+    "resident") for shards on CUDA devices, the twin for shards on the CPU.
+    ``rings``: a ``[3, (9,) W, W, P_k]`` a shard to use, whatever it
+    holds."""
     n, m = _check_shards(shards, max_shift)
+    route = _route(shards, route, rows)
     if _on_cpu(shards):
         return seqsplit_last_slabs_plain(shards, max_shift, params, affine,
                                          rings=rings)
     rings = _memory(shards, lambda s: _ring_shape(s, max_shift, affine),
                     rings, False, "rings")
-    kind = "affine" if affine else "nonaffine"
-    _launch(f"seqsplit_score_{kind}", shards, rings, [None] * len(shards),
-            cuda_dp._tile_consts(affine, tuple(params), max_shift), n, m,
-            max_shift)
+    _launch_route(route, "score", affine, shards, rings,
+                  [None] * len(shards),
+                  cuda_dp._tile_consts(affine, tuple(params), max_shift), n,
+                  m, max_shift, rows=rows)
     return rings
 
 
@@ -275,10 +426,11 @@ def _score_of(shards, rings, n: int, m: int, S: int, affine: bool) -> int:
 
 def score_seqsplit(mu1, mu2, max_shift: int, params: tuple, *, mesh,
                    axis: str = "sp", affine: bool = True,
-                   engine: str = "cuda") -> int:
+                   engine: str = "cuda", route=None) -> int:
     """Optimal score of one pair, its rows sharded over ``mesh.along(axis)``.
-    ``params``: (beta, gamma, delta) for affine, (gamma, delta) otherwise.
-    Equal to ``cuda_dp.affine_score`` / ``nonaffine_score``."""
+    ``params``: (beta, gamma, delta) for affine, (gamma, delta) otherwise;
+    ``route``: the kernels' (None: :func:`split_route`).  Equal to
+    ``cuda_dp.affine_score`` / ``nonaffine_score``."""
     devices = mesh_devices(mesh, axis)
     _check_engine(engine, devices)
     shards = make_shards(mu1, mu2, devices)
@@ -289,9 +441,12 @@ def score_seqsplit(mu1, mu2, max_shift: int, params: tuple, *, mesh,
                                     params[2], params[0])
     else:
         cuda_dp._require_int32_safe(shards[0].mu1, shards[0].mu2, *params)
-    fill = (seqsplit_last_slabs if engine == "cuda"
-            else seqsplit_last_slabs_plain)
-    rings = fill(shards, max_shift, params, affine)
+    route = _route(shards, route)
+    if engine == "cuda":
+        rings = seqsplit_last_slabs(shards, max_shift, params, affine,
+                                    route=route)
+    else:
+        rings = seqsplit_last_slabs_plain(shards, max_shift, params, affine)
     return _score_of(shards, rings, n, m, max_shift, affine)
 
 
@@ -303,12 +458,15 @@ def _ckpts_shape(s: Shard, S: int, affine: bool, n: int, m: int,
 
 
 def seqsplit_checkpoints(shards, max_shift: int, params, affine: bool,
-                         block: int, *, rings=None, ckpts=None) -> tuple:
+                         block: int, *, rings=None, ckpts=None, route=None,
+                         rows=None) -> tuple:
     """The checkpointed fill over the shards (K9/K11, split): (rings,
     checkpoints), a ring and a ``[NB, 2, (9,) W, W, P_k]`` a shard,
     ``ckpts[b] = (diagonal b*C - 1, diagonal b*C - 2)`` for b >= 1.  The
-    kernels for shards on CUDA devices, the twin on the CPU."""
+    kernels of ``route`` for shards on CUDA devices (``route``, ``rows`` as
+    in :func:`seqsplit_last_slabs`), the twin on the CPU."""
     n, m = _check_shards(shards, max_shift)
+    route = _route(shards, route, rows)
     if _on_cpu(shards):
         return seqsplit_checkpoints_plain(shards, max_shift, params, affine,
                                           block, rings=rings, ckpts=ckpts)
@@ -318,10 +476,9 @@ def seqsplit_checkpoints(shards, max_shift: int, params, affine: bool,
     ckpts = _memory(shards, lambda s: _ckpts_shape(s, max_shift, affine, n,
                                                    m, C), ckpts, False,
                     "ckpts")
-    kind = "affine" if affine else "nonaffine"
-    _launch(f"seqsplit_ckpt_{kind}", shards, rings, ckpts,
-            cuda_dp._tile_consts(affine, tuple(params), max_shift), n, m,
-            max_shift, C)
+    _launch_route(route, "ckpt", affine, shards, rings, ckpts,
+                  cuda_dp._tile_consts(affine, tuple(params), max_shift), n,
+                  m, max_shift, C, rows=rows)
     return rings, ckpts
 
 
@@ -351,22 +508,24 @@ def seqsplit_checkpoints_plain(shards, max_shift: int, params, affine: bool,
 # -- one block's window ------------------------------------------------------
 
 def seqsplit_block(shards, max_shift: int, params, affine: bool, ckpts,
-                   d0: int, C: int, *, windows=None) -> list:
+                   d0: int, C: int, *, windows=None, route=None,
+                   rows=None) -> list:
     """Diagonals ``d0..min(d0+C-1, n+m)`` over the shards from their
     checkpoints ``ckpts`` (a ``[2, (9,) W, W, P_k]`` a shard: diagonals
     d0-1, d0-2) into windows ``[C+2, (9,) W, W, P_k]`` (K10/K12, split):
     slabs 0 and 1 the checkpoint's (d0-2, d0-1) unless d0 is 0, slab x+2
-    diagonal d0+x.  The kernels on CUDA devices, the twin on the CPU."""
+    diagonal d0+x.  The kernels of ``route`` on CUDA devices (``route``,
+    ``rows`` as in :func:`seqsplit_last_slabs`), the twin on the CPU."""
     n, m = _check_shards(shards, max_shift)
+    route = _route(shards, route, rows)
     if _on_cpu(shards):
         return seqsplit_block_plain(shards, max_shift, params, affine, ckpts,
                                     d0, C, windows=windows)
     windows = _memory(shards, lambda s: (C + 2, *_slab(s, max_shift, affine)),
                       windows, False, "windows")
-    kind = "affine" if affine else "nonaffine"
-    _launch(f"seqsplit_block_{kind}", shards, windows, ckpts,
-            cuda_dp._tile_consts(affine, tuple(params), max_shift), n, m,
-            max_shift, d0, C)
+    _launch_route(route, "block", affine, shards, windows, ckpts,
+                  cuda_dp._tile_consts(affine, tuple(params), max_shift), n,
+                  m, max_shift, d0, C, rows=rows)
     return windows
 
 
@@ -395,10 +554,11 @@ class SeqsplitBand(CheckpointBand):
     ``[NB, 2, (9,) W, W, P_k]`` on its device; ``final``: each shard's slab
     of diagonal n+m; ``mu1``, ``mu2``: the tables on the first shard's
     device, where windows are gathered and walked.  ``engine``: "cuda" runs
-    the block kernels, "torch" their twins."""
+    the block kernels on ``route``, "torch" their twins."""
 
     shards: tuple = ()
     engine: str = "cuda"
+    route: str = "resident"
 
     @property
     def window_shape(self) -> tuple:
@@ -428,11 +588,12 @@ class SeqsplitBand(CheckpointBand):
         _check_block(self, b)
         shape = self.window_shape
         _check_ring(window, shape, self.mu1, "window")
-        fill = (seqsplit_block_plain if plain or self.engine == "torch"
-                else seqsplit_block)
-        parts = fill(self.shards, self.max_shift, self.params, self.affine,
-                     [ck[b] for ck in self.ckpts], b * self.block,
-                     shape[0] - 2)
+        args = (self.shards, self.max_shift, self.params, self.affine,
+                [ck[b] for ck in self.ckpts], b * self.block, shape[0] - 2)
+        if plain or self.engine == "torch":
+            parts = seqsplit_block_plain(*args)
+        else:
+            parts = seqsplit_block(*args, route=self.route)
         if window is None:
             window = torch.empty(shape, dtype=torch.int32, device=self.device)
         for s, part in zip(self.shards, parts):
@@ -443,10 +604,11 @@ class SeqsplitBand(CheckpointBand):
 def fill_seqsplit(mu1, mu2, max_shift: int, params: tuple, *, mesh,
                   axis: str = "sp", affine: bool = True,
                   block: int | None = None,
-                  engine: str = "cuda") -> SeqsplitBand:
+                  engine: str = "cuda", route=None) -> SeqsplitBand:
     """Split fill of one pair that keeps checkpoints for the traceback
-    (``block``: C, as in :mod:`~bialign_tpu_torch.ops.checkpoint_dp`).
-    Returns a :class:`SeqsplitBand`, which
+    (``block``: C, as in :mod:`~bialign_tpu_torch.ops.checkpoint_dp`;
+    ``route``: the kernels', of the fill and of the blocks, None for
+    :func:`split_route`).  Returns a :class:`SeqsplitBand`, which
     ``checkpoint_dp.affine_traceback`` / ``nonaffine_traceback`` and the
     aligner walk as any checkpointed band."""
     devices = mesh_devices(mesh, axis)
@@ -455,11 +617,16 @@ def fill_seqsplit(mu1, mu2, max_shift: int, params: tuple, *, mesh,
     n, m = _check_shards(shards, max_shift)
     C = _block_size(block, n + m + 1)
     params = tuple(int(v) for v in params)
-    fill = (seqsplit_checkpoints if engine == "cuda"
-            else seqsplit_checkpoints_plain)
-    rings, ckpts = fill(shards, max_shift, params, affine, C)
+    route = _route(shards, route)
+    if engine == "cuda":
+        rings, ckpts = seqsplit_checkpoints(shards, max_shift, params, affine,
+                                            C, route=route)
+    else:
+        rings, ckpts = seqsplit_checkpoints_plain(shards, max_shift, params,
+                                                  affine, C)
     R = cuda_dp.RING
     return SeqsplitBand(
         ckpts=tuple(ckpts), final=tuple(r[(n + m) % R] for r in rings),
         mu1=shards[0].mu1, mu2=shards[0].mu2, n=n, m=m, max_shift=max_shift,
-        affine=affine, params=params, block=C, shards=shards, engine=engine)
+        affine=affine, params=params, block=C, shards=shards, engine=engine,
+        route=route)

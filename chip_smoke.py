@@ -10,6 +10,8 @@
                                              # its double buffer measured
     python3 chip_smoke.py --mesh-only        # phases 1-2, the split's
                                              # kernels and the mesh phase
+    python3 chip_smoke.py --split-only       # phases 1-2 and the split
+                                             # alone (on several cards)
     python3 chip_smoke.py --triplet-only     # phases 1-2 and the triplet:
                                              # its kernel, path and times
     python3 chip_smoke.py --profile-stress   # phases 1-2 and phase 8, with
@@ -48,9 +50,11 @@ package.  Phases, one line each:
    state and codes equal to the host walk's over the same window, and the
    blockwise traceback equal to the full-band device walk.  The sequence
    split's six entry points (csrc/seqsplit.cu: score-only, checkpointed
-   and block fills over K row shards, a stream a shard) at K = 1, 2 and 3
-   (a shard of one row at each end), max_shift 0-4, on rings, checkpoints
-   and windows of garbage, every cell equal to their twins'.  The walks
+   and block fills over K row shards) on both routes ("streams": a stream
+   a shard; "resident": one cooperative launch a card, at its default
+   rows a CTA and at a row a CTA) at K = 1, 2 and 3 (a shard of one row at
+   each end), max_shift 0-4, on rings, checkpoints and windows of garbage,
+   every cell equal to their twins'.  The walks
    again on tie-heavy tables (values in {0, +-100}, costs of the same
    grain: many co-optimal cases a step, the first-minimum rule deciding),
    single-pair, block by block and batched, each equal to the host walk
@@ -134,17 +138,20 @@ package.  Phases, one line each:
    The mesh phase (shards on distinct cards when the host has several,
    else all on cuda:0, a stream each; the device count and the layout
    printed): the DNA-Pol-1 pair through BiAligner(seqsplit_mesh=) at K = 2
-   and 4, affine max_shift 1 (761500, the md5 anchors) and the non-affine
-   CLI defaults, each score, line and trace equal to the one-device
-   low-memory path's; score_seqsplit there (equal to affine_score and
-   nonaffine_score) and on the 4000x3990 pair at K = 4; the 64 windows'
-   scores and alignments from tables and from codes over "data" meshes
-   of 2 and 4, and the stream's scores and alignments from codes over a
-   mesh of 2, each equal to one device pair by pair, with the rates of
-   both.  The split's entries at DNA-Pol-1 on 2 shards against their
-   twins on garbage, timed; its fills at K = 1, 2, 4 in turns beside the
-   one-device fills; in phase 7, the halo copies' share of a profiled
-   K = 4 fill.
+   and 4 on the split's own route ("resident"), and at K = 2 forced onto
+   route "streams", affine max_shift 1 (761500, the md5 anchors) and the
+   non-affine CLI defaults, each score, line and trace equal to the
+   one-device low-memory path's; score_seqsplit there (equal to
+   affine_score and nonaffine_score) and on the 4000x3990 pair at K = 4;
+   the 64 windows' scores and alignments from tables and from codes over
+   "data" meshes of 2 and 4, and the stream's scores and alignments from
+   codes over a mesh of 2, each equal to one device pair by pair, with the
+   rates of both.  The split's entries on both routes at DNA-Pol-1 on 2
+   shards against their twins on garbage, timed; both routes in turns at
+   K = 1, 2, 4 (score-only, checkpointed, one block, all the band's
+   blocks) beside the one-device fills, and at 4000x3990, K = 4; in phase
+   7, a profiled K = 4 fill on each route (the halo copies' share on
+   "streams", one kernel a card on "resident").
    The triplet aligner through BiAlignerTriplet on its default engine, the
    CUDA kernel: the DNA-Pol-1 pair at max_shift 1 with flat gaps on route
    "shared" (779500; score, trace, the three rows, the six with structures
@@ -165,7 +172,8 @@ package.  Phases, one line each:
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
    (device busy and idle time, per-kernel times; score-only K3 as its one
-   kernel), the split's K = 4 score-only fill (the halo copies' share),
+   kernel), the split's K = 4 score-only fill on route "streams" (the halo
+   copies' share) and on route "resident" (one kernel a card),
    and the device's busy time in one double-buffered run of the stream's
    alignments from codes; each measurement in a process of its own
    (--profile-one), all set up at once (tables, warm-up, the profiler's
@@ -415,6 +423,13 @@ KERNELS = {
                               "bialign_tpu/parallel/seqsplit.py:285"),
     "seqsplit_block_nonaffine": ("bialign_tpu_torch/csrc/seqsplit.cu",
                                  "bialign_tpu/parallel/seqsplit.py:285"),
+    # ... on route "resident": one cooperative launch a card for the call,
+    # flags between neighbouring CTAs
+    **{f"seqsplit_resident_{what}_{kind}": (
+        "bialign_tpu_torch/csrc/seqsplit.cu",
+        f"bialign_tpu/parallel/seqsplit.py:{line}")
+       for what, line in (("score", 139), ("ckpt", 244), ("block", 285))
+       for kind in ("affine", "nonaffine")},
     # the triplet aligner's fill, route "shared" (the last three diagonals
     # in shared memory), route "cluster" (pairs beyond one CTA's ring: the
     # rows split over a thread-block cluster) and route "global" (pairs that
@@ -446,12 +461,14 @@ PATHS = {
                "batch_fill_affine", "batch_fill_nonaffine",
                "walk_affine_batch", "walk_nonaffine_batch"),
     # the mesh phase: the sequence split through BiAligner(seqsplit_mesh=)
-    # and score_seqsplit, with the block walks; the batch and the stream
-    # over a "data" mesh, on the routes their buckets take
-    "seqsplit": ("seqsplit_score_affine", "seqsplit_score_nonaffine",
-                 "seqsplit_ckpt_affine", "seqsplit_ckpt_nonaffine",
-                 "seqsplit_block_affine", "seqsplit_block_nonaffine",
-                 "walk_affine_block", "walk_nonaffine_block"),
+    # and score_seqsplit on their route, "resident", and forced onto route
+    # "streams", with the block walks; the batch and the stream over a
+    # "data" mesh, on the routes their buckets take
+    "seqsplit": tuple(f"seqsplit_{route}{what}_{kind}"
+                      for route in ("resident_", "")
+                      for what in ("score", "ckpt", "block")
+                      for kind in ("affine", "nonaffine"))
+    + ("walk_affine_block", "walk_nonaffine_block"),
     "mesh": ("conveyor_scores", "cta_scores", "batch_fill_affine",
              "walk_affine_batch"),
     # the triplet aligner through BiAlignerTriplet on its default engine:
@@ -3073,7 +3090,7 @@ def profile_names() -> list:
             + [f"batch_{b}{form}" for b in PROFILE_BATCHES
                for form in ("", "_prepared")]
             + [f"align_{name}" for name in PROFILE_ALIGNS]
-            + ["split_k4", "stream_alignments_codes"])
+            + ["split_k4", "split_k4_resident", "stream_alignments_codes"])
 
 
 def profile_setup(name: str, out: Path):
@@ -3158,9 +3175,10 @@ def profile_setup(name: str, out: Path):
             return dict(staged=[staged_align(dispatch) for _ in range(3)],
                         profile=profile)
         return measure
-    if name == "split_k4":
-        fill = split_fill(mol)
-        return lambda: profiled_split(fill, out)
+    if name in ("split_k4", "split_k4_resident"):
+        route = "resident" if name.endswith("_resident") else "streams"
+        fill = split_fill(mol, route)
+        return lambda: profiled_split(fill, out, route)
     if name == "stream_alignments_codes":
         buffer_seconds(stream_corpus(mol), DNAPOL_FULL, alignments=True,
                        codes=True, serial=False)
@@ -4143,14 +4161,15 @@ def split_rows(n: int) -> list:
     return out
 
 
-def split_forms(affine: bool) -> tuple:
+def split_forms(affine: bool, route: str = "streams") -> tuple:
     """(score fill, twin, checkpointed fill, twin, block fill, twin, the
-    three counters) of the split's entries of one kind."""
+    three counters of ``route``) of the split's entries of one kind."""
     kind = "affine" if affine else "nonaffine"
+    tag = "resident_" if route == "resident" else ""
     return (ssp.seqsplit_last_slabs, ssp.seqsplit_last_slabs_plain,
             ssp.seqsplit_checkpoints, ssp.seqsplit_checkpoints_plain,
             ssp.seqsplit_block, ssp.seqsplit_block_plain,
-            tuple(f"seqsplit_{what}_{kind}" for what in
+            tuple(f"seqsplit_{tag}{what}_{kind}" for what in
                   ("score", "ckpt", "block")))
 
 
@@ -4159,11 +4178,17 @@ def garbage_like(shards, shape_of) -> list:
     return [garbage_band(shape_of(s), s.device) for s in shards]
 
 
-def split_against_twins(shards, S, params, affine, C, blocks) -> tuple:
-    """The split's three entries against their twins on the same garbage:
-    (max |err| of each, its rings, its checkpoints, ms of each twin's run
-    by CUDA events, the last block's for the blocks) over every cell of
-    the rings, checkpoints and the windows of ``blocks``."""
+# the split's routes held to the twins: (route, a CTA's rows or None)
+SPLIT_ROUTES = (("streams", None), ("resident", None), ("resident", 1))
+
+
+def split_against_twins(shards, S, params, affine, C, blocks,
+                        routes=SPLIT_ROUTES) -> tuple:
+    """The split's three entries on each of ``routes`` against their twins
+    on the same garbage, the twins run once: ({(route, rows): max |err| of
+    each entry}, {(route, rows): its rings}, the twin's checkpoints, ms of
+    each twin's run by CUDA events, the last block's for the blocks) over
+    every cell of the rings, checkpoints and the windows of ``blocks``."""
     score, score_p, ckpt, ckpt_p, block, block_p, _names = \
         split_forms(affine)
     n, m = shards[-1].b, shards[0].mu1.shape[1] - 1
@@ -4171,40 +4196,52 @@ def split_against_twins(shards, S, params, affine, C, blocks) -> tuple:
                       s.rows)
     NB = (n + m) // C + 1
     clones = lambda ts: [x.clone() for x in ts]
+    errs = {r: [0, 0, 0] for r in routes}
+
+    def against(got, want, at):
+        for r in routes:
+            errs[r][at] = max([errs[r][at]] + [tensor_err(a, b) for a, b
+                                               in zip(got[r], want)])
     junk = garbage_like(shards, lambda s: (3, *slab(s)))
-    rings = score(shards, S, params, affine, rings=clones(junk))
+    rings = {(route, rows): score(shards, S, params, affine,
+                                  rings=clones(junk), route=route, rows=rows)
+             for route, rows in routes}
     ms_score, want = cuda_ms(lambda: score_p(shards, S, params, affine,
                                              rings=clones(junk)), reps=1)
-    e_score = max(tensor_err(a, b) for a, b in zip(rings, want))
+    against(rings, want, 0)
     junk = garbage_like(shards, lambda s: (3, *slab(s)))
     junk_ck = garbage_like(shards, lambda s: (NB, 2, *slab(s)))
-    rings, ckpts = ckpt(shards, S, params, affine, C, rings=clones(junk),
-                        ckpts=clones(junk_ck))
+    got = {(route, rows): sum(ckpt(shards, S, params, affine, C,
+                                   rings=clones(junk), ckpts=clones(junk_ck),
+                                   route=route, rows=rows), [])
+           for route, rows in routes}
     ms_ckpt, want = cuda_ms(lambda: ckpt_p(
         shards, S, params, affine, C, rings=clones(junk),
         ckpts=clones(junk_ck)), reps=1)
-    e_ckpt = max(tensor_err(a, b) for a, b in zip(rings + ckpts,
-                                                  want[0] + want[1]))
-    e_block, ms_block = 0, None
+    against(got, want[0] + want[1], 1)
+    ckpts = want[1]
+    ms_block = None
     Cw = min(C, n + m + 1)
     for b in blocks:
         junk = garbage_like(shards, lambda s: (Cw + 2, *slab(s)))
         mine = [c[b] for c in ckpts]
-        got = block(shards, S, params, affine, mine, b * C, Cw,
-                    windows=clones(junk))
+        got = {(route, rows): block(shards, S, params, affine, mine, b * C,
+                                    Cw, windows=clones(junk), route=route,
+                                    rows=rows)
+               for route, rows in routes}
         ms_block, want = cuda_ms(lambda: block_p(
             shards, S, params, affine, mine, b * C, Cw,
             windows=clones(junk)), reps=1)
-        e_block = max([e_block] + [tensor_err(a, b_)
-                                   for a, b_ in zip(got, want)])
-    return (e_score, e_ckpt, e_block), rings, ckpts, (ms_score, ms_ckpt,
-                                                      ms_block)
+        against(got, want, 2)
+    return errs, rings, ckpts, (ms_score, ms_ckpt, ms_block)
 
 
 def seqsplit_kernels(errs: dict) -> list:
     """Phase 3's part for the sequence split: at SPLIT_SHAPES, K = 1, 2, 3,
-    each entry against its twin on garbage in every cell (every block), and
-    the last slab's live row against the unsharded score-only kernel's."""
+    each entry on each route of SPLIT_ROUTES ("resident" at its default
+    rows and at a row a CTA) against its twin on garbage in every cell
+    (every block), and the last slab's live row against the unsharded
+    score-only kernel's."""
     ran = []
     for n, m, S in SPLIT_SHAPES:
         rng = np.random.default_rng(SEED + 7 * n + 3 * m + S)
@@ -4212,7 +4249,6 @@ def seqsplit_kernels(errs: dict) -> list:
         t1, t2 = tables_to_torch(mu1, mu2, "cuda")
         for affine in (True, False):
             params = AFFINE_PARAMS if affine else NONAFFINE_PARAMS
-            names = split_forms(affine)[-1]
             whole = (cuda_dp.affine_last_slab if affine
                      else cuda_dp.nonaffine_last_slab)(t1, t2, S, *params)
             for rows in split_rows(n):
@@ -4221,21 +4257,146 @@ def seqsplit_kernels(errs: dict) -> list:
                 e, rings, _ck, _ms = split_against_twins(
                     shards, S, params, affine, SPLIT_BLOCK,
                     range((n + m) // SPLIT_BLOCK + 1))
-                last = rings[-1][(n + m) % 3][..., n - shards[-1].a + 1]
-                e_row = tensor_err(last.to(whole.device), whole[..., n])
-                for name, err in zip(names, (max(e[0], e_row), *e[1:])):
-                    check(err == 0, f"{name} ({n}, {m}, {S}) rows {rows}: "
-                          f"max |err| {err}")
-                    errs[name] = max(errs[name], err)
+                for (route, cta_rows), err in e.items():
+                    last = rings[route, cta_rows][-1][(n + m) % 3][
+                        ..., n - shards[-1].a + 1]
+                    e_row = tensor_err(last.to(whole.device), whole[..., n])
+                    names = split_forms(affine, route)[-1]
+                    for name, x in zip(names, (max(err[0], e_row), *err[1:])):
+                        check(x == 0, f"{name} ({n}, {m}, {S}) rows {rows}, "
+                              f"a CTA's rows {cta_rows}: max |err| {x}")
+                        errs[name] = max(errs[name], x)
                 ran.append((n, m, S, "affine" if affine else "nonaffine",
                             len(rows)))
+    split_refusals()
     return ran
+
+
+def split_refusals() -> None:
+    """A forced route that cannot run raises, and nothing falls back: route
+    "resident" over more shards than it takes (ValueError), and a forced
+    row a CTA whose grid the card cannot hold at once (the cooperative
+    launch refused, cudaErrorCooperativeLaunchTooLarge, 720), the ring
+    left as it was."""
+    rng = np.random.default_rng(SEED)
+    mu1, mu2 = rand_tables(rng, 2 * ssp.RESIDENT_MAX_SHARDS, 5)
+    many = ssp.make_shards(mu1, mu2,
+                           mesh_places(ssp.RESIDENT_MAX_SHARDS + 1))
+    check(ssp.split_route(many) == "streams", "route of 33 shards")
+    try:
+        ssp.seqsplit_last_slabs(many, 1, AFFINE_PARAMS, True,
+                                route="resident")
+        check(False, "route 'resident' over 33 shards did not raise")
+    except ValueError:
+        pass
+    n = 4 * torch.cuda.get_device_properties(0).multi_processor_count * 8
+    mu1, mu2 = rand_tables(rng, n, 3)
+    shards = ssp.make_shards(mu1, mu2, mesh_places(1))
+    junk = garbage_like(shards, lambda s: (3, 9, 3, 3, s.rows))
+    ring = [x.clone() for x in junk]
+    try:
+        ssp.seqsplit_last_slabs(shards, 1, AFFINE_PARAMS, True, rings=ring,
+                                route="resident", rows=1)
+        check(False, f"a CTA a row of {n + 1} rows did not raise")
+    except RuntimeError as err:
+        check("error 720" in str(err), f"refused otherwise: {err}")
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(ring, junk)),
+          "a refused launch wrote the ring")
 
 
 def lowmem_lines(mol, params, **kw) -> tuple:
     """(score, lines, trace, seconds) of BiAligner on the DNA-Pol-1 pair."""
     seconds, score, lines, ba = run_e2e(mol, params, **kw)
     return score, lines, ba.traceback(), seconds
+
+
+def split_runs(mol) -> dict:
+    """The split's paths, for the launch counts: the DNA-Pol-1 pair through
+    BiAligner(seqsplit_mesh=) at K = 2 and 4 on its own route and at K = 2
+    forced onto route "streams" (affine max_shift 1 and the non-affine CLI
+    defaults), score_seqsplit the same way, and the 4000x3990 pair's at
+    K = 4.  Returns what split_checks holds to one device."""
+    split, scores = {}, {}
+    for name, params in (("affine", DNAPOL_FULL),
+                         ("nonaffine", DNAPOL_CLI_DEFAULTS)):
+        for k in SPLIT_KS:
+            mesh = Mesh(mesh_places(k), ("sp",))
+            split[name, k] = lowmem_lines(mol, params, seqsplit_mesh=mesh)
+    ba, _t1, _t2 = port_tables(mol, DNAPOL_FULL)
+    bk, _k1, _k2 = port_tables(mol, DNAPOL_CLI_DEFAULTS)
+    for k in SPLIT_KS:
+        mesh = Mesh(mesh_places(k), ("sp",))
+        scores["affine", k] = ssp.score_seqsplit(
+            ba.mu1, ba.mu2, ba.max_shift, (ba.beta, ba.gamma, ba.delta),
+            mesh=mesh)
+        scores["nonaffine", k] = ssp.score_seqsplit(
+            bk.mu1, bk.mu2, bk.max_shift, (bk.gamma, bk.delta), mesh=mesh,
+            affine=False)
+    n, m, S = BIG_PAIR
+    big = rand_tables(np.random.default_rng(SEED), n, m)
+    big_k = max(SPLIT_KS)
+    big_s, big_score = timed(lambda: ssp.score_seqsplit(
+        *big, S, AFFINE_PARAMS, mesh=Mesh(mesh_places(big_k), ("sp",))))
+    # the same paths forced onto route "streams" at K = 2
+    mesh = Mesh(mesh_places(SPLIT_KS[0]), ("sp",))
+    for name, params in (("affine", DNAPOL_FULL),
+                         ("nonaffine", DNAPOL_CLI_DEFAULTS)):
+        split[name, "streams"] = lowmem_lines(
+            mol, params, seqsplit_mesh=mesh, seqsplit_route="streams")
+    scores["affine", "streams"] = ssp.score_seqsplit(
+        ba.mu1, ba.mu2, ba.max_shift, (ba.beta, ba.gamma, ba.delta),
+        mesh=mesh, route="streams")
+    scores["nonaffine", "streams"] = ssp.score_seqsplit(
+        bk.mu1, bk.mu2, bk.max_shift, (bk.gamma, bk.delta), mesh=mesh,
+        affine=False, route="streams")
+    return dict(split=split, scores=scores, big=big, big_s=big_s,
+                big_score=big_score, route=ssp.split_route(ssp.make_shards(
+                    ba.mu1, ba.mu2, mesh_places(big_k))))
+
+
+def split_checks(mol, md5, runs) -> dict:
+    """split_runs' results against one device: each score, line and trace
+    equal to the one-device low-memory path's (761500 and the md5 anchors),
+    each score to affine_score / nonaffine_score, the 4000x3990 pair's to
+    affine_score.  Returns the phase line's entries."""
+    split, scores = runs["split"], runs["scores"]
+    ba, t1, t2 = port_tables(mol, DNAPOL_FULL)
+    bk, k1, k2 = port_tables(mol, DNAPOL_CLI_DEFAULTS)
+    for name, params in (("affine", DNAPOL_FULL),
+                         ("nonaffine", DNAPOL_CLI_DEFAULTS)):
+        want = lowmem_lines(mol, params, lowmem=True)
+        for k in (*SPLIT_KS, "streams"):
+            got = split[name, k]
+            check(got[:3] == want[:3], f"split {name} K={k}: score, lines "
+                  "or trace differ from the one-device low-memory path")
+        split[name] = dict(score=want[0], lowmem_s=want[3],
+                           split_s={k: split[name, k][3] for k in SPLIT_KS},
+                           streams_k2_s=split[name, "streams"][3])
+    check(split["affine"]["score"] == 761500, "split DNA-Pol-1 score")
+    for k in (*SPLIT_KS, "streams"):
+        check(md5_anchors(split["affine", k][1]) == md5,
+              f"split DNA-Pol-1 md5 anchors, K={k}")
+    want_a = cuda_dp.affine_score(t1, t2, ba.max_shift, ba.beta, ba.gamma,
+                                  ba.delta)
+    want_n = cuda_dp.nonaffine_score(k1, k2, bk.max_shift, bk.gamma, bk.delta)
+    for k in (*SPLIT_KS, "streams"):
+        check(scores["affine", k] == want_a == 761500,
+              f"score_seqsplit K={k}: {scores['affine', k]}")
+        check(scores["nonaffine", k] == want_n,
+              f"score_seqsplit non-affine K={k}: {scores['nonaffine', k]}")
+    n, m, S = BIG_PAIR
+    big_one = cuda_dp.affine_score(*tables_to_torch(*runs["big"], "cuda"), S,
+                                   *AFFINE_PARAMS)
+    check(runs["big_score"] == big_one,
+          f"{n}x{m} split {runs['big_score']} != {big_one}")
+    return dict(
+        split_dnapol=dict(affine=split["affine"], nonaffine=split["nonaffine"],
+                          md5_anchors="all 6 equal", ks=SPLIT_KS,
+                          route=runs["route"]),
+        score_seqsplit=dict(affine=want_a, nonaffine=want_n, ks=SPLIT_KS),
+        big_pair=dict(n=n, m=m, k=max(SPLIT_KS), score=runs["big_score"],
+                      split_s=runs["big_s"]))
 
 
 def phase_mesh(mol, md5) -> tuple[dict, dict]:
@@ -4252,29 +4413,7 @@ def phase_mesh(mol, md5) -> tuple[dict, dict]:
                           sorted({*SPLIT_KS, *DATA_KS, STREAM_DATA_K})})
     t_phase = time.perf_counter()
     reset_counts()
-    split = {}
-    for name, params in (("affine", DNAPOL_FULL),
-                         ("nonaffine", DNAPOL_CLI_DEFAULTS)):
-        for k in SPLIT_KS:
-            mesh = Mesh(mesh_places(k), ("sp",))
-            split[name, k] = lowmem_lines(mol, params, seqsplit_mesh=mesh)
-    ba, t1, t2 = port_tables(mol, DNAPOL_FULL)
-    bk, k1, k2 = port_tables(mol, DNAPOL_CLI_DEFAULTS)
-    scores = {}
-    for k in SPLIT_KS:
-        mesh = Mesh(mesh_places(k), ("sp",))
-        scores["affine", k] = ssp.score_seqsplit(
-            ba.mu1, ba.mu2, ba.max_shift, (ba.beta, ba.gamma, ba.delta),
-            mesh=mesh)
-        scores["nonaffine", k] = ssp.score_seqsplit(
-            bk.mu1, bk.mu2, bk.max_shift, (bk.gamma, bk.delta), mesh=mesh,
-            affine=False)
-    n, m, S = BIG_PAIR
-    big = rand_tables(np.random.default_rng(SEED), n, m)
-    big_k = max(SPLIT_KS)
-    big_s, big_score = timed(lambda: ssp.score_seqsplit(
-        *big, S, AFFINE_PARAMS, mesh=Mesh(mesh_places(big_k), ("sp",))))
-
+    runs = split_runs(mol)
     windows = realistic_windows(mol, SEED)
     tables = [host_tables(w, DNAPOL_FULL)[:2] for w in windows]
     costs = (DNAPOL_FULL["gap_opening_cost"], DNAPOL_FULL["gap_cost"],
@@ -4318,29 +4457,7 @@ def phase_mesh(mol, md5) -> tuple[dict, dict]:
     launches = {**path_counts("seqsplit"), **path_counts("mesh")}
 
     # the references on one device, after the counts are read
-    for name, params in (("affine", DNAPOL_FULL),
-                         ("nonaffine", DNAPOL_CLI_DEFAULTS)):
-        want = lowmem_lines(mol, params, lowmem=True)
-        for k in SPLIT_KS:
-            got = split[name, k]
-            check(got[:3] == want[:3], f"split {name} K={k}: score, lines "
-                  "or trace differ from the one-device low-memory path")
-        split[name] = dict(score=want[0], lowmem_s=want[3],
-                           split_s={k: split[name, k][3] for k in SPLIT_KS})
-    check(split["affine"]["score"] == 761500, "split DNA-Pol-1 score")
-    check(md5_anchors(split["affine", SPLIT_KS[0]][1]) == md5,
-          "split DNA-Pol-1 md5 anchors")
-    want_a = cuda_dp.affine_score(t1, t2, ba.max_shift, ba.beta, ba.gamma,
-                                  ba.delta)
-    want_n = cuda_dp.nonaffine_score(k1, k2, bk.max_shift, bk.gamma, bk.delta)
-    for k in SPLIT_KS:
-        check(scores["affine", k] == want_a == 761500,
-              f"score_seqsplit K={k}: {scores['affine', k]}")
-        check(scores["nonaffine", k] == want_n,
-              f"score_seqsplit non-affine K={k}: {scores['nonaffine', k]}")
-    big_one = cuda_dp.affine_score(*tables_to_torch(*big, "cuda"), S,
-                                   *AFFINE_PARAMS)
-    check(big_score == big_one, f"{n}x{m} split {big_score} != {big_one}")
+    found.update(split_checks(mol, md5, runs))
 
     one = batch_runs(None)
     rates = {"one_device": {}}
@@ -4364,41 +4481,50 @@ def phase_mesh(mol, md5) -> tuple[dict, dict]:
         found[f"stream_codes_{'alignments' if a else 'scores'}"] = {
             rate: {f"mesh_{STREAM_DATA_K}": len(out) / seconds,
                    "one_device": len(o1) / s1}, "records": len(out)}
-    found.update(
-        split_dnapol=dict(affine=split["affine"], nonaffine=split["nonaffine"],
-                          md5_anchors="all 6 equal", ks=SPLIT_KS),
-        score_seqsplit=dict(affine=want_a, nonaffine=want_n, ks=SPLIT_KS),
-        big_pair=dict(n=n, m=m, k=big_k, score=big_score, split_s=big_s),
-        batch_rates_pairs_per_s=rates, phase_s=time.perf_counter() - t_phase)
+    found.update(batch_rates_pairs_per_s=rates,
+                 phase_s=time.perf_counter() - t_phase)
     return found, launches
 
 
-def split_fill(mol):
-    """The DNA-Pol-1 split's score-only fill at K = 4, run once: a function
-    that runs it again."""
+def split_fill(mol, route: str = "streams"):
+    """The DNA-Pol-1 split's score-only fill at K = 4 on ``route``, run
+    once: a function that runs it again."""
     seqA, strA, seqB, strB = mol
     ba = BiAligner(seqA, seqB, strA, strB, **DNAPOL_FULL)
     p = (ba.beta, ba.gamma, ba.delta)
     shards = ssp.make_shards(ba.mu1, ba.mu2, mesh_places(4))
-    fill = lambda: ssp.seqsplit_last_slabs(shards, 1, p, True)  # noqa: E731
+    fill = lambda: ssp.seqsplit_last_slabs(  # noqa: E731
+        shards, 1, p, True, route=route)
     fill()
     return fill
 
 
-def profiled_split(fill, out: Path) -> dict:
-    """The split's fill of :func:`split_fill` under torch.profiler: device
-    busy and idle time, and the halo copies' share of the busy time (some
-    7,500 device events)."""
+def profiled_split(fill, out: Path, route: str = "streams") -> dict:
+    """The split's fill of :func:`split_fill` on ``route`` under
+    torch.profiler: device busy and idle time; on route "streams" the halo
+    copies' share of the busy time (some 7,500 device events); on route
+    "resident" its kernels, which must be one a card (the one launch of
+    the call)."""
     out.mkdir(parents=True, exist_ok=True)
-    summary, _dev = traced(fill, out / "trace_split_k4.json")
+    summary, dev = traced(fill, out / f"trace_split_k4_{route}.json")
+    found = dict(window_us=summary["window_us"],
+                 device_busy_us=summary["device_busy_us"],
+                 device_idle_share=summary["device_idle_share"])
+    if route == "resident":
+        spans, dur, _gaps = dp_kernel_stats(dev, ("resident_split",))
+        cards = len(set(mesh_places(4)))
+        check(len(spans) == cards and not dp_kernel_stats(dev, ("_diag",))[0],
+              f"{len(spans)} split kernels traced, {cards} cards: "
+              f"{sorted(summary['kernels'])}")
+        return dict(found, split_kernels=len(spans), kernel_us=dur.tolist(),
+                    other_device_events={
+                        k: v["count"] for k, v in summary["kernels"].items()
+                        if "resident_split" not in k})
     copies = sum(k["total_us"] for name, k in summary["kernels"].items()
                  if "Memcpy" in name)
     kernels = sum(k["total_us"] for name, k in summary["kernels"].items()
                   if "Memcpy" not in name and "Memset" not in name)
-    return dict(window_us=summary["window_us"],
-                device_busy_us=summary["device_busy_us"],
-                device_idle_share=summary["device_idle_share"],
-                halo_copies_us=copies, kernels_us=kernels,
+    return dict(found, halo_copies_us=copies, kernels_us=kernels,
                 halo_share_of_busy=copies / summary["device_busy_us"])
 
 
@@ -4411,85 +4537,148 @@ def halo_bytes(shards, m: int, cells: int, first: int, last: int) -> int:
     return copies * cells * 4 * 2
 
 
+def split_turns(fills: dict, reps: int = 3) -> dict:
+    """name -> ms of each of ``fills`` (CUDA events, ``reps`` runs a turn),
+    warm, in turns: every fill once in order, then in reverse."""
+    turns = {name: [] for name in fills}
+    for fn in fills.values():
+        fn()                                                  # warm-up
+    for name in list(fills) + list(fills)[::-1]:
+        turns[name].append(cuda_ms(fills[name], reps=reps)[0])
+    return turns
+
+
+def route_fills(shards, S, p, C, tag: str) -> dict:
+    """The affine split's fills on ``shards`` on both routes, named
+    ``<route>_<tag>_<form>``: score-only, checkpointed, the middle block,
+    and every block of the band one after another (a traceback's
+    refills)."""
+    score, _sp, ckpt, _cp, block, _bp, _names = split_forms(True)
+    n, m = shards[-1].b, shards[0].mu1.shape[1] - 1
+    NB, Cw = (n + m) // C + 1, min(C, n + m + 1)
+    _rings, ckpts = ckpt(shards, S, p, True, C)
+    fills = {}
+    for route in ssp.ROUTES:
+        def blocks(route=route):
+            for b in range(NB):
+                block(shards, S, p, True, [c[b] for c in ckpts], b * C, Cw,
+                      route=route)
+        fills[f"{route}_{tag}_score"] = \
+            lambda route=route: score(shards, S, p, True, route=route)
+        fills[f"{route}_{tag}_ckpt"] = \
+            lambda route=route: ckpt(shards, S, p, True, C, route=route)
+        fills[f"{route}_{tag}_block"] = lambda route=route: block(
+            shards, S, p, True, [c[NB // 2] for c in ckpts], NB // 2 * C,
+            Cw, route=route)
+        fills[f"{route}_{tag}_blocks_all"] = blocks
+    return fills
+
+
 def phase_mesh_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
-    """The split's six entries at DNA-Pol-1 on SPLIT_TWIN_K shards against
-    their twins on the same garbage (the score-only fill, the checkpointed
-    fill, the middle block), each timed beside its twin; the split's fills
-    at K = 1, 2, 4 in turns beside the one-device score-only and
-    checkpointed fills.  Returns (times, bounds, more)."""
+    """The split's twelve entries at DNA-Pol-1 on SPLIT_TWIN_K shards
+    against their twins on the same garbage (the score-only fill, the
+    checkpointed fill, the middle block; both routes against one run of
+    the twins), each timed beside its twin; then both routes' fills in
+    turns at K = 1, 2, 4 (score-only, checkpointed, the middle block and
+    all the band's blocks) beside the one-device score-only and
+    checkpointed fills, and at 4000x3990, K = 4, the score-only fill.
+    Returns (times, bounds, more)."""
     seqA, strA, seqB, strB = mol
     times, bounds, more = {}, {}, {}
+    routes = (("streams", None), ("resident", None))
     for affine, params in ((True, DNAPOL_FULL), (False, DNAPOL_CLI_DEFAULTS)):
         ba = BiAligner(seqA, seqB, strA, strB, **params)
         S, n, m = ba.max_shift, len(seqA), len(seqB)
         p = (ba.beta, ba.gamma, ba.delta) if affine else (ba.gamma, ba.delta)
         cases, states = (15, 9) if affine else (13, 1)
         cells = states * (2 * S + 1) ** 2
-        score, _sp, ckpt, _cp, block, _bp, names = split_forms(affine)
+        score, _sp, ckpt, _cp, block, _bp, _names = split_forms(affine)
         shards = ssp.make_shards(ba.mu1, ba.mu2, mesh_places(SPLIT_TWIN_K))
         C = ckp.default_block(n + m + 1)
         NB = (n + m) // C + 1
         mid = NB // 2
         t0 = time.perf_counter()
-        e, _rings, ckpts, twin_ms = split_against_twins(shards, S, p,
-                                                        affine, C, [mid])
+        e, _rings, ckpts, twin_ms = split_against_twins(shards, S, p, affine,
+                                                        C, [mid], routes)
         twin_check_s = time.perf_counter() - t0
-        for name, err in zip(names, e):
-            check(err == 0, f"{name} DNA-Pol-1 K={SPLIT_TWIN_K}: max |err| "
-                  f"{err}")
-            errs[name] = max(errs[name], err)
         mine = [c[mid] for c in ckpts]
         Cw = min(C, n + m + 1)
-        runs = {names[0]: lambda: score(shards, S, p, affine),
-                names[1]: lambda: ckpt(shards, S, p, affine, C),
-                names[2]: lambda: block(shards, S, p, affine, mine, mid * C,
-                                        Cw)}
-        for (name, kernel), ms_p in zip(runs.items(), twin_ms):
-            kernel()                                          # warm-up
-            times[name] = (cuda_ms(kernel, reps=5)[0], ms_p)
         whole = dp_bound(n, m, S, cases, states, band=False)
         slab = cells * (n + 1) * 4
         halo = halo_bytes(shards, m, cells, 0, n + m)
-        bounds[names[0]] = bound(2 * (n + 1) * (m + 1) * 4 + slab + halo,
-                                 (n + 1) * (m + 1) * (2 * S + 1) ** 2
-                                 * states * cases * 2)
-        bounds[names[1]] = bound(
-            2 * (n + 1) * (m + 1) * 4 + slab + (NB - 1) * 2 * slab + halo,
-            (n + 1) * (m + 1) * (2 * S + 1) ** 2 * states * cases * 2)
         d = np.arange(mid * C, min((mid + 1) * C, n + m + 1))
         live = int((np.minimum(n, d) - np.maximum(0, d - m) + 1).sum())
-        bounds[names[2]] = bound(
-            2 * slab + 2 * live * 4 + (len(d) + 2) * slab
-            + halo_bytes(shards, m, cells, int(d[0]), int(d[-1])),
-            live * (2 * S + 1) ** 2 * states * cases * 2)
-        launches = SPLIT_TWIN_K * (n + m + 1)
-        more[names[0]] = dict(k=SPLIT_TWIN_K, launches_a_call=launches,
-                              us_per_launch=times[names[0]][0] * 1e3
-                              / launches, halo_bytes=halo,
-                              one_device_bound_ms=whole[0],
-                              twin_check_s=twin_check_s)
-        more[names[1]] = dict(k=SPLIT_TWIN_K, block=C, blocks=NB)
-        more[names[2]] = dict(k=SPLIT_TWIN_K, one_block=mid, diagonals=Cw)
+        form_bounds = (
+            bound(2 * (n + 1) * (m + 1) * 4 + slab + halo,
+                  (n + 1) * (m + 1) * (2 * S + 1) ** 2 * states * cases * 2),
+            bound(2 * (n + 1) * (m + 1) * 4 + slab + (NB - 1) * 2 * slab
+                  + halo,
+                  (n + 1) * (m + 1) * (2 * S + 1) ** 2 * states * cases * 2),
+            bound(2 * slab + 2 * live * 4 + (len(d) + 2) * slab
+                  + halo_bytes(shards, m, cells, int(d[0]), int(d[-1])),
+                  live * (2 * S + 1) ** 2 * states * cases * 2))
+        for route, rows in routes:
+            names = split_forms(affine, route)[-1]
+            for name, err in zip(names, e[route, rows]):
+                check(err == 0, f"{name} DNA-Pol-1 K={SPLIT_TWIN_K}: max "
+                      f"|err| {err}")
+                errs[name] = max(errs[name], err)
+            runs = {names[0]: lambda: score(shards, S, p, affine,
+                                            route=route),
+                    names[1]: lambda: ckpt(shards, S, p, affine, C,
+                                           route=route),
+                    names[2]: lambda: block(shards, S, p, affine, mine,
+                                            mid * C, Cw, route=route)}
+            for (name, kernel), ms_p, b in zip(runs.items(), twin_ms,
+                                               form_bounds):
+                kernel()                                      # warm-up
+                times[name] = (cuda_ms(kernel, reps=5)[0], ms_p)
+                bounds[name] = b
+            launches = (SPLIT_TWIN_K * (n + m + 1) if route == "streams"
+                        else len(set(mesh_places(SPLIT_TWIN_K))))
+            more[names[0]] = dict(k=SPLIT_TWIN_K, launches_a_call=launches,
+                                  us_per_diagonal=times[names[0]][0] * 1e3
+                                  / (n + m + 1), halo_bytes=halo,
+                                  one_device_bound_ms=whole[0],
+                                  twin_check_s=twin_check_s)
+            more[names[1]] = dict(k=SPLIT_TWIN_K, block=C, blocks=NB)
+            more[names[2]] = dict(k=SPLIT_TWIN_K, one_block=mid, diagonals=Cw)
         if not affine:
             continue
-        # the fills at K = 1, 2, 4 beside one device's, in turns
+        # both routes at K = 1, 2, 4 beside one device's fills, in turns
         t1, t2 = tables_to_torch(ba.mu1, ba.mu2, "cuda")
         fills = {"one_device_score": lambda: cuda_dp.affine_last_slab(
                      t1, t2, S, *p),
                  "one_device_ckpt": lambda: ckp.fill_affine_checkpoint(
                      t1, t2, S, *p)}
-        by_k = {k: ssp.make_shards(ba.mu1, ba.mu2, mesh_places(k))
-                for k in SPLIT_TIME_KS}
-        for k, sh in by_k.items():
-            fills[f"split_{k}_score"] = lambda sh=sh: score(sh, S, p, True)
-            fills[f"split_{k}_ckpt"] = lambda sh=sh: ckpt(sh, S, p, True, C)
-        turns = {name: [] for name in fills}
-        for fn in fills.values():
-            fn()                                              # warm-up
-        for name in list(fills) + list(fills)[::-1]:
-            turns[name].append(cuda_ms(fills[name], reps=3)[0])
-        more["split_fill_ms_in_turns"] = turns
+        for k in SPLIT_TIME_KS:
+            fills.update(route_fills(
+                ssp.make_shards(ba.mu1, ba.mu2, mesh_places(k)), S, p, C,
+                f"k{k}"))
+        more["split_ms_in_turns"] = split_turns(fills)
+        # the 4000x3990 pair at K = 4: the score-only fill
+        bn, bm, bS = BIG_PAIR
+        big = rand_tables(np.random.default_rng(SEED), bn, bm)
+        big_shards = ssp.make_shards(*big, mesh_places(max(SPLIT_KS)))
+        b1, b2 = tables_to_torch(*big, "cuda")
+        more["big_pair_ms_in_turns"] = split_turns({
+            "one_device_score": lambda: cuda_dp.affine_last_slab(
+                b1, b2, bS, *AFFINE_PARAMS),
+            **{f"{route}_k4_score": lambda route=route: score(
+                big_shards, bS, AFFINE_PARAMS, True, route=route)
+               for route in ssp.ROUTES}}, reps=2)
+        more["big_pair_ms_in_turns"]["n_m_k"] = [bn, bm, max(SPLIT_KS)]
     return times, bounds, more
+
+
+def say_split_times(smi: str, errs: dict) -> None:
+    """phase_mesh_timing's line, alone (--mesh-only, --split-only)."""
+    times, bounds, more = phase_mesh_timing(dnapol_pair(), errs)
+    say("5 kernel times, sequence split", nvidia_smi=smi,
+        ms_kernel_vs_plain={
+            k: {"kernel_ms": v[0], "plain_ms": v[1],
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+            for k, v in times.items()}, details=more, max_abs_err=errs)
 
 
 def main() -> int:
@@ -4533,6 +4722,12 @@ def main() -> int:
         help="build, then only the sequence split's kernels against their "
         "twins and the mesh phase (the split and the data-parallel paths, "
         "their kernel times)")
+    parser.add_argument(
+        "--split-only", action="store_true",
+        help="build, then only the sequence split: its kernels on both "
+        "routes against their twins, its paths at DNA-Pol-1 and 4000x3990 "
+        "against one device, both routes' times (on a host of several "
+        "cards the shards lie on distinct cards, through peer memory)")
     parser.add_argument(
         "--fills-only", action="store_true",
         help="build, then only time the single-pair fills, score-only fills "
@@ -4624,14 +4819,25 @@ def main() -> int:
         for name in PATHS["seqsplit"] + PATHS["mesh"]:
             check(mesh_launches[name] > 0,
                   f"kernel {name} not launched by the mesh phase")
-        times, bounds, more = phase_mesh_timing(dnapol_pair(), errs)
-        say("5 kernel times, sequence split", nvidia_smi=smi,
-            ms_kernel_vs_plain={
-                k: {"kernel_ms": v[0], "plain_ms": v[1],
-                    "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
-                for k, v in times.items()}, details=more, max_abs_err=errs)
-        say("7 profile, split", nvidia_smi=smi, score_fill_k4=(
-            profiled_in_children(["split_k4"])["split_k4"]))
+        say_split_times(smi, errs)
+        found = profiled_in_children(["split_k4", "split_k4_resident"])
+        say("7 profile, split", nvidia_smi=smi,
+            score_fill_k4_streams=found["split_k4"],
+            score_fill_k4_resident=found["split_k4_resident"])
+        return 0
+    if args.split_only:
+        say("3 kernels, sequence split", max_abs_err=errs,
+            seqsplit_n_m_shift_kind_shards=seqsplit_kernels(errs))
+        reset_counts()
+        runs = split_runs(dnapol_pair())
+        launches = path_counts("seqsplit")
+        say("5 split", nvidia_smi=smi, device_count=torch.cuda.device_count(),
+            layouts={k: mesh_places(k) for k in SPLIT_TIME_KS},
+            launches=launches,
+            **split_checks(dnapol_pair(), dnapol_md5(), runs))
+        for name in PATHS["seqsplit"]:
+            check(launches[name] > 0, f"kernel {name} not launched")
+        say_split_times(smi, errs)
         return 0
     if args.fills_only:
         times, bounds, more = phase_full_timing(dnapol_pair(), errs)
@@ -4726,13 +4932,15 @@ def main() -> int:
     out = ROOT / "build" / "profile"
     report = phase_profile(out)
     split_k4 = report.pop("split_k4")
+    split_k4_resident = report.pop("split_k4_resident")
     stream_profile = report.pop("stream_alignments_codes")
     say("7 profile", out=str(out), **{
         name: {key: ({k: v for k, v in val.items() if k != "kernels"}
                      if isinstance(val, dict) else val)
                for key, val in r.items()}
         for name, r in report.items()})
-    say("7 profile, split", nvidia_smi=smi, score_fill_k4=split_k4)
+    say("7 profile, split", nvidia_smi=smi, score_fill_k4_streams=split_k4,
+        score_fill_k4_resident=split_k4_resident)
     say("7 profile, stream", nvidia_smi=smi, alignments_codes=stream_profile)
 
     # phase_stream sets the counts to 0 before its StreamingAligner runs
@@ -4764,4 +4972,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception:
+        # a split launch that trapped names its CTA here (seqsplit.fault_word)
+        if ssp is not None and ssp._FAULT and int(ssp._FAULT[0][0]):
+            print(f"route 'resident' fault word {ssp._FAULT[0].tolist()}",
+                  file=sys.stderr)
+        raise

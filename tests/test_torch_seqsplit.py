@@ -293,3 +293,88 @@ def test_more_devices_than_rows_and_refusals():
                           mesh=Mesh(["cpu"] * 2, ("data",)), engine="torch")
     with pytest.raises(TypeError, match="sharded"):
         ck.affine_block(band, 0)
+
+
+# -- the kernels' routes -----------------------------------------------------
+
+def _fake_shards(devices) -> tuple:
+    """Shards of a 5-row pair on ``devices`` (names only: the tables stay
+    on the CPU), a row each but the last."""
+    mu1, mu2 = (torch.zeros(6, 4, dtype=torch.int32),) * 2
+    rows = [(k, k) for k in range(len(devices) - 1)] + [(len(devices) - 1, 5)]
+    return tuple(TS.Shard(torch.device(d), a, b, mu1, mu2)
+                 for d, (a, b) in zip(devices, rows))
+
+
+@pytest.mark.parametrize("devices,peer,want", [
+    (["cpu"] * 3, None, "resident"),
+    (["cuda:0"] * 4, None, "resident"),
+    (["cuda:0", "cuda:1", "cuda:0"], True, "resident"),
+    (["cuda:0", "cuda:1", "cuda:1"], False, "streams"),
+    (["cuda:0", "cpu"], True, "streams"),
+])
+def test_split_route(monkeypatch, devices, peer, want):
+    """"resident" where every two neighbouring shards share a device or
+    reach each other's memory, else "streams"; a forced "resident" that
+    cannot run raises, a forced "streams" runs anywhere."""
+    asked = []
+
+    def can(a, b):
+        asked.append((a, b))
+        return peer
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", can)
+    shards = _fake_shards(devices)
+    assert TS.split_route(shards) == want
+    if peer is None:
+        assert not asked           # one device: no peer question
+    assert TS._route(shards, None) == want
+    assert TS._route(shards, "streams") == "streams"
+    if want == "resident":
+        assert TS._route(shards, "resident", rows=3) == "resident"
+    else:
+        with pytest.raises(ValueError, match="cannot run"):
+            TS._route(shards, "resident")
+
+
+def test_forced_routes_and_their_refusals():
+    """More shards than route "resident" takes: "streams"; a forced
+    "resident" raises, through score_seqsplit too, and the twins give the
+    one-device score on either route; rows= only with "resident"; an
+    unknown route raises."""
+    n = TS.RESIDENT_MAX_SHARDS + 3
+    mu1, mu2 = _rand(n, 5, 3)
+    params = (-150, -50, -150)
+    t1, t2 = tables_to_torch(mu1, mu2, "cpu")
+    want = cuda_dp.affine_score_plain(t1, t2, 1, *params)
+    many = _mesh(TS.RESIDENT_MAX_SHARDS + 1)
+    shards = TS.make_shards(mu1, mu2, many.along("sp"))
+    assert TS.split_route(shards) == "streams"
+    with pytest.raises(ValueError, match="cannot run"):
+        TS.score_seqsplit(mu1, mu2, 1, params, mesh=many, engine="torch",
+                          route="resident")
+    for route in (None, "streams"):
+        assert TS.score_seqsplit(mu1, mu2, 1, params, mesh=many,
+                                 engine="torch", route=route) == want
+    for route in ("resident", "streams"):
+        assert TS.score_seqsplit(mu1, mu2, 1, params, mesh=_mesh(3),
+                                 engine="torch", route=route) == want
+    few = TS.make_shards(mu1, mu2, ["cpu"] * 3)
+    with pytest.raises(ValueError, match="rows"):
+        TS.seqsplit_last_slabs(few, 1, params, True, route="streams", rows=8)
+    with pytest.raises(ValueError, match="rows"):
+        TS.seqsplit_last_slabs(few, 1, params, True, rows=0)
+    with pytest.raises(ValueError, match="route must be"):
+        TS.seqsplit_checkpoints(few, 1, params, True, 4, route="graphs")
+
+
+@pytest.mark.parametrize("route", [None, "streams"])
+def test_the_band_keeps_its_route(route):
+    """BiAligner(seqsplit_route=) and fill_seqsplit(route=): the band
+    records the route its blocks are refilled on; the result is the same."""
+    mol = G.TOY_RNA
+    ba = BiAligner(mol["seqA"], mol["seqB"], mol.get("strA"),
+                   mol.get("strB"), seqsplit_mesh=_mesh(3),
+                   seqsplit_route=route, **CPU, **G.TOY_RNA_AFFINE_PARAMS)
+    assert ba.optimize() == G.TOY_RNA_AFFINE_SCORE
+    assert ba._band.route == (route or "resident")
+    assert list(ba.decode_trace()) == G.TOY_RNA_AFFINE_DEFAULT_OUT

@@ -57,7 +57,7 @@ BLOCK = 3
 # that includes one of them is built
 KERNEL_FILES = {"tile_diag.cuh": (1, 1), "batch_diag.cuh": (1, 1),
                 "conveyor.cuh": (1, 1), "cta_scores.cuh": (2, 2),
-                "score_affine_ms0.cu": (0, 1)}
+                "score_affine_ms0.cu": (0, 1), "seqsplit.cu": (1, 0)}
 ENTRY_HEADERS = ("tile_diag", "ckpt_diag", "batch_diag", "conveyor",
                  "cta_scores")
 
