@@ -41,6 +41,10 @@ _SIGNATURES = {
     "bialign_score_nonaffine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bialign_score_affine_ms0": [_P, _P, _P, _P, _I, _I, _I, _P],
     "bialign_score_affine_ms0_grid": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # ring, mu1, mu2, consts, n, m, ctas, threads, halo, flags, fault,
+    # device, stream
+    "bialign_score_affine_ms0_resident": [_P] * 4 + [_I] * 4 + [_P] * 3
+    + [_I, _P],
     # rings, out, mu1, mu2, ns, ms, consts (host), B, N, M, (S,) (lanes, T0,
     # or threads,) (d_max,) device, stream
     "bialign_batch_affine": [_P] * 7 + [_I] * 6 + [_P],
@@ -80,10 +84,13 @@ _SIGNATURES = {
        for route in ("", "resident_") for kind in ("affine", "nonaffine")},
     # ys, mu1, mu2, n, m, S, 2 gamma, gamma + delta, threads, device, stream
     # (csrc/triplet.cu: routes "global" and "shared"; route "cluster" takes
-    # the cluster's CTAs after the threads)
+    # the cluster's CTAs after the threads, route "resident" the grid's CTAs
+    # and then the halo memory, the flags and the fault word)
     "bialign_triplet_fill": [_P] * 3 + [_I] * 7 + [_P],
     "bialign_triplet_fill_shared": [_P] * 3 + [_I] * 7 + [_P],
     "bialign_triplet_fill_cluster": [_P] * 3 + [_I] * 8 + [_P],
+    "bialign_triplet_fill_resident": [_P] * 3 + [_I] * 7 + [_P] * 3
+    + [_I, _P],
     # next, hops, sink, device, stream (csrc/probe.cu, for chip_smoke.py)
     "bialign_probe_chase": [_P, _I, _P, _I, _P],
 }

@@ -90,6 +90,7 @@
 #include <cstring>
 
 #include <cuda_pipeline.h>
+#include <neighbour_flags.cuh>
 
 #include "affine_ms0_diag.cuh"
 #include "common.cuh"
@@ -232,27 +233,73 @@ __device__ __forceinline__ int32_t chunk_value(const int4& c, int at) {
   return at == 0 ? c.x : at == 1 ? c.y : at == 2 ? c.z : c.w;
 }
 
+// K3's route "resident" (csrc/score_affine_ms0.cu): CTA g of a cooperative
+// grid takes the rows [g rows, (g+1) rows) of the pair; `halo` [G-1,
+// n+m+1, 3] holds each CTA's last row, diagonal by diagonal (block g CTA
+// g's), `flags` [G] each CTA's progress (zeroed before the launch; d+1
+// once block g holds diagonal d), `fault` the fault word as the card sees
+// it, or null (csrc/neighbour_flags.cuh).  Unused on the other routes.
+struct Ms0Link {
+  int rows;
+  int32_t* halo;
+  int32_t* flags;
+  int32_t* fault;
+};
+
 // K3 and K7: the max_shift 0 recurrence, a thread its kRows rows.  `ns`
 // and `ms` null: one pair of N x M (K3).  The stacks hold B planes.
-template <int kRows>
+// kResident (K3's route "resident", B = 1): the CTA's rows [r0, r1) of the
+// pair, in a ring [3][3][rows+1] whose local row 0 is the halo, row r0-1
+// of the CTA above; the thread of its last row stores that row's three
+// states of each diagonal into its block of `link.halo`, one thread
+// publishes the diagonal with a release store of the CTA's flag after the
+// barrier that ends it, and one acquires the flag of the CTA above before
+// it copies that CTA's row into local row 0, a diagonal ahead (below).  No
+// barrier beyond the CTA: a CTA waits only for the one above, whose halo
+// is never overwritten, and walks only the diagonals of its own rows.
+template <int kRows, bool kResident = false>
 __global__ void __launch_bounds__(kCtaMaxThreads)
     cta_ms0(int32_t* rings, int32_t* out, const int32_t* __restrict__ mu1,
             const int32_t* __restrict__ mu2, const int32_t* __restrict__ ns,
             const int32_t* __restrict__ ms,
             const __grid_constant__ AffineMs0Consts cs, int B, int N,
-            int M) {
+            int M, const __grid_constant__ Ms0Link link) {
   extern __shared__ int32_t smem[];
-  const int b = blockIdx.x;
+  const int b = kResident ? 0 : blockIdx.x;
   const int n = ns != nullptr ? ns[b] : N, m = ms != nullptr ? ms[b] : M;
   if (n < 0 || n > N || m < 0 || m > M) return;   // the whole CTA
-  const int P = N + 1, ld = M + 1, slab = AffineMs0::kStates * P;
-  int32_t* ring = smem;                             // [3][3][P]
+  const int P = N + 1, ld = M + 1;
+  // the CTA's rows [r0, r1), at local rows i - r0 + kHalo of lines of L
+  // values (all of the pair's rows, L = P, but on route "resident")
+  constexpr int kHalo = kResident ? 1 : 0;
+  const int cta = static_cast<int>(blockIdx.x);
+  const int r0 = kResident ? min(n + 1, cta * link.rows) : 0;
+  const int r1 = kResident ? min(n + 1, r0 + link.rows) : n + 1;
+  if (kResident && r0 >= r1) return;                // a CTA without rows
+  const int L = kResident ? link.rows + 1 : P;
+  const int slab = AffineMs0::kStates * L;
+  int32_t* ring = smem;                             // [3][3][L]
   int32_t* mine = rings != nullptr
-                      ? rings + static_cast<size_t>(b) * RING * slab
+                      ? rings + static_cast<size_t>(b) * RING *
+                                    AffineMs0::kStates * P
                       : nullptr;
+  // the ring's lines, or on route "resident" its own rows of them
+  const int width = r1 - r0;
+  auto lines = [&](const auto& copy) {
+    if constexpr (kResident) {
+      for (int x = threadIdx.x; x < RING * AffineMs0::kStates * width;
+           x += blockDim.x) {
+        const int line = x / width, l = x - line * width;
+        copy(ring[line * L + kHalo + l],
+             mine[static_cast<size_t>(line) * P + r0 + l]);
+      }
+    } else {
+      for (int x = threadIdx.x; x < RING * slab; x += blockDim.x)
+        copy(ring[x], mine[x]);
+    }
+  };
   if (mine != nullptr)
-    for (int x = threadIdx.x; x < RING * slab; x += blockDim.x)
-      ring[x] = mine[x];
+    lines([](int32_t& cell, int32_t& arg) { cell = arg; });
   // value (i, j) of this pair's tables is value first + i * ld + j of the
   // stacks
   const long long total = static_cast<long long>(B) * P * ld;
@@ -264,8 +311,8 @@ __global__ void __launch_bounds__(kCtaMaxThreads)
   auto fetch = [&](int d) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const int i = threadIdx.x + r * blockDim.x, j = d - i;
-      if (i > n || j < 0 || j > m) continue;
+      const int i = r0 + threadIdx.x + r * blockDim.x, j = d - i;
+      if (i >= r1 || j < 0 || j > m) continue;
       const long long g = first + static_cast<long long>(i) * ld + j;
       if (j == 0 || ((lead1 + g) & 3) == 0)
         c1[r] = table_chunk(mu1, total, lead1, g);
@@ -273,14 +320,82 @@ __global__ void __launch_bounds__(kCtaMaxThreads)
         c2[r] = table_chunk(mu2, total, lead2, g);
     }
   };
-  fetch(0);
+  // the diagonals this CTA walks: every one, but on route "resident" those
+  // of its own rows
+  const int d_first = kResident ? r0 : 0;
+  const int d_last = kResident ? min(n + m, r1 - 1 + m) : n + m;
+  // Route "resident": this CTA's block of the halo, where its last row
+  // goes, and the block above, which its first row reads.  Thread
+  // `publisher` publishes the one, after the barrier that ends a diagonal
+  // (which orders the last row's stores before the release); thread
+  // `copier` copies the other into local row 0 of the ring's slot of e
+  // during diagonal e (before the first, e = r0 - 1), for the first row's
+  // diagonals e+1 and e+2, once the flag of the CTA above shows it: by
+  // cp.async into one of two staging rows after the ring, then into the
+  // ring, and e+1's on its way already where the flag shows it.  It keeps
+  // the flag's value as it read it (`seen` > e: e's halo is in memory) and
+  // polls again only for a diagonal beyond.  The two are the last threads
+  // of the last two warps with no rows, where the CTA has two (the host
+  // gives two warps more; else both the last thread of the one, else the
+  // first row's), so that no row's chain waits for a flag, a store's
+  // acknowledgement or a copy, and the release of `publisher` (a fence)
+  // does not wait for the copies of `copier` in flight.
+  const long long block = static_cast<long long>(n + m + 1) *
+                          AffineMs0::kStates;
+  int32_t* halo_out = kResident && r1 <= n ? link.halo + cta * block
+                                           : nullptr;
+  const int T = blockDim.x;
+  const int spare = width < T ? (T - (width + 31) / 32 * 32) / 32 : 0;
+  const int copier_t = spare >= 1 ? T - 1 : 0;
+  const bool copier = kResident && threadIdx.x == copier_t;
+  const bool publisher =
+      kResident && threadIdx.x == (spare >= 2 ? T - 33 : copier_t);
+  const int32_t* halo_in = copier && r0 > 0 ? link.halo + (cta - 1) * block
+                                       : nullptr;
+  int32_t* hbuf = ring + RING * slab;               // [2][3]: e % 2
+  int seen = 0, staged_e = -1;
+  const auto stage = [&](int e) {
+    for (int t = 0; t < AffineMs0::kStates; ++t)
+      __pipeline_memcpy_async(
+          hbuf + (e & 1) * AffineMs0::kStates + t,
+          halo_in + static_cast<long long>(e) * AffineMs0::kStates + t,
+          sizeof(int32_t));
+    __pipeline_commit();
+  };
+  const auto pull = [&](int e) {
+    if (staged_e != e) {
+      if (seen <= e)
+        seen = flag_wait(link.flags + cta - 1, e + 1, false, link.fault,
+                         e + 1, 1);
+      stage(e);
+    }
+    __pipeline_wait_prior(0);
+    int32_t* to = ring + slab_of<true>(e) * slab;
+    for (int t = 0; t < AffineMs0::kStates; ++t)
+      to[t * L] = hbuf[(e & 1) * AffineMs0::kStates + t];
+    staged_e = -1;
+    if (e + 2 <= r0 + m) {                  // e+1's, read from e+2 on
+      if (seen <= e + 1) seen = flag_acquire(link.flags + cta - 1, false);
+      if (seen > e + 1) {
+        stage(e + 1);
+        staged_e = e + 1;
+      }
+    }
+  };
+  // whether the CTA's last row, live on diagonal e, goes to the next CTA
+  const auto publishes = [&](int e) {
+    return publisher && halo_out != nullptr && e >= r1 - 1 &&
+           e - (r1 - 1) <= m;
+  };
+  fetch(d_first);
+  if (halo_in != nullptr) pull(r0 - 1);
   __syncthreads();
 
-  for (int d = 0; d <= n + m; ++d) {
+  for (int d = d_first; d <= d_last; ++d) {
     int32_t v1[kRows], v2[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {   // this diagonal's values, then the
-      const int i = threadIdx.x + r * blockDim.x;      // next one's chunks
+      const int i = r0 + threadIdx.x + r * blockDim.x;  // next one's chunks
       const unsigned g = static_cast<unsigned>(first) +
                          static_cast<unsigned>(i) * ld + (d - i);
       v1[r] = chunk_value(c1[r], (lead1 + g) & 3);
@@ -290,27 +405,31 @@ __global__ void __launch_bounds__(kCtaMaxThreads)
     const int32_t* d1 = ring + slab_of<true>(d - 1) * slab;
     const int32_t* d2 = ring + slab_of<true>(d - 2) * slab;
     int32_t* here = ring + slab_of<true>(d) * slab;
-    const int lo = max(0, d - m), hi = min(n, d);
+    const int lo = max(r0, d - m), hi = min(r1 - 1, d);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const int i = threadIdx.x + r * blockDim.x, j = d - i;
+      const int i = r0 + threadIdx.x + r * blockDim.x, j = d - i;
       if (i < lo || i > hi) continue;
+      const int at = i - r0 + kHalo;
 #pragma unroll
       for (int t = 0; t < AffineMs0::kStates; ++t) {
-        int32_t v = AffineMs0::outer(d1, d2, P, cs, v1[r], v2[r], t, 0, 0, i,
-                                     i, j, 0, 1);
+        int32_t v = AffineMs0::outer(d1, d2, L, cs, v1[r], v2[r], t, 0, 0,
+                                     at, i, j, 0, 1);
         if (d == 0) v = AffineMs0::origin(t);      // the one row, i = 0
-        here[t * P + i] = v;
+        here[t * L + at] = v;
+        if (kResident && i == r1 - 1 && halo_out != nullptr)
+          halo_out[static_cast<long long>(d) * 3 + t] = v;
       }
     }
+    if (halo_in != nullptr && d + 1 <= r0 + m) pull(d);   // for d+1
     __syncthreads();
+    if (publishes(d)) flag_release(link.flags + cta, d + 1, false);
   }
 
   if (out != nullptr && threadIdx.x == 0)
     out[b] = AffineMs0::score(ring + slab_of<true>(n + m) * slab, P, 0, n);
   if (mine != nullptr)
-    for (int x = threadIdx.x; x < RING * slab; x += blockDim.x)
-      mine[x] = ring[x];
+    lines([](int32_t& cell, int32_t& arg) { arg = cell; });
 }
 
 // Bytes of dynamic shared memory of one CTA of K6 on a bucket of N+1 rows:
@@ -372,7 +491,7 @@ inline int run_cta_ms0(int32_t* rings, int32_t* out, const int32_t* mu1,
   auto launch = [&](auto kernel) {
     BIALIGN_TRY(tile_ready(kernel, TileGeometry{1, threads, bytes}, 0));
     kernel<<<B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-        rings, out, mu1, mu2, ns, ms, cs, B, N, M);
+        rings, out, mu1, mu2, ns, ms, cs, B, N, M, Ms0Link{});
     return static_cast<int>(cudaGetLastError());
   };
   static_assert(kMs0RowsPerThread == 4, "one instantiation a row count");

@@ -1,14 +1,18 @@
-// Progress flags between the CTAs of one resident launch (csrc/seqsplit.cu,
-// route "resident"), and between launches on cards that reach each other's
-// memory.  A CTA publishes, with a release store, how far it has come; a
-// neighbour acquires it before it reads what that CTA wrote or overwrites
-// what that CTA still reads.  The scope is the card (.gpu) when both CTAs
-// are on one card, the system (.sys) when the flag or the data lies on a
-// peer card.  The release is one thread's, after a __syncthreads() of its
-// CTA, and the acquire one thread's, before one: the pattern of CUTLASS's
-// semaphore, under which the other threads' stores before the barrier are
-// ordered before the release, and their loads after the barrier after the
-// acquire (whose load also drops the SM's stale L1 lines).
+// Progress flags between the CTAs of one resident launch (routes
+// "resident" of csrc/seqsplit.cu, csrc/triplet.cu and K3's
+// csrc/score_affine_ms0.cu), and between launches on cards that reach
+// each other's memory.  A CTA publishes, with a release store, how far it
+// has come; a neighbour acquires it before it reads what that CTA wrote or
+// overwrites what that CTA still reads.  The scope is the card (.gpu) when
+// both CTAs are on one card, the system (.sys) when the flag or the data
+// lies on a peer card.  In the split the release is one thread's, after a
+// __syncthreads() of its CTA, and the acquire one thread's, before one:
+// the pattern of CUTLASS's semaphore, under which the other threads' stores
+// before the barrier are ordered before the release, and their loads after
+// the barrier after the acquire (whose load also drops the SM's stale L1
+// lines).  In the triplet's and K3's routes the thread that stored the
+// data releases it itself, and the thread that reads it acquires it itself:
+// no barrier is needed on either side.
 //
 // Every wait has a budget on the global timer: a flag that never comes
 // (a neighbour that faulted, a launch that never started) writes the fault
@@ -21,6 +25,7 @@
 #include <cstdint>
 
 namespace bialign {
+namespace {  // one copy a source: several sources include this header
 
 // nanoseconds a CTA waits for one flag before it traps
 constexpr uint64_t kSpinBudgetNs = 5000000000ull;
@@ -67,14 +72,18 @@ __device__ __noinline__ void flag_fault(int32_t* fault, int d, int which) {
   __trap();
 }
 
-// Until *flag >= want, within the budget.
-__device__ __forceinline__ void flag_wait(const int32_t* flag, int32_t want,
-                                          bool sys, int32_t* fault, int d,
-                                          int which) {
-  if (flag_acquire(flag, sys) >= want) return;
+// Until *flag >= want, within the budget; returns the value acquired last.
+__device__ __forceinline__ int32_t flag_wait(const int32_t* flag,
+                                             int32_t want, bool sys,
+                                             int32_t* fault, int d,
+                                             int which) {
+  int32_t v = flag_acquire(flag, sys);
+  if (v >= want) return v;
   const uint64_t t0 = flag_clock_ns();
-  while (flag_acquire(flag, sys) < want)
+  while ((v = flag_acquire(flag, sys)) < want)
     if (flag_clock_ns() - t0 > kSpinBudgetNs) flag_fault(fault, d, which);
+  return v;
 }
 
+}  // namespace
 }  // namespace bialign

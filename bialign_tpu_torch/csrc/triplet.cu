@@ -1,6 +1,6 @@
 // The triplet aligner's fill: a 3-D banded max-plus wavefront over one copy
 // of A and two copies of B (bialign_tpu_torch/models/triplet.py), one CTA
-// for the pair, or one thread-block cluster of CTAs.
+// for the pair, one thread-block cluster of CTAs, or one cooperative grid.
 //
 // Replaces bialign_tpu/models/triplet.py:fill_xla, the XLA scan over the
 // anti-diagonals d = i + j (jit at :188).  Every route leaves what the plain
@@ -10,7 +10,7 @@
 // the domain is never written, and by the guards never read.  The host
 // (models/triplet.py triplet_route) picks the route before the launch.
 //
-// Route "shared" (`triplet_fill_ring<kW, kStaged, false>`,
+// Route "shared" (`triplet_fill_ring<kW, kStaged, Ring::kShared>`,
 // bialign_triplet_fill_shared).  One CTA runs every diagonal, one
 // __syncthreads() between two; a thread takes the rows i = threadIdx.x (mod
 // blockDim.x) and, for each, the band offsets sk in increasing order.  The
@@ -67,11 +67,13 @@
 // the barrier, and a pair of one row still takes ~790 a diagonal, its
 // chain's.
 //
-// Route "cluster" (`triplet_fill_ring<kW, kStaged, true>`,
-// bialign_triplet_fill_cluster), for pairs whose ring does not fit one CTA:
-// one launch of one thread-block cluster of C CTAs, each on an SM of its
-// own.  It replaces the same XLA scan.  CTA r (its rank in the cluster)
-// takes the contiguous rows [r R, min(n+1, (r+1) R)), R = ceil((n+1) / C),
+// Route "cluster" (`triplet_fill_ring<kW, kStaged, Ring::kCluster>`,
+// bialign_triplet_fill_cluster), for pairs whose ring does not fit one CTA,
+// taken by default only at the wider bands (max_shift > 8: at the compiled
+// widths route "resident" measured faster, PERF.md): one launch of one
+// thread-block cluster of C CTAs, each on an SM of its own.  It replaces
+// the same XLA scan.  CTA r (its rank in the cluster) takes the
+// contiguous rows [r R, min(n+1, (r+1) R)), R = ceil((n+1) / C),
 // and runs route "shared"'s body on them: the same thread-to-row mapping,
 // the same row functions, the tables in registers (a row a thread, W
 // compiled) or staged (its own rows' anti-diagonals only).  Its ring
@@ -113,8 +115,54 @@
 // 0.05.  The guarded form at the edges and row 0, and the barrier, are
 // what a further redesign has to take.
 //
-// Route "global" (`triplet_fill`, bialign_triplet_fill), for pairs whose
-// ring no cluster holds.  The same CTA and rows, but the six cases read
+// Route "resident" (`triplet_fill_ring<kW, kStaged, Ring::kResident>`,
+// bialign_triplet_fill_resident), for the pairs beyond one CTA at the
+// compiled widths, and at the wider bands beyond what a portable cluster
+// holds: one cooperative launch of G CTAs (every CTA resident at once; a
+// grid the card cannot hold is refused, cudaErrorCooperativeLaunchTooLarge,
+// and not cut down).  It replaces the same XLA scan.  CTA g takes the rows
+// [g R, min(n+1, (g+1) R)) and runs route "cluster"'s body on them (the
+// ring [3, R+1, W] with the halo as local row 0, the tables in registers or
+// staged, the slabs flushed from the ring by added warps), with no barrier
+// beyond its own CTA:
+//  - the halo goes through device memory that no CTA overwrites during the
+//    launch, `halo` [G-1, n+m+1, W]: the thread of CTA g's last row stores
+//    that row's W values of diagonal d into block g, row d, as it makes
+//    them; after the barrier that ends d, thread `publisher` of CTA g
+//    publishes d+1 in CTA g's progress flag with a release store
+//    (csrc/neighbour_flags.cuh, .gpu scope; the barrier orders the row's
+//    stores before it);
+//  - thread `copier` of CTA g+1 acquires that flag before it copies row d
+//    of block g into local row 0 of the ring's slot of d, during diagonal
+//    d, for its first row's diagonals d+1 and d+2: by cp.async into one of
+//    two staging rows of shared memory, then into the ring.  Where the flag
+//    already shows d+1, it starts d+1's copy too, so that the next
+//    diagonal finds it on its way.  It keeps the flag's value as it read
+//    it, and polls again only for a diagonal beyond it.
+//  `copier` and `publisher` are the last threads of the CTA's last two
+//  flush warps (of its one, else the first row's thread), so that no row's
+//  chain waits for a flag, a store's acknowledgement or a copy, and the
+//  release of `publisher`, a fence, does not wait for the copies of
+//  `copier` in flight.
+//  A CTA waits only for the CTA above, never for the one below: the halo is
+//  never overwritten, so the CTA above runs ahead freely, and once the
+//  pipeline is full a handoff costs no diagonal its time.  Each CTA walks
+//  only the diagonals of its own rows, d = gR .. min(n+m, (g+1)R - 1 + m),
+//  and publishes exactly the diagonals on which its next CTA's first row
+//  reads the halo, so every wait ends.  A wait that outlasts its budget (5
+//  s on the global timer) writes the fault word and traps.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+// --resident-only; PERF.md, Findings): a diagonal is one CTA's rows, R =
+// ceil((n+1) / G) with G up to one CTA a SM, so a row's chain of W steps
+// and a CTA barrier; the pipeline's fill adds G handoffs once.  At 1500 x
+// 1490, max_shift 8 (126 CTAs of 12 rows) 1.37 us a diagonal, 81x the byte
+// bound, against route "cluster"'s 2.19 at C = 8; at 7000 x 6990 (130 of
+// 54 rows) 1.85 us, 23x, against route "global"'s 101; at the wider bands,
+// where the CTA stages its tables on one warp, 4.95 us at 800 x 790,
+// max_shift 9, and 6.94 at 500 x 490, 16 (route "cluster" 4.72 and 6.82).
+//
+// Route "global" (`triplet_fill`, bialign_triplet_fill), taken only when
+// forced.  The same CTA and rows as route "shared", but the six cases read
 // diagonals d-1 and d-2 back from ys, which the kernel wrote before the
 // barrier (the last two diagonals stay in the L1 and the L2), and the
 // tables are read where a cell needs them.
@@ -134,6 +182,7 @@
 #include <cluster_barrier.cuh>
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
+#include <neighbour_flags.cuh>
 
 #include "common.cuh"
 
@@ -245,6 +294,23 @@ constexpr int kClusterMaxThreads = 512;
 constexpr int kClusterMax = 16;
 constexpr int kClusterPortable = 8;
 
+// How the CTAs of one launch of triplet_fill_ring share the rows: one CTA
+// (route "shared"), a thread-block cluster (route "cluster"), or a
+// cooperative grid (route "resident", whose CTAs take at most as many
+// threads as a cluster's).
+enum class Ring { kShared, kCluster, kResident };
+
+// Route "resident": the CTAs' last rows, diagonal by diagonal, `halo`
+// [G-1, n+m+1, W] (block g CTA g's); each CTA's progress, `flags` [G]
+// (zeroed before the launch; d+1 once block g holds diagonal d); the fault
+// word (csrc/neighbour_flags.cuh) as the card sees it, or null.  Unused
+// (null) on the other routes.
+struct ResidentLink {
+  int32_t* halo;
+  int32_t* flags;
+  int32_t* fault;
+};
+
 // Whether a CTA stages the tables in shared memory: several rows a thread,
 // or W at run time.
 inline bool triplet_staged(int rows, int S, int threads) {
@@ -252,9 +318,9 @@ inline bool triplet_staged(int rows, int S, int threads) {
 }
 
 // Bytes of a CTA's dynamic shared memory for `rows` rows of its own: the
-// ring [3, rows + halo, W] (halo 1 on route "cluster": the row before the
-// CTA's first), and when staged mu2's anti-diagonals [W+1, rows] and mu1's
-// [2, rows].  Route "shared": rows n+1, halo 0.
+// ring [3, rows + halo, W] (halo 1 on routes "cluster" and "resident": the
+// row before the CTA's first), and when staged mu2's anti-diagonals
+// [W+1, rows] and mu1's [2, rows].  Route "shared": rows n+1, halo 0.
 inline size_t triplet_ring_bytes(int rows, int halo, int S, bool staged) {
   const size_t W = 2 * static_cast<size_t>(S) + 1;
   return (3 * static_cast<size_t>(rows + halo) * W +
@@ -262,13 +328,14 @@ inline size_t triplet_ring_bytes(int rows, int halo, int S, bool staged) {
          sizeof(int32_t);
 }
 
-// One row's W values of diagonal d (routes "shared" and "cluster"): the
-// ring's rows `a` (d-1, i), `b` (d-1, i-1) and `c` (d-2, i-1), mu1[i, j]
-// `m1` and mu2[i, j+sk-S] as `m2_at(sk)`; each value of the domain goes to
-// the ring's row `here`, on route "shared" to ys at `out` (on route
-// "cluster" null: the CTA flushes its rows a diagonal later) and, for the
-// last row of a CTA that has a right neighbour, to that CTA's halo row
-// `halo` (else null).
+// One row's W values of diagonal d (the ring routes): the ring's rows `a`
+// (d-1, i), `b` (d-1, i-1) and `c` (d-2, i-1), mu1[i, j] `m1` and
+// mu2[i, j+sk-S] as `m2_at(sk)`; each value of the domain goes to the
+// ring's row `here`, on route "shared" to ys at `out` (on routes "cluster"
+// and "resident" null: the CTA flushes its rows a diagonal later) and, for
+// the last row of a CTA that has a right neighbour, to that CTA's halo row
+// or on route "resident" to the CTA's row d of the halo memory, `halo`
+// (else null).
 // No branch: with W compiled the 3W predecessors are loaded at once,
 // before any maximum (at i = 0 `b` and `c` are row i's own, in the ring
 // and never taken), and every case the guards exclude gives INVALID to the
@@ -410,76 +477,151 @@ __device__ __forceinline__ void stage_antidiagonal(
     __pipeline_memcpy_async(dst + i - first, row + i, sizeof(int32_t));
 }
 
-// The barrier between two diagonals: the CTA's (route "shared"), or on
-// route "cluster" the CTA's (its own rows) and then the cluster's
-// (csrc/cluster_barrier.cuh), whose arrive is relaxed: the thread that
-// stored a halo row into the next CTA's shared memory orders it by a
-// fence at cluster scope first (`halo`).  (An arrive with release
-// semantics is a MEMBAR.ALL.GPU in every thread, which waits for all its
-// stores to ys.)  On route "cluster" the work `between` runs after the
-// arrive and before the wait.
-template <bool kCluster, class Between>
+// The barrier between two diagonals: the CTA's, and on route "cluster"
+// then the cluster's (csrc/cluster_barrier.cuh), whose arrive is relaxed:
+// the thread that stored a halo row into the next CTA's shared memory
+// orders it by a fence at cluster scope first (`halo`).  (An arrive with
+// release semantics is a MEMBAR.ALL.GPU in every thread, which waits for
+// all its stores to ys.)  On route "cluster" the work `between` runs after
+// the arrive and before the wait, on route "resident" after the CTA's
+// barrier.
+template <Ring kRing, class Between>
 __device__ __forceinline__ void ring_barrier(bool halo,
                                              const Between& between) {
   __syncthreads();
-  if constexpr (kCluster) {
+  if constexpr (kRing == Ring::kCluster) {
     if (halo) cluster_fence();
     cluster_arrive_relaxed();
     between();
     cluster_wait();
+  } else if constexpr (kRing == Ring::kResident) {
+    between();
   }
 }
 
-// Routes "shared" (kCluster false: one CTA, all n+1 rows) and "cluster"
-// (kCluster true: CTA r of a cluster of C the rows [r R, min(n+1, (r+1)
-// R)), R = `rows`): the fill of ys [n+m+1, n+1, W] (only the domain's
-// cells written), the last three diagonals of the CTA's rows in its shared
-// memory; kW = W, or 0 for W at run time (then kStaged).  kStaged false
-// needs `rows` <= blockDim.x.  The tables skewed, as above.
-template <int kW, bool kStaged, bool kCluster>
-__global__ void __launch_bounds__(kCluster ? kClusterMaxThreads
-                                           : kTripletMaxThreads)
+// Routes "shared" (one CTA, all n+1 rows), "cluster" (CTA r of a cluster
+// of C the rows [r R, min(n+1, (r+1) R)), R = `rows`) and "resident" (CTA
+// g of a cooperative grid the rows [g R, ...), the halo through `link`):
+// the fill of ys [n+m+1, n+1, W] (only the domain's cells written), the
+// last three diagonals of the CTA's rows in its shared memory; kW = W, or 0
+// for W at run time (then kStaged).  kStaged false needs `rows` <=
+// blockDim.x.  The tables skewed, as above.
+template <int kW, bool kStaged, Ring kRing>
+__global__ void __launch_bounds__(kRing == Ring::kShared ? kTripletMaxThreads
+                                                         : kClusterMaxThreads)
     triplet_fill_ring(int32_t* ys, const int32_t* __restrict__ mu1,
                       const int32_t* __restrict__ mu2, int n, int m, int S,
-                      int32_t two_gamma, int32_t gamma_delta, int rows) {
+                      int32_t two_gamma, int32_t gamma_delta, int rows,
+                      ResidentLink link) {
   static_assert(kStaged || kW > 0, "registers hold compiled widths only");
+  constexpr bool kCluster = kRing == Ring::kCluster;
+  constexpr bool kResident = kRing == Ring::kResident;
   extern __shared__ int32_t smem[];
   const int W = kW > 0 ? kW : 2 * S + 1;
   const int P = n + 1;
   // this CTA's rows [first, end), at local rows i - first + kHalo of the
-  // ring; local row 0 of a CTA of route "cluster" is its halo, the last
-  // row of the CTA before it (none for the first)
-  constexpr int kHalo = kCluster ? 1 : 0;
+  // ring; local row 0 of a CTA of routes "cluster" and "resident" is its
+  // halo, the last row of the CTA before it (none for the first)
+  constexpr int kHalo = kRing == Ring::kShared ? 0 : 1;
   int rank = 0;
   if constexpr (kCluster)
     rank = cooperative_groups::this_cluster().block_rank();
+  if constexpr (kResident) rank = static_cast<int>(blockIdx.x);
   const int first = min(P, rank * rows), end = min(P, first + rows);
+  // a CTA of route "resident" without rows meets no other CTA: it leaves
+  if (kResident && first >= end) return;
   const int slab = (rows + kHalo) * W;
   const int T = blockDim.x, t = threadIdx.x;
   int32_t* ring = smem;                     // [3][rows + kHalo][W]: d % 3
   int32_t* m2s = ring + 3 * slab;           // [W+1][rows]: kappa % (W+1)
   int32_t* m1s = m2s + (W + 1) * rows;      // [2][rows]: d % 2
+  // (then, on route "resident", the halo's staging rows [2][W])
   // the ring of the CTA after this one, whose halo this CTA's last row is
   int32_t* next = nullptr;
   if constexpr (kCluster)
     if (end < P)
       next = cooperative_groups::this_cluster().map_shared_rank(ring,
                                                                 rank + 1);
+  // The flush's threads (routes "cluster" and "resident"): with a row a
+  // thread, the whole warps after the rows' where the host gave some,
+  // else every thread (see `flush`).
+  const int row_threads = kStaged ? T : (rows + 31) / 32 * 32;
+  const int f0 = T - row_threads >= 32 ? row_threads : 0;
+  // Route "resident": this CTA's block of the halo memory, where its last
+  // row goes, and the block of the CTA above, which its first row reads;
+  // the threads that publish the one and copy the other (see the head of
+  // the file).
+  const long long block = static_cast<long long>(n + m + 1) * W;
+  int32_t* halo_out = kResident && end < P ? link.halo + rank * block
+                                           : nullptr;
+  const int copier_t = f0 > 0 ? T - 1 : 0;
+  const bool copier = kResident && t == copier_t;
+  const bool publisher =
+      kResident && t == (f0 > 0 && T - f0 >= 64 ? T - 33 : copier_t);
+  const int32_t* halo_in =
+      copier && first > 0 ? link.halo + (rank - 1) * block : nullptr;
+  int32_t* hbuf = kStaged ? m1s + 2 * rows : ring + 3 * slab;  // [2][W]
+  // The diagonals the CTA walks: on routes "shared" and "cluster" all of
+  // them (every thread meets every barrier), on route "resident" those on
+  // which a row of its own is live.
+  const int d_first = kResident ? first : 0;
+  const int d_last = kResident ? min(n + m, end - 1 + m) : n + m;
+
+  int r0 = 0, r1 = 2, r2 = 1;               // slots of d, d-1, d-2
+  // Route "resident", thread `copier`: the flag of the CTA above as last
+  // read (`seen` > e: its halo of diagonal e is in memory), and the
+  // diagonal whose halo is on its way into hbuf[e % 2] (cp.async), or -1.
+  int seen = 0, staged_e = -1;
+  const auto stage = [&](int e) {
+    const int32_t* from = halo_in + static_cast<long long>(e) * W;
+    int32_t* to = hbuf + (e & 1) * W;
+    for (int x = 0; x < W; ++x)
+      __pipeline_memcpy_async(to + x, from + x, sizeof(int32_t));
+    __pipeline_commit();
+  };
+  // The halo of diagonal e into local row 0 of ring slot `slot`, which the
+  // first row reads in diagonals e+1 and e+2, once the flag shows it; then
+  // that of e+1 on its way, if the flag already shows it too.
+  const auto pull = [&](int e, int slot) {
+    if (staged_e != e) {
+      if (seen <= e)
+        seen = flag_wait(link.flags + rank - 1, e + 1, false, link.fault,
+                         e + 1, 1);
+      stage(e);
+    }
+    __pipeline_wait_prior(0);
+    for (int x = 0; x < W; ++x)
+      ring[slot * slab + x] = hbuf[(e & 1) * W + x];
+    staged_e = -1;
+    if (e + 2 <= first + m) {               // e+1's, read from e+2 on
+      if (seen <= e + 1) seen = flag_acquire(link.flags + rank - 1, false);
+      if (seen > e + 1) {
+        stage(e + 1);
+        staged_e = e + 1;
+      }
+    }
+  };
 
   // One diagonal: each of this thread's live rows, its W values from the
   // ring's diagonals d-1 and d-2 and the tables' values `m1` and
   // `m2_at(sk)` (of the row i), to the ring and on route "shared" to ys,
   // and the CTA's last row also to the next CTA's halo.
-  int r0 = 0, r1 = 2, r2 = 1;               // slots of d, d-1, d-2
   // (`inside`: every live row of this thread's warp lies inside)
   auto diagonal_rows = [&](int d, int i, const auto& m1_of,
                            const auto& m2_of, bool inside) {
     const int at = (i - first + kHalo) * W;
     int32_t* here = ring + r0 * slab + at;
-    int32_t* out = kCluster ? nullptr
-                            : ys + (static_cast<long long>(d) * P + i) * W;
-    int32_t* halo = i == end - 1 && next != nullptr ? next + r0 * slab
-                                                    : nullptr;
+    int32_t* out = kRing == Ring::kShared
+                       ? ys + (static_cast<long long>(d) * P + i) * W
+                       : nullptr;
+    int32_t* halo = nullptr;
+    if (i == end - 1) {
+      if constexpr (kCluster)
+        if (next != nullptr) halo = next + r0 * slab;
+      if constexpr (kResident)
+        if (halo_out != nullptr)
+          halo = halo_out + static_cast<long long>(d) * W;
+    }
     const int32_t* a = ring + r1 * slab + at;      // d-1, row i
     const int up = i >= 1 ? W : 0;
     const int32_t* b = a - up;                     // d-1, row i-1
@@ -495,17 +637,15 @@ __global__ void __launch_bounds__(kCluster ? kClusterMaxThreads
     row_values<kW>(here, out, halo, a, b, c, m1_of(i), m2_at, d, i, d - i,
                    m, S, two_gamma, gamma_delta);
   };
-  // Route "cluster": the CTA's live rows of diagonal e (e >= 0), from the
-  // ring's slot `slot` to ys: the rows lie side by side in both, so
-  // neighbouring threads store neighbouring cells (a row's W values from
-  // its thread are W stores a lane, each to a sector of its own).  Only the
-  // cells of the domain.  With a row a thread, the whole warps after the
-  // rows' (the host gives a warp for ~1024 cells where they fit) flush,
-  // and the rows' warps do not: the last warp to arrive at a barrier, an
-  // edge's, would otherwise take its share after it; else every thread
-  // flushes.
-  const int row_threads = kStaged ? T : (rows + 31) / 32 * 32;
-  const int f0 = T - row_threads >= 32 ? row_threads : 0;
+  // Routes "cluster" and "resident": the CTA's live rows of diagonal e
+  // (e >= 0), from the ring's slot `slot` to ys: the rows lie side by side
+  // in both, so neighbouring threads store neighbouring cells (a row's W
+  // values from its thread are W stores a lane, each to a sector of its
+  // own).  Only the cells of the domain.  With a row a thread, the whole
+  // warps after the rows' (the host gives a warp for ~1024 cells where they
+  // fit) flush, and the rows' warps do not: the last warp to arrive at a
+  // barrier, an edge's, would otherwise take its share after it; else
+  // every thread flushes.
   auto flush = [&](int e, int slot) {
     const int lo = max(first, e - m), hi = min(end - 1, e);
     const int32_t* from = ring + slot * slab + (lo - first + kHalo) * W;
@@ -517,17 +657,25 @@ __global__ void __launch_bounds__(kCluster ? kClusterMaxThreads
       if (k >= 0 && k <= m) to[x] = from[x];
     }
   };
-  // The barrier that ends diagonal d; on route "cluster" between its
-  // halves the flush of diagonal d-1 (published by the barrier that ended
-  // d-1, overwritten in d+2), which so waits for no barrier.  Every thread
-  // of every CTA meets n+m+2 barriers (one before diagonal 0), live rows
-  // or not; after the last, the flush of n+m.
+  // The barrier that ends diagonal d; on routes "cluster" and "resident"
+  // after it (on "cluster" between its halves) the flush of diagonal d-1
+  // (complete since the barrier that ended d-1, overwritten in d+2), which
+  // so waits for no barrier.  Every thread of a CTA meets the same
+  // barriers, live rows or not (on route "cluster" every thread of every
+  // CTA n+m+2, one before diagonal 0); after the last, the flush of the
+  // last diagonal.  On route "resident" thread `publisher` first publishes
+  // d's halo, where the CTA's last row is live on d: the barrier orders
+  // that row's stores before the release.
   auto end_diagonal = [&](int d) {
-    // whether this thread stored the CTA's last row, live on d, as the next
-    // CTA's halo
-    const bool halo = next != nullptr && t == (end - 1 - first) % T &&
-                      d >= end - 1 && d - (end - 1) <= m;
-    ring_barrier<kCluster>(halo, [&] {
+    // whether the CTA's last row is live on d, and this thread stored it as
+    // the next CTA's halo
+    const bool live = d >= end - 1 && d - (end - 1) <= m;
+    const bool halo = live && next != nullptr &&
+                      t == (end - 1 - first) % T;
+    ring_barrier<kRing>(halo, [&] {
+      if constexpr (kResident)
+        if (publisher && live && halo_out != nullptr)
+          flag_release(link.flags + rank, d + 1, false);
       if (d >= 1) flush(d - 1, r1);
     });
     const int r = r2;
@@ -539,14 +687,16 @@ __global__ void __launch_bounds__(kCluster ? kClusterMaxThreads
   if constexpr (kStaged) {
     // The tables' anti-diagonals: diagonal d reads mu2's kappa = d-S ..
     // d+S and mu1's kappa = d, staged a diagonal ahead.
-    for (int kappa = 0; kappa <= S; ++kappa)
+    for (int kappa = max(0, d_first - S); kappa <= d_first + S; ++kappa)
       stage_antidiagonal(m2s + kappa % (W + 1) * rows, mu2, kappa, n, m,
                          first, end);
-    stage_antidiagonal(m1s, mu1, 0, n, m, first, end);
+    stage_antidiagonal(m1s + d_first % 2 * rows, mu1, d_first, n, m, first,
+                       end);
     __pipeline_commit();
     __pipeline_wait_prior(0);
-    ring_barrier<kCluster>(false, [] {});
-    for (int d = 0; d <= n + m; ++d) {
+    if (halo_in != nullptr) pull(d_first - 1, r1);
+    ring_barrier<kRing>(false, [] {});
+    for (int d = d_first; d <= d_last; ++d) {
       stage_antidiagonal(m2s + (d + 1 + S) % (W + 1) * rows, mu2, d + 1 + S,
                          n, m, first, end);
       stage_antidiagonal(m1s + (d + 1) % 2 * rows, mu1, d + 1, n, m, first,
@@ -564,30 +714,36 @@ __global__ void __launch_bounds__(kCluster ? kClusterMaxThreads
               return m2s[(s >= W + 1 ? s - (W + 1) : s) * rows + row - first];
             },
             false);
+      // route "resident": the halo of d, for diagonal d+1
+      if (halo_in != nullptr && d + 1 <= first + m) pull(d, r0);
       __pipeline_wait_prior(0);
       end_diagonal(d);
     }
   } else {
     // Row i = first + t in registers: mu1[i, d-i] and a window of mu2[i,
     // d-i-S .. d-i+S] on diagonal d, from rows of the skewed tables four
-    // at a time: on the diagonals d = 4g .. 4g+3 of group g, mu1's rows d
-    // and mu2's rows d+1+S (the value the window takes after diagonal d).
-    // Even groups read (qa1, qa2) and load (qb1, qb2) for the next group,
-    // odd ones the other way round; the four steps of a group name their
-    // registers, so nothing selects among them at run time.
+    // at a time: on the diagonals d = d_first + 4g .. + 3 of group g, mu1's
+    // rows d and mu2's rows d+1+S (the value the window takes after
+    // diagonal d).  Even groups read (qa1, qa2) and load (qb1, qb2) for the
+    // next group, odd ones the other way round; the four steps of a group
+    // name their registers, so nothing selects among them at run time.
     const int i = first + t;
     const bool mine = i < end;
     int32_t w2[kW];
     int4 qa1{}, qa2{}, qb1{}, qb2{};
-    if (mine) {     // diagonal 0: mu2[i, -i-S .. -i+S]; rows e < 0 unused
+    if (mine) {     // diagonal d_first: mu2[i, d_first-i-S .. d_first-i+S],
+                    // skewed rows e = d_first-S .. d_first+S (e < 0 unused)
 #pragma unroll
-      for (int sk = 0; sk < kW; ++sk)
-        w2[sk] = sk < S ? 0 : mu2[static_cast<long long>(sk - S) * P + i];
-      qa1 = skewed_quad(mu1, 0, P, i);
-      qa2 = skewed_quad(mu2, 1 + S, P, i);
+      for (int sk = 0; sk < kW; ++sk) {
+        const int e = d_first + sk - S;
+        w2[sk] = e < 0 ? 0 : mu2[static_cast<long long>(e) * P + i];
+      }
+      qa1 = skewed_quad(mu1, d_first, P, i);
+      qa2 = skewed_quad(mu2, d_first + 1 + S, P, i);
     }
-    ring_barrier<kCluster>(false, [] {});
-    int d = 0;
+    if (halo_in != nullptr) pull(d_first - 1, r1);
+    ring_barrier<kRing>(false, [] {});
+    int d = d_first;
     // diagonal d with mu1[i, d-i] = m1; then the window takes v2
     const auto step = [&](int32_t m1, int32_t v2) {
       if (mine && d >= i && d - i <= m) {
@@ -601,11 +757,14 @@ __global__ void __launch_bounds__(kCluster ? kClusterMaxThreads
             d, i, [&](int) { return m1; },
             [&](int, int sk) { return w2[sk]; }, inside);
       }
+      // route "resident": the halo of d, for diagonal d+1
+      if constexpr (kResident)
+        if (halo_in != nullptr && d + 1 <= first + m) pull(d, r0);
 #pragma unroll
       for (int sk = 0; sk + 1 < kW; ++sk) w2[sk] = w2[sk + 1];
       w2[kW - 1] = v2;
       end_diagonal(d);
-      return ++d <= n + m;
+      return ++d <= d_last;
     };
     const auto group = [&](const int4& use1, const int4& use2, int4& next1,
                            int4& next2) {
@@ -634,35 +793,56 @@ __global__ void __launch_bounds__(kCluster ? kClusterMaxThreads
     while (group(qa1, qa2, qb1, qb2) && group(qb1, qb2, qa1, qa2)) {
     }
   }
-  if constexpr (kCluster) flush(n + m, r1);
+  if constexpr (kRing != Ring::kShared) flush(d_last, r1);
 }
 
-// One launch of route "shared" (kCluster false, cluster 1) or of one
-// cluster of `cluster` CTAs (route "cluster"), `rows` rows a CTA, `bytes`
-// of dynamic shared memory each.  A cluster that the card cannot make
-// resident is refused before the launch: cudaErrorLaunchOutOfResources.
-template <int kW, bool kStaged, bool kCluster>
-cudaError_t launch_ring(int32_t* ys, const int32_t* mu1, const int32_t* mu2,
-                        int n, int m, int S, int32_t two_gamma,
-                        int32_t gamma_delta, int threads, int cluster,
-                        int rows, size_t bytes, cudaStream_t st) {
-  const auto kernel = triplet_fill_ring<kW, kStaged, kCluster>;
+// Shared-memory opt-in of a ring kernel with `bytes` of dynamic shared
+// memory, and on route "cluster" the non-portable sizes' above 8 CTAs.
+template <class Kernel>
+cudaError_t ring_ready(Kernel kernel, size_t bytes, bool non_portable) {
   cudaError_t err = cudaSuccess;
   if (bytes > kTripletSharedDefault)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
-  if (err == cudaSuccess && cluster > kClusterPortable)
+  if (err == cudaSuccess && non_portable)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// One launch of route "shared" (cluster 1) or of one cluster of `cluster`
+// CTAs (route "cluster"), `rows` rows a CTA, `bytes` of dynamic shared
+// memory each.  A cluster that the card cannot make resident is refused
+// before the launch: cudaErrorLaunchOutOfResources.  Route "resident":
+// one cooperative launch of `cluster` CTAs; a grid that the card cannot
+// hold at once is refused (cudaErrorCooperativeLaunchTooLarge), and the
+// refusal is not left behind as the runtime's last error.
+template <int kW, bool kStaged, Ring kRing>
+cudaError_t launch_ring(int32_t* ys, const int32_t* mu1, const int32_t* mu2,
+                        int n, int m, int S, int32_t two_gamma,
+                        int32_t gamma_delta, int threads, int cluster,
+                        int rows, size_t bytes, ResidentLink link,
+                        cudaStream_t st) {
+  const auto kernel = triplet_fill_ring<kW, kStaged, kRing>;
+  cudaError_t err = ring_ready(
+      kernel, bytes, kRing == Ring::kCluster && cluster > kClusterPortable);
   if (err != cudaSuccess) return err;
+  if constexpr (kRing == Ring::kResident) {
+    void* params[] = {&ys, &mu1, &mu2, &n, &m, &S, &two_gamma,
+                      &gamma_delta, &rows, &link};
+    err = cudaLaunchCooperativeKernel(kernel, dim3(cluster), dim3(threads),
+                                      params, bytes, st);
+    if (err != cudaSuccess) cudaGetLastError();
+    return err;
+  }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(cluster, 1, 1);
   config.blockDim = dim3(threads, 1, 1);
   config.dynamicSmemBytes = bytes;
   config.stream = st;
   cudaLaunchAttribute attr = {};
-  if constexpr (kCluster) {
+  if constexpr (kRing == Ring::kCluster) {
     attr.id = cudaLaunchAttributeClusterDimension;
     attr.val.clusterDim.x = cluster;
     attr.val.clusterDim.y = 1;
@@ -676,17 +856,21 @@ cudaError_t launch_ring(int32_t* ys, const int32_t* mu1, const int32_t* mu2,
     if (resident < 1) return cudaErrorLaunchOutOfResources;
   }
   err = cudaLaunchKernelEx(&config, kernel, ys, mu1, mu2, n, m, S, two_gamma,
-                           gamma_delta, rows);
+                           gamma_delta, rows, link);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Routes "shared" and "cluster" behind one switch over the compiled widths.
-template <bool kCluster>
+// The three ring routes behind one switch over the compiled widths.
+template <Ring kRing>
 int fill_ring(int32_t* ys, const int32_t* mu1, const int32_t* mu2, int n,
               int m, int S, int two_gamma, int gamma_delta, int threads,
-              int cluster, int rows, int device, void* stream) {
+              int cluster, int rows, ResidentLink link, int device,
+              void* stream) {
   const bool staged = triplet_staged(rows, S, threads);
-  const size_t bytes = triplet_ring_bytes(rows, kCluster ? 1 : 0, S, staged);
+  // on route "resident" also the halo's two staging rows [2, W]
+  const size_t bytes =
+      triplet_ring_bytes(rows, kRing == Ring::kShared ? 0 : 1, S, staged) +
+      (kRing == Ring::kResident ? 2 * (2 * S + 1) * sizeof(int32_t) : 0);
   if (bytes > kTripletSharedLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   BIALIGN_TRY(cudaSetDevice(device));
@@ -695,12 +879,12 @@ int fill_ring(int32_t* ys, const int32_t* mu1, const int32_t* mu2, int n,
   switch (S) {
 #define BIALIGN_TRIPLET_CASE(s)                                              \
   case s:                                                                    \
-    err = staged ? launch_ring<2 * s + 1, true, kCluster>(                   \
+    err = staged ? launch_ring<2 * s + 1, true, kRing>(                      \
                        ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,        \
-                       threads, cluster, rows, bytes, st)                    \
-                 : launch_ring<2 * s + 1, false, kCluster>(                  \
+                       threads, cluster, rows, bytes, link, st)              \
+                 : launch_ring<2 * s + 1, false, kRing>(                     \
                        ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,        \
-                       threads, cluster, rows, bytes, st);                   \
+                       threads, cluster, rows, bytes, link, st);             \
     break;
     BIALIGN_TRIPLET_CASE(0)
     BIALIGN_TRIPLET_CASE(1)
@@ -713,9 +897,9 @@ int fill_ring(int32_t* ys, const int32_t* mu1, const int32_t* mu2, int n,
     BIALIGN_TRIPLET_CASE(8)
 #undef BIALIGN_TRIPLET_CASE
     default:
-      err = launch_ring<0, true, kCluster>(ys, mu1, mu2, n, m, S, two_gamma,
-                                           gamma_delta, threads, cluster,
-                                           rows, bytes, st);
+      err = launch_ring<0, true, kRing>(ys, mu1, mu2, n, m, S, two_gamma,
+                                        gamma_delta, threads, cluster, rows,
+                                        bytes, link, st);
   }
   return static_cast<int>(err);
 }
@@ -770,7 +954,7 @@ extern "C" int bialign_triplet_fill(int32_t* ys, const int32_t* mu1,
 // skewed, triplet_skew_rows(n, m, S) rows of n+1 values each (the host's
 // shared_tables).  Returns cudaErrorInvalidValue, before any launch, for a
 // CTA beyond its 227 KB of shared memory (the host's triplet_route sends
-// such a pair to "cluster" or "global").
+// such a pair to "cluster" or "resident").
 extern "C" int bialign_triplet_fill_shared(int32_t* ys, const int32_t* mu1,
                                            const int32_t* mu2, int n, int m,
                                            int S, int two_gamma,
@@ -780,8 +964,9 @@ extern "C" int bialign_triplet_fill_shared(int32_t* ys, const int32_t* mu1,
   if (n < 0 || m < 0 || S < 0 || threads < 1 ||
       threads > kTripletMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  return fill_ring<false>(ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,
-                          threads, 1, n + 1, device, stream);
+  return fill_ring<Ring::kShared>(ys, mu1, mu2, n, m, S, two_gamma,
+                                  gamma_delta, threads, 1, n + 1,
+                                  ResidentLink{}, device, stream);
 }
 
 // Route "cluster": the same fill and arguments as route "shared", and the
@@ -802,6 +987,38 @@ extern "C" int bialign_triplet_fill_cluster(int32_t* ys, const int32_t* mu1,
       threads > kClusterMaxThreads || cluster < 1 || cluster > kClusterMax)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = (n + cluster) / cluster;       // ceil((n+1) / cluster)
-  return fill_ring<true>(ys, mu1, mu2, n, m, S, two_gamma, gamma_delta,
-                         threads, cluster, rows, device, stream);
+  return fill_ring<Ring::kCluster>(ys, mu1, mu2, n, m, S, two_gamma,
+                                   gamma_delta, threads, cluster, rows,
+                                   ResidentLink{}, device, stream);
+}
+
+// Route "resident": the same fill and arguments as route "shared", one
+// cooperative launch of `ctas` CTAs (>= 1), each of `threads` threads
+// (1-512) and ceil((n+1) / ctas) rows (CTAs beyond n+1 rows have none and
+// leave at once); `halo` [ctas-1, n+m+1, 2S+1] int32 (any contents) and
+// `flags` [ctas] int32, zeroed on `stream` before the call, in device
+// memory; `fault` the fault word, int32 [4] of pinned host memory, or
+// null.  Returns cudaErrorInvalidValue, before any launch, for a CTA beyond
+// its 227 KB of shared memory, and cudaErrorCooperativeLaunchTooLarge when
+// the card cannot hold the grid at once (then nothing ran, and the error is
+// not left behind); it never falls back to another route.
+extern "C" int bialign_triplet_fill_resident(
+    int32_t* ys, const int32_t* mu1, const int32_t* mu2, int n, int m, int S,
+    int two_gamma, int gamma_delta, int threads, int ctas, int32_t* halo,
+    int32_t* flags, int32_t* fault, int device, void* stream) {
+  using namespace bialign;
+  if (n < 0 || m < 0 || S < 0 || threads < 1 ||
+      threads > kClusterMaxThreads || ctas < 1 || flags == nullptr ||
+      (ctas > 1 && halo == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (n + ctas) / ctas;             // ceil((n+1) / ctas)
+  ResidentLink link{halo, flags, nullptr};
+  if (fault != nullptr) {
+    void* mapped = nullptr;
+    BIALIGN_TRY(cudaHostGetDevicePointer(&mapped, fault, 0));
+    link.fault = static_cast<int32_t*>(mapped);
+  }
+  return fill_ring<Ring::kResident>(ys, mu1, mu2, n, m, S, two_gamma,
+                                    gamma_delta, threads, ctas, rows, link,
+                                    device, stream);
 }

@@ -24,8 +24,12 @@ the anti-diagonal wavefront over ``d = i + j``, a thread its rows; route
 ``"cluster"``, for pairs whose ring does not fit one CTA, splits the rows
 over the CTAs of one thread-block cluster, each with the last three
 diagonals of its rows and the row before them, passed on through
-distributed shared memory; route ``"global"`` reads them back from the
-slabs, for pairs that no cluster holds: :func:`triplet_route`),
+distributed shared memory; route ``"resident"`` splits them over the CTAs
+of one cooperative grid, the row before a CTA's passed on through device
+memory under progress flags: beyond one CTA the compiled widths take
+"resident", the wider bands "cluster" while a portable cluster holds them;
+route ``"global"``, taken only when forced, reads them back from the
+slabs: :func:`triplet_route`),
 its plain PyTorch twin on any device (:func:`fill_slabs`, and
 :func:`fill_torch` in the oracle's layout), both with the band offset ``sk
 = k - j + S`` on a small axis, and a numpy oracle (``fill_oracle``, a copy
@@ -39,7 +43,7 @@ import torch
 
 from .. import _build
 from ..ops.cases import NEG_INF
-from ..ops.cuda_dp import CTA_SHARED_LIMIT
+from ..ops.cuda_dp import CARD_SMS, CTA_SHARED_LIMIT, fault_word
 
 # case columns (di, dj, dk) in reference enumeration order
 TRIPLET_COLS = (
@@ -57,8 +61,8 @@ INVALID = -(1 << 30) - (1 << 29)
 
 # Launches of csrc/triplet.cu (one a fill), by route, for run reports.
 LAUNCHES = {"triplet_fill_shared": 0, "triplet_fill_cluster": 0,
-            "triplet_fill_global": 0}
-ROUTES = ("shared", "cluster", "global")
+            "triplet_fill_resident": 0, "triplet_fill_global": 0}
+ROUTES = ("shared", "cluster", "resident", "global")
 # Threads of the kernel's one CTA: at most, and a multiple of a warp.
 MAX_THREADS, WARP = 1024, 32
 # Route "cluster" (csrc/triplet.cu kClusterMaxThreads, kClusterPortable,
@@ -320,19 +324,56 @@ def cluster_shape(n: int, max_shift: int, cluster=None, threads=None):
     return None
 
 
+def resident_shape(n: int, max_shift: int, ctas=None, threads=None, *,
+                   sms=CARD_SMS):
+    """``(G, threads, bytes)`` of route ``"resident"`` for n+1 rows: G CTAs
+    of one cooperative launch, each ceil((n+1) / G) rows on ``threads``
+    threads (default :func:`cluster_threads`'s: a CTA of the grid is one of
+    route "cluster") with ``bytes`` of dynamic shared memory, its ring with
+    the halo row and, staged, its tables (:func:`cluster_bytes`), and the
+    halo's two staging rows ``[2, 2S+1]``; ``None``
+    where that does not fit one CTA's shared memory.  ``ctas`` forces G (>=
+    1; a grid the card cannot hold at once is refused at the launch, error
+    720); by default G is the most CTAs up to ``sms``, one a SM (every card
+    of that many SMs holds such a grid, whatever a CTA's registers), that
+    leaves none without rows: the fewest rows a CTA.  Pure: the card is not
+    asked."""
+    if ctas is not None:
+        G = int(ctas)
+        if G < 1:
+            raise ValueError(f"ctas must be >= 1, got {ctas}")
+    else:
+        G = -(-(n + 1) // cluster_rows(n, min(sms, n + 1)))
+    t = cluster_threads(n, max_shift, G) if threads is None else int(threads)
+    need = cluster_bytes(n, max_shift, G, t) + 8 * (2 * max_shift + 1)
+    return (G, t, need) if need <= CTA_SHARED_LIMIT else None
+
+
 def triplet_route(n: int, max_shift: int, threads=None) -> str:
     """The kernel of a pair of n+1 rows: ``"shared"`` when its
     :func:`shared_bytes` fit one CTA's shared memory (at ``threads``
-    threads), else ``"cluster"`` when :func:`cluster_shape` gives a cluster
-    of at most :data:`CLUSTER_PORTABLE` CTAs that holds it, else
-    ``"global"``.  "shared" keeps the pairs it holds: at DNA-Pol-1 it took
-    0.97-1.02 ms, a forced "cluster" 1.44-1.72 at 2-8 CTAs; at 1500 x 1490
-    "cluster" took 6.6 ms and "global" 67.8 (NVIDIA H100 80GB HBM3, 700 W;
-    PERF.md §6, PR 14).  Chosen from the shape before the launch, never
+    threads); beyond, at a max_shift up to :data:`STATIC_SHIFTS` (the
+    compiled widths) ``"resident"`` (:func:`resident_shape`), at a larger
+    one ``"cluster"`` where :func:`cluster_shape` gives a cluster of at most
+    :data:`CLUSTER_PORTABLE` CTAs that holds it, else ``"resident"``;
+    ``"global"`` is taken only when forced.  "shared" keeps the pairs it
+    holds: at DNA-Pol-1 it took 0.98-1.05 ms, a forced "resident"
+    1.81-1.90 and "cluster" 1.46-1.74 at 8-2 CTAs.  Beyond, in turns at the
+    low end of "cluster"'s range, "resident" against "cluster": 2.89-2.96
+    against 4.61-4.66 ms at 1100 x 1090, max_shift 8; 3.39-3.45 / 7.18-7.21
+    at 1600 x 1590, 4; 6.88-6.95 / 8.42-8.47 at 4000 x 3990, 1; 4.58-4.64 /
+    8.46-8.48 at 2600 x 2590, 2; 11.54-11.61 / 27.12-27.17 at 8400 x 8390,
+    0; and at 1500 x 1490, 8, 4.11-4.16 against 6.55-6.61 (C = 8); but
+    7.88-7.95 / 7.52-7.53 at 800 x 790, 9 and 6.88-6.95 / 6.76-6.79 at 500
+    x 490, 16 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --resident-only,
+    PERF.md §6).  Chosen from the shape before the launch, never
     after a failure."""
     if shared_bytes(n, max_shift, threads) <= CTA_SHARED_LIMIT:
         return "shared"
-    return "cluster" if cluster_shape(n, max_shift) is not None else "global"
+    if max_shift <= STATIC_SHIFTS:
+        return "resident"
+    return "cluster" if cluster_shape(n, max_shift) is not None \
+        else "resident"
 
 
 def skew_rows(n: int, m: int, max_shift: int) -> int:
@@ -361,7 +402,8 @@ def shared_tables(mu1, mu2, max_shift, device) -> tuple:
 
 
 def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
-                    threads=None, ys=None, route=None, cluster=None):
+                    threads=None, ys=None, route=None, cluster=None,
+                    ctas=None):
     """:func:`fill_slabs` by a CUDA kernel of ``csrc/triplet.cu`` on a CUDA
     ``device``: the tables ``[n+1, m+1]`` (numpy or tensors) go to the card
     once as int32, one launch fills ``ys`` int32 ``[n+m+1, n+1, 2S+1]`` on
@@ -371,12 +413,17 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
     :func:`shared_tables`; ``"cluster"``, one cluster of C CTAs (``cluster``
     forces C, else :func:`cluster_shape`), each of ``threads`` threads
     (default: its rows', up to :data:`CLUSTER_MAX_THREADS`), the same
-    tables; ``"global"``, one CTA, the diagonals read back from ``ys``.  A
-    forced ``"shared"`` or ``"cluster"`` that does not fit raises
-    ``ValueError``, as does ``cluster`` on another route.  Only the cells of
-    the domain (rows ``max(0, d-m) <= i <= min(n, d)``, ``0 <= k <= m``)
-    are written, so ``ys`` (default: fresh memory) keeps whatever it held
-    elsewhere.  The arguments are checked on any device; on a CPU
+    tables; ``"resident"``, one cooperative launch of G CTAs (``ctas``
+    forces G, else :func:`resident_shape`), each as a CTA of route
+    "cluster", the same tables, the halo memory ``[G-1, n+m+1, 2S+1]`` and
+    G progress flags made here; ``"global"``, one CTA, the diagonals read
+    back from ``ys``.  A forced ``"shared"``, ``"cluster"`` or
+    ``"resident"`` that does not fit raises ``ValueError``, as do
+    ``cluster`` and ``ctas`` on another route; a resident grid the card
+    cannot hold at once raises ``RuntimeError`` (error 720).  Only the
+    cells of the domain (rows ``max(0, d-m) <= i <= min(n, d)``, ``0 <= k
+    <= m``) are written, so ``ys`` (default: fresh memory) keeps whatever
+    it held elsewhere.  The arguments are checked on any device; on a CPU
     ``device`` the plain twin :func:`fill_slabs` runs instead: no kernel
     runs there."""
     if len(mu1.shape) != 2 or tuple(mu1.shape) != tuple(mu2.shape):
@@ -395,7 +442,27 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
     if cluster is not None and route != "cluster":
         raise ValueError(f"cluster={cluster} is for route 'cluster', not "
                          f"{route!r}")
-    if route == "cluster":
+    if ctas is not None and route != "resident":
+        raise ValueError(f"ctas={ctas} is for route 'resident', not "
+                         f"{route!r}")
+    device = torch.device(device)
+    if route == "resident":
+        if threads is not None and int(threads) > CLUSTER_MAX_THREADS:
+            raise ValueError(f"threads of route 'resident' must be "
+                             f"1-{CLUSTER_MAX_THREADS}, got {threads}")
+        sms = (torch.cuda.get_device_properties(device).multi_processor_count
+               if device.type == "cuda" else CARD_SMS)
+        shape = resident_shape(n, S, ctas, threads, sms=sms)
+        if shape is None:
+            G = ctas if ctas is not None else min(sms, n + 1)
+            W = 2 * S + 1
+            raise ValueError(
+                f"route='resident': {n + 1} rows at max_shift {S} over {G} "
+                f"CTAs need {cluster_bytes(n, S, G, threads) + 8 * W} bytes "
+                f"of shared memory a CTA, one CTA has {CTA_SHARED_LIMIT}; use "
+                "more CTAs (ctas=) or route='global'")
+        ctas, threads, _ = shape
+    elif route == "cluster":
         if cluster is not None and not 1 <= int(cluster) <= CLUSTER_MAX:
             raise ValueError(f"cluster must be 1-{CLUSTER_MAX}, got "
                              f"{cluster}")
@@ -409,7 +476,7 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
                 f"route='cluster': {n + 1} rows at max_shift {S} over {C} "
                 f"CTAs need {cluster_bytes(n, S, C, threads)} bytes of "
                 f"shared memory a CTA, one CTA has {CTA_SHARED_LIMIT}; use "
-                "route='global'")
+                "route='resident'")
         cluster, threads, _ = shape
     else:
         threads = default_threads(n) if threads is None else int(threads)
@@ -418,8 +485,7 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
             f"route='shared': {n + 1} rows at max_shift {S} on {threads} "
             f"threads need {shared_bytes(n, S, threads)} bytes of shared "
             f"memory, one CTA has {CTA_SHARED_LIMIT}; use route='cluster' "
-            "or 'global'")
-    device = torch.device(device)
+            "or 'resident'")
     if device.type == "cpu":
         return fill_slabs(mu1, mu2, max_shift, gamma, delta, device=device)
     if route == "global":
@@ -440,6 +506,13 @@ def fill_slabs_cuda(mu1, mu2, max_shift, gamma, delta, *, device="cuda",
     if route == "cluster":
         _build.launch("bialign_triplet_fill_cluster", t1.device, *args,
                       cluster)
+    elif route == "resident":
+        halo = (torch.empty((ctas - 1, n + m + 1, 2 * S + 1),
+                            dtype=torch.int32, device=device)
+                if ctas > 1 else None)
+        flags = torch.zeros(ctas, dtype=torch.int32, device=device)
+        _build.launch("bialign_triplet_fill_resident", t1.device, *args,
+                      ctas, halo, flags, fault_word())
     else:
         _build.launch("bialign_triplet_fill_shared" if route == "shared"
                       else "bialign_triplet_fill", t1.device, *args)

@@ -19,11 +19,15 @@ mode K6 ``_packed_batched_kernel``, K7 ``_packed_ms0_kernel`` and K8
   and, for ``affine_score`` at ``max_shift`` 0, ``csrc/score_affine_ms0.cu``)
   carry a ring of three diagonal slabs ``[3, (9,) W, W, n+1]``, diagonal
   ``d`` in slab ``d % 3``.  ``*_last_slab`` return the slab of the last
-  diagonal, from which the score is read outside the kernel.  K3 has two
+  diagonal, from which the score is read outside the kernel.  K3 has three
   routes (``route=``, :func:`batch_route` at B = 1): ``"cta"``, one launch,
-  the ring in one CTA's shared memory, for every pair that fits one CTA
-  (up to 4096 rows); ``"grid"``, one launch per diagonal on the ring in
-  device memory, for the longer ones.
+  the ring in one CTA's shared memory, for the pairs of fewer than
+  :data:`MS0_RESIDENT_ROWS` rows (and, forced, for any that fits one CTA,
+  up to 4096 rows); ``"resident"``, one cooperative launch of up to a CTA
+  a SM, each CTA its own rows and the row above them through device
+  memory under progress flags, for the longer ones
+  (:func:`ms0_resident_shape`); ``"grid"``, one launch per diagonal on the
+  ring in device memory, only when forced.
 * ``affine_batch_scores`` / ``nonaffine_batch_scores`` return the ``[B]``
   scores of a bucket: a zero-padded stack of tables ``[B, N+1, M+1]`` with
   the pairs' own lengths ``ns``, ``ms``.  Three routes
@@ -93,11 +97,13 @@ from .cases import (
 )
 
 # Kernel launches per wrapper (one per fill, score or bucket), for run
-# reports; "score_affine_ms0" counts K3 on route "cta", "_grid" on the
-# per-diagonal route, "cta_scores" both forms of K6, "conveyor_scores" of
-# K8, "batch_fill_*" K4 and K5 in band mode.
+# reports; "score_affine_ms0" counts K3 on route "cta", "_resident" on the
+# cooperative grid, "_grid" on the per-diagonal route, "cta_scores" both
+# forms of K6, "conveyor_scores" of K8, "batch_fill_*" K4 and K5 in band
+# mode.
 LAUNCHES = {"fill_affine": 0, "fill_nonaffine": 0, "score_affine": 0,
             "score_nonaffine": 0, "score_affine_ms0": 0,
+            "score_affine_ms0_resident": 0,
             "score_affine_ms0_grid": 0, "batch_affine": 0,
             "batch_nonaffine": 0, "cta_scores": 0, "cta_scores_ms0": 0,
             "conveyor_scores": 0, "batch_fill_affine": 0,
@@ -116,7 +122,18 @@ CTA_MAX_THREADS = 1024
 # rows one CTA of K3/K7 holds: four a thread (csrc/cta_scores.cuh
 # kMs0RowsPerThread), whose table chunks sit in registers
 MS0_CTA_ROWS = 4 * CTA_MAX_THREADS
-ROUTES = ("grid", "cta", "conveyor")
+# rows from which one pair's K3 takes route "resident" though one CTA holds
+# it (batch_route): in turns on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py --resident-only, PERF.md §6), one CTA took
+# 0.65-0.73 ms at 512 x 510, 2.14-2.16 at 1024 x 1014, 7.07-7.09 at 2048 x
+# 2038 and 18.86-18.95 at 4000 x 3990; "resident" 1.07-1.15, 1.77-1.81,
+# 3.26-3.32 and 6.29-6.35
+MS0_RESIDENT_ROWS = 1024
+# "resident" is K3's alone: one pair's score at affine max_shift 0
+ROUTES = ("grid", "cta", "conveyor", "resident")
+# SMs of an H100: the most CTAs of a default cooperative grid, one a SM
+# (every such card holds it at once, whatever a CTA's registers)
+CARD_SMS = 132
 # Threads the card holds at once (132 SMs of 2048): a conveyor gets as many
 # lanes as fill it twice, so that a step's launch is about two waves.
 CARD_THREADS = 132 * 2048
@@ -266,6 +283,20 @@ def ms0_kernel_consts(beta: int, gamma: int, delta: int) -> torch.Tensor:
         ms0_live_tables(beta, gamma, delta)[1]))
 
 
+_FAULT = []
+
+
+def fault_word() -> torch.Tensor:
+    """The fault word of the kernels whose CTAs wait on progress flags (the
+    split's, the triplet's and K3's routes "resident"): int32 [4] of pinned
+    host memory, one a process.  A wait that outlasts its budget writes 1,
+    the CTA, the diagonal and which neighbour (1 above, 2 below), then
+    traps, and the next synchronisation fails."""
+    if not _FAULT:
+        _FAULT.append(torch.zeros(4, dtype=torch.int32, pin_memory=True))
+    return _FAULT[0]
+
+
 def _require_int32_safe(mu1, mu2, gamma, delta, beta=0):
     """Refuse tables and costs whose scores could leave the certified int32
     range (:func:`~bialign_tpu_torch.ops.cases.check_int32_safe`, which
@@ -378,40 +409,96 @@ def nonaffine_last_slab(mu1, mu2, max_shift, gamma, delta, *, ring=None):
 
 
 def affine_ms0_last_slab(mu1, mu2, beta, gamma, delta, *, ring=None,
-                         route=None):
+                         route=None, ctas=None, threads=None):
     """Slab ``[3, n+1]`` (the three live states) of the last diagonal of
     the affine recurrence at ``max_shift`` 0 (K3); as
     :func:`affine_last_slab`, ``ring`` being ``[3, 3, n+1]``.  ``route``:
     None for the pair's own (:func:`batch_route` at B = 1: ``"cta"``, one
-    launch in one CTA, when the pair fits one (:func:`cta_fits`: up to
-    4096 rows), else ``"grid"``, a launch per diagonal), or a forced one; a
-    ``"cta"`` that does not fit raises.  On the CPU the route is checked,
-    then the plain twin runs."""
+    launch in one CTA, below :data:`MS0_RESIDENT_ROWS` rows, else
+    ``"resident"``, one cooperative launch of :func:`ms0_resident_shape`'s
+    CTAs), or a forced one (also ``"grid"``, a launch per diagonal;
+    ``"cta"`` up to 4096 rows, :func:`cta_fits`); a ``"cta"`` that does not
+    fit raises.  ``ctas``
+    forces route ``"resident"``'s CTAs and ``threads`` a CTA's threads there
+    (a grid the card cannot hold at once raises RuntimeError, error 720).
+    On the CPU the route and its shape are checked, then the plain twin
+    runs."""
     _check_tables(mu1, mu2, 0)
-    if route not in (None, "cta", "grid"):
-        raise ValueError(f"K3's route must be 'cta', 'grid' or None, got "
-                         f"{route!r}")
-    route = batch_route(mu1.shape[0] - 1, 0, True, route, B=1)
+    if route not in (None, "cta", "resident", "grid"):
+        raise ValueError(f"K3's route must be 'cta', 'resident', 'grid' or "
+                         f"None, got {route!r}")
+    n = mu1.shape[0] - 1
+    route = batch_route(n, 0, True, route, B=1)
+    if (ctas is not None or threads is not None) and route != "resident":
+        raise ValueError(f"ctas= and threads= are route 'resident''s, the "
+                         f"route is {route!r}")
+    if route == "resident":
+        if threads is not None and not 1 <= threads <= CTA_MAX_THREADS:
+            raise ValueError(f"threads must be in 1..{CTA_MAX_THREADS}, got "
+                             f"{threads}")
+        sms = (torch.cuda.get_device_properties(mu1.device)
+               .multi_processor_count if mu1.device.type == "cuda"
+               else CARD_SMS)
+        shape = ms0_resident_shape(n, ctas, threads, sms=sms)
+        if shape is None:
+            raise ValueError(
+                f"route='resident': {n + 1} rows over "
+                f"{ctas or min(sms, n + 1)} CTAs leave a thread more than "
+                "four rows")
     if mu1.device.type == "cpu":
         return affine_ms0_last_slab_plain(mu1, mu2, beta, gamma, delta,
                                           ring=ring)
+    consts = ms0_kernel_consts(beta, gamma, delta)
+    ring_shape = (RING, 3, mu1.shape[0])
+    if route == "resident":
+        G, _rows, t = shape
+        m = mu1.shape[1] - 1
+        halo = (torch.empty((G - 1, n + m + 1, 3), dtype=torch.int32,
+                            device=mu1.device) if G > 1 else None)
+        flags = torch.zeros(G, dtype=torch.int32, device=mu1.device)
+        return _score_kernel("score_affine_ms0_resident", consts, mu1, mu2,
+                             ring_shape, ring, G, t, halo, flags,
+                             fault_word())
     name = "score_affine_ms0" + ("" if route == "cta" else "_grid")
-    return _score_kernel(name, ms0_kernel_consts(beta, gamma, delta), mu1,
-                         mu2, (RING, 3, mu1.shape[0]), ring)
+    return _score_kernel(name, consts, mu1, mu2, ring_shape, ring)
 
 
-def _score_kernel(name, consts, mu1, mu2, ring_shape, ring, *shift):
+def ms0_resident_shape(n: int, ctas=None, threads=None, *, sms=CARD_SMS):
+    """``(G, rows, threads)`` of K3's route ``"resident"`` on n+1 rows: G
+    CTAs of one cooperative launch, ``rows`` = ceil((n+1) / G) rows a CTA
+    on ``threads`` threads (default a row a thread in whole warps and two
+    warps more, whose last threads copy and publish the halo, up to 1024),
+    a thread at most four of them (``csrc/cta_scores.cuh``
+    ``cta_ms0<kRows, true>``, its ring [3, 3, rows+1] in shared memory);
+    ``None`` where a thread would take more.  ``ctas`` forces G (>= 1; a
+    grid the card cannot hold at once is refused at the launch); by
+    default G is the most CTAs up to ``sms``, one a SM, that leaves none
+    without rows: the fewest rows a CTA.  Pure."""
+    if ctas is not None:
+        G = int(ctas)
+        if G < 1:
+            raise ValueError(f"ctas must be >= 1, got {ctas}")
+    else:
+        G = -(-(n + 1) // -(-(n + 1) // min(sms, n + 1)))
+    rows = -(-(n + 1) // G)
+    t = (min(CTA_MAX_THREADS, -(-rows // 32) * 32 + 64) if threads is None
+         else int(threads))
+    return (G, rows, t) if -(-rows // t) <= 4 else None
+
+
+def _score_kernel(name, consts, mu1, mu2, ring_shape, ring, *more):
     """Launch score-only kernel ``name`` over ``ring`` (fresh memory if
-    None); ``consts``: its case constants on the host; ``shift`` is the
-    kernel's max_shift argument, which K3 lacks.  Returns the slab of the
-    last diagonal, a view of the ring."""
+    None); ``consts``: its case constants on the host; ``more`` are the
+    kernel's arguments after n and m: max_shift (which K3 lacks), or K3's
+    grid on route "resident".  Returns the slab of the last diagonal, a view
+    of the ring."""
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
     dev = mu1.device
     _check_ring(ring, ring_shape, mu1)
     if ring is None:
         ring = torch.empty(ring_shape, dtype=torch.int32, device=dev)
     _build.launch(f"bialign_{name}", dev, ring, mu1, mu2, consts, n, m,
-                  *shift)
+                  *more)
     LAUNCHES[name] += 1
     return ring[(n + m) % RING]
 
@@ -917,12 +1004,20 @@ def batch_route(N: int, max_shift: int, affine: bool, route=None, *,
     """The route of a bucket of B pairs and N+1 rows
     (pallas_dp._route_batched): ``"cta"`` when a pair fits one CTA
     (:func:`cta_fits`); else ``"conveyor"`` for two pairs or more
-    (pallas_dp._use_conveyor), ``"grid"`` for one.  A forced ``route`` is
-    returned as it is, but a ``"cta"`` that does not fit raises: it does
-    not give way."""
+    (pallas_dp._use_conveyor), ``"grid"`` for one; but one pair's score at
+    affine ``max_shift`` 0 (K3, :func:`affine_ms0_last_slab`) takes
+    ``"resident"`` from :data:`MS0_RESIDENT_ROWS` rows on, where it is
+    faster than one CTA, and beyond one CTA.  A forced ``route`` is
+    returned as it is, but a ``"cta"`` that does not fit raises, and so
+    does a ``"resident"`` other than K3's: neither gives way."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES} or None, got "
                          f"{route!r}")
+    k3 = B == 1 and affine and max_shift == 0
+    if route == "resident" and not k3:
+        raise ValueError(
+            "route='resident' is K3's alone: one pair's score at affine "
+            f"max_shift 0 (B = {B}, max_shift {max_shift}, affine {affine})")
     fits = cta_fits(N, max_shift, affine)
     if route == "cta" and not fits:
         raise ValueError(
@@ -932,9 +1027,25 @@ def batch_route(N: int, max_shift: int, affine: bool, route=None, *,
             f"{MS0_CTA_ROWS} rows at most); use route='grid'")
     if route is not None:
         return route
+    if k3 and N + 1 >= MS0_RESIDENT_ROWS:
+        return "resident"
     if fits:
         return "cta"
     return "conveyor" if B >= 2 else "grid"
+
+
+def _bucket_route(N: int, max_shift: int, affine: bool, route, B: int) -> str:
+    """:func:`batch_route` for the bucket wrappers: route ``"resident"`` is
+    one pair's K3, so a bucket of one pair keeps K7's ``"cta"`` where it
+    fits one CTA and K4's ``"grid"`` beyond, and a forced ``"resident"``
+    raises."""
+    if route == "resident":
+        raise ValueError("route='resident' is K3's (affine_ms0_last_slab), "
+                         "not a bucket's")
+    route = batch_route(N, max_shift, affine, route, B=B)
+    if route == "resident":
+        return "cta" if cta_fits(N, max_shift, affine) else "grid"
+    return route
 
 
 def conveyor_T0(M: int) -> int:
@@ -1062,7 +1173,7 @@ def affine_batch_scores(mu1p, mu2p, ns, ms, max_shift, beta, gamma, delta, *,
     does not fit one CTA's shared memory (above 17), as K1 does."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
-    route = batch_route(mu1p.shape[1] - 1, S, True, route, B=mu1p.shape[0])
+    route = _bucket_route(mu1p.shape[1] - 1, S, True, route, mu1p.shape[0])
     plan = _route_plan(mu1p, route, lanes, threads, S, True)
     lanes = plan[0] if route == "conveyor" else None
     ms0 = route == "cta" and S == 0
@@ -1102,7 +1213,7 @@ def nonaffine_batch_scores(mu1p, mu2p, ns, ms, max_shift, gamma, delta, *,
     K5 and K8 refuse a max_shift above 48 on a CUDA device."""
     _check_stacks(mu1p, mu2p, ns, ms, max_shift)
     S, W = max_shift, 2 * max_shift + 1
-    route = batch_route(mu1p.shape[1] - 1, S, False, route, B=mu1p.shape[0])
+    route = _bucket_route(mu1p.shape[1] - 1, S, False, route, mu1p.shape[0])
     plan = _route_plan(mu1p, route, lanes, threads, S, False)
     lanes = plan[0] if route == "conveyor" else None
     ring_shape = _batch_ring_shape(mu1p, (W, W), lanes)

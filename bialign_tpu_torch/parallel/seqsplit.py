@@ -63,6 +63,9 @@ from ..convert import tables_to_torch
 from ..ops import cuda_dp
 from ..ops.band import INVALID
 from ..ops.cases import N_STATES
+# the fault word (one a process) is shared with the other kernels whose
+# CTAs wait on progress flags
+from ..ops.cuda_dp import fault_word
 from ..ops.checkpoint_dp import (
     CheckpointBand,
     _block_size,
@@ -283,19 +286,6 @@ def flag_memory(shards) -> list:
         out.append(whole[s.device][at[s.device]:at[s.device] + s.b - s.a + 1])
         at[s.device] += s.b - s.a + 1
     return out
-
-
-_FAULT = []
-
-
-def fault_word() -> torch.Tensor:
-    """The fault word of route "resident" (int32 [4] of pinned host memory,
-    one a process): a wait that outlasts its budget writes 1, the CTA, the
-    diagonal and which neighbour (1 above, 2 below), then traps, and the
-    next synchronisation fails."""
-    if not _FAULT:
-        _FAULT.append(torch.zeros(4, dtype=torch.int32, pin_memory=True))
-    return _FAULT[0]
 
 
 @contextmanager

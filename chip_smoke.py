@@ -14,6 +14,9 @@
                                              # alone (on several cards)
     python3 chip_smoke.py --triplet-only     # phases 1-2 and the triplet:
                                              # its kernel, path and times
+    python3 chip_smoke.py --resident-only    # phases 1-2, K3's and the
+                                             # triplet's checks and times
+                                             # (both routes "resident")
     python3 chip_smoke.py --profile-stress   # phases 1-2 and phase 8, with
                                              # in-process traces recorded
 
@@ -34,10 +37,13 @@ package.  Phases, one line each:
    memory, at three thread counts a CTA, every cell of the rings it leaves
    equal to the single-pair twins' on buckets of up to 16 pairs; the
    conveyor on one lane, on three and on one per pair), all equal.  K3 on
-   both routes (one CTA, a launch a diagonal) from the same ring of
-   garbage, every cell of the ring equal to the twin's, up to the DNA-Pol-1
-   shape; a pair beyond one CTA on the per-diagonal route, the one-CTA
-   route refused there.  K4 and K5 in band mode and the batch
+   its three routes (one CTA; "resident", one cooperative grid, at its own
+   CTAs and at 3 CTAs of 32 threads; a launch a diagonal) from the same
+   ring of garbage, every cell of the ring equal to the twin's, up to the
+   DNA-Pol-1 shape; the pairs beyond one CTA (4096x4090, 8192x8180) on
+   their own route, "resident", its ring equal to the per-diagonal route's
+   from the same garbage and its last slab to K1's at max_shift 0, the
+   one-CTA route refused there.  K4 and K5 in band mode and the batch
    walks on the same buckets, on bands pre-filled with garbage: the bands
    equal to their twins' cell for cell (so nothing but a pair's genuine
    cells is written), the scores equal to score mode's, every walk equal to
@@ -62,7 +68,8 @@ package.  Phases, one line each:
    route ("shared" wherever triplet_route gives it, else a forced
    "shared" must raise; "global" everywhere; "cluster" on clusters of 3
    and 8 CTAs wherever cluster_shape holds the pair, else a forced
-   "cluster" must raise) against its twin fill_slabs on slabs of garbage:
+   "cluster" must raise; "resident" on its own grid and on 3 CTAs) against
+   its twin fill_slabs on slabs of garbage:
    n and m of 0-2, 31-33, 63-65 and 1023-1025 mixed, max_shift 0-4 and
    beyond the compiled widths, a CTA of 1024 threads and of 100, random,
    tie-heavy and int32-wrapping tables; the domain's cells equal to the
@@ -75,13 +82,17 @@ package.  Phases, one line each:
    The score-only path through the port's tables: affine_score = 761500,
    at max_shift 0 (K3, one CTA) and 2 and nonaffine_score at the CLI
    defaults equal to the band path's; and a pair beyond one CTA at
-   max_shift 0 (K3 a launch a diagonal) equal to K1's score.  End-to-end
+   max_shift 0 (K3 on its route "resident", and a launch a diagonal
+   forced) equal to K1's score.  End-to-end
    times, kernel times against the plain
    twins', microseconds a launch, the score-only fills beside the bucket
    kernels K4/K5 on the same pair as a batch of one (the same tile under
    the bucket's launch), band bytes, peak memory.
    Then a 4000x3990 pair of random tables, affine max_shift 1: score-only
-   against the band kernel; at max_shift 0, K3 on both routes against K1.
+   against the band kernel; at max_shift 0, K3 on its three routes in turns
+   against K1; K3's "resident" and per-diagonal routes in turns at
+   4096x4090 and 8192x8180 (the kernels line's K3 "resident" at the first,
+   beside its twin).
    The batched-scores path through bialign_tpu_torch.parallel.score_batch
    and PreparedBatch: 64 windows of 128-508 residues of the DNA-Pol-1 pair
    (affine max_shift 1, bucket_quantum 128; buckets beyond one CTA's shared
@@ -155,19 +166,25 @@ package.  Phases, one line each:
    The triplet aligner through BiAlignerTriplet on its default engine, the
    CUDA kernel: the DNA-Pol-1 pair at max_shift 1 with flat gaps on route
    "shared" (779500; score, trace, the three rows, the six with structures
-   and the eval_trace lines equal to the plain twin's on the CPU) and a
-   1500 x 1490 pair at max_shift 8 on route "cluster" (its ring, 306 KB,
+   and the eval_trace lines equal to the plain twin's on the CPU), a
+   1500 x 1490 pair at max_shift 8 on its own route (its ring, 306 KB,
    beyond one CTA; score 1246400, equal to the twin's last cell), that
-   pair's fill also forced onto route "global"; at DNA-Pol-1 the slabs of
-   every route (and of "shared" on 480 threads, the tables staged, and of
-   "cluster" on 2, 4 and 8 CTAs) equal to the twin's on the card, at 1500
-   x 1490 the slabs of "global" and of "cluster" on 2, 4, 8 and 16 CTAs;
-   each kernel's time alone (CUDA events, warm, in turns) and through its
-   wrapper beside optimize() end to end and its stages (at both pairs),
-   the twin on the card and on the CPU, the bounds and chain floors; the
-   kernel on a 200 x 200 window against fill_oracle in every banded cell;
+   pair's fill also forced onto the other routes, and a 7000 x 6990 pair at
+   max_shift 8 on route "resident" (no portable cluster holds it; its
+   slabs, 6.66 GB, copied back once, equal to route "global"'s on the
+   domain, its score to that route's last cell); at DNA-Pol-1 the slabs of
+   every route (and of "shared" on 480 threads, the tables staged, of
+   "cluster" on 2, 4 and 8 CTAs, of "resident" on its own grid) equal to
+   the twin's on the card, at 1500 x 1490 the slabs of "global",
+   "resident" and "cluster" on 2, 4, 8 and 16 CTAs; each kernel's time
+   alone (CUDA events, warm, in turns) and through its wrapper beside
+   optimize() end to end and its stages (at both pairs), the twin on the
+   card and on the CPU, the bounds and chain floors; "resident" and
+   "global" in turns at 7000 x 6990, "resident" and "cluster" in turns at
+   the low end of "cluster"'s range (max_shift 8, 4 and 1); the kernel on
+   a 200 x 200 window against fill_oracle in every banded cell;
 6. launch counts of the eight paths (the five above, the mesh phase, the
-   triplet, its three routes, and the stream), counted apart, each of
+   triplet, its four routes, and the stream), counted apart, each of
    which must be > 0;
 7. profile: where the time of the DNA-Pol-1 runs and of the two batches
    goes, stage by stage on the host clock and from a torch.profiler trace
@@ -301,8 +318,13 @@ DNAPOL_CLI_DEFAULTS = dict(type="Protein")         # non-affine, max_shift 2
 MS0_SHAPES = [(7, 9), (1, 1), (0, 3), (5, 0), (20, 13)]   # (n, m) for K3
 DNAPOL_SHAPE = (928, 933)
 # the shortest pair that does not fit one CTA of K3 (4096 rows, four a
-# thread)
+# thread), and one of twice its rows (its tables 536 MB): K3's route
+# "resident" against the per-diagonal route and K1; and the pairs at which
+# "resident" and the one-CTA route are timed in turns
 MS0_BEYOND = (4096, 4090)
+MS0_BIG = (8192, 8180)
+MS0_ROUTE_SHAPES = ((512, 510), (1024, 1014), (2048, 2038), (3072, 3062),
+                    (4000, 3990))
 # threads a CTA of the one-CTA kernels in phase 3: the kernel's own, two
 # warps, the most; the rings they leave are held to the single-pair twins'
 # on buckets of up to CTA_TWIN_PAIRS pairs
@@ -440,6 +462,13 @@ KERNELS = {
                              "bialign_tpu/models/triplet.py:188"),
     "triplet_fill_global": ("bialign_tpu_torch/csrc/triplet.cu",
                             "bialign_tpu/models/triplet.py:188"),
+    # route "resident" of the triplet fill (one cooperative grid, the halo
+    # through device memory under progress flags) and of K3 (the same, for
+    # one pair's score beyond one CTA)
+    "triplet_fill_resident": ("bialign_tpu_torch/csrc/triplet.cu",
+                              "bialign_tpu/models/triplet.py:188"),
+    "score_affine_ms0_resident": ("bialign_tpu_torch/csrc/score_affine_ms0.cu",
+                                  "bialign_tpu/ops/pallas_dp.py:741"),
 }
 
 # the kernels of each counted path
@@ -447,7 +476,7 @@ PATHS = {
     "band": ("fill_affine", "fill_nonaffine", "walk_affine",
              "walk_nonaffine"),
     "score_only": ("score_affine", "score_nonaffine", "score_affine_ms0",
-                   "score_affine_ms0_grid"),
+                   "score_affine_ms0_resident", "score_affine_ms0_grid"),
     "batch": ("batch_affine", "batch_nonaffine", "cta_scores",
               "cta_scores_ms0", "conveyor_scores"),
     "align": ("batch_fill_affine", "batch_fill_nonaffine",
@@ -472,10 +501,11 @@ PATHS = {
     "mesh": ("conveyor_scores", "cta_scores", "batch_fill_affine",
              "walk_affine_batch"),
     # the triplet aligner through BiAlignerTriplet on its default engine:
-    # DNA-Pol-1 on route "shared", a pair beyond one CTA on "cluster"; that
-    # pair's fill forced onto route "global" through fill_slabs_cuda
+    # DNA-Pol-1 on route "shared", a pair beyond one CTA on its own route,
+    # a pair beyond any portable cluster on "resident"; the other routes
+    # forced through fill_slabs_cuda
     "triplet": ("triplet_fill_shared", "triplet_fill_cluster",
-                "triplet_fill_global"),
+                "triplet_fill_resident", "triplet_fill_global"),
 }
 
 # The goldens at max_shift 3 (computed with the JAX package, engines "xla"
@@ -542,7 +572,16 @@ TRIPLET_LENGTHS = (0, 1, 2, 31, 32, 33, 63, 64, 65, 1023, 1024, 1025)
 TRIPLET_STATIC_SHIFTS = 8
 TRIPLET_THREADS = (1024, 100)
 TRIPLET_CLUSTERS = (3, 8)
+TRIPLET_RESIDENT_CTAS = (None, 3)     # route "resident": its own G, and 3
 TRIPLET_BIG_CLUSTERS = (2, 4, 8, 16)
+# A pair that no portable cluster holds, on route "resident" through
+# BiAlignerTriplet (its slabs 6.66 GB) against "global" forced; and the
+# pairs at which "resident" and "cluster" are timed in turns, at the low
+# end of route "cluster"'s range for max_shift 8, 4 and 1
+TRIPLET_HUGE = (7000, 6990, 8)
+TRIPLET_ROUTE_SHAPES = ((1100, 1090, 8), (1600, 1590, 4), (4000, 3990, 1),
+                        (8400, 8390, 0), (2600, 2590, 2), (800, 790, 9),
+                        (500, 490, 16))
 TRIPLET_DNAPOL_CLUSTERS = (2, 4, 8)
 TRIPLET_COSTS = {"random": (-200, -250), "ties": (-100, 0),
                  "wrap": (-(1 << 30) + 7, (1 << 31) - 11)}
@@ -857,13 +896,20 @@ def phase_kernels(dev, errs: dict) -> None:
 
 
 def phase_k3_kernels(dev, errs: dict) -> None:
-    """K3 on both routes forced, from the same ring of garbage: the ring it
-    leaves equal to the twin's in every cell, the live states of the last
-    slab equal to K1's at max_shift 0.  A pair beyond one CTA: its own
-    route is the per-diagonal one, equal to K1, and the one-CTA route
-    refuses it."""
+    """K3 on its three routes forced, from the same ring of garbage: the
+    ring it leaves equal to the twin's in every cell, the live states of the
+    last slab equal to K1's at max_shift 0 (route "resident" at its own
+    CTAs and at 3 CTAs of 32 threads, several rows a thread).  The pairs
+    beyond one CTA (MS0_BEYOND, MS0_BIG): their own route is "resident",
+    its ring equal to the per-diagonal route's from the same garbage and
+    its last slab to K1's, and the one-CTA route refuses them."""
     beta, gamma, delta = AFFINE_PARAMS
     live = cuda_dp.ms0_live_tables(beta, gamma, delta)[0]
+    forms = (("cta", "score_affine_ms0", {}),
+             ("resident", "score_affine_ms0_resident", {}),
+             ("resident", "score_affine_ms0_resident",
+              dict(ctas=3, threads=32)),
+             ("grid", "score_affine_ms0_grid", {}))
     for n, m in MS0_SHAPES + [(150, 150), (300, 257), DNAPOL_SHAPE]:
         rng = np.random.default_rng(SEED + 1000 * n + 10 * m)
         t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
@@ -872,34 +918,45 @@ def phase_k3_kernels(dev, errs: dict) -> None:
         cuda_dp.affine_ms0_last_slab_plain(t1, t2, beta, gamma, delta,
                                            ring=twin)
         k1 = cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
-        for route, name in (("cta", "score_affine_ms0"),
-                            ("grid", "score_affine_ms0_grid")):
+        for route, name, kw in forms:
+            if kw and -(-(n + 1) // kw["ctas"]) > 4 * kw["threads"]:
+                continue                  # more than four rows a thread
             ring = junk.clone()
             k3 = cuda_dp.affine_ms0_last_slab(t1, t2, beta, gamma, delta,
-                                              ring=ring, route=route)
+                                              ring=ring, route=route, **kw)
             e = max(tensor_err(ring, twin), row_err(k3, k1[live, 0, 0], n))
-            check(e == 0, f"{name} ring ({n}, {m}): max |err| {e}")
+            check(e == 0, f"{name} {kw} ring ({n}, {m}): max |err| {e}")
             errs[name] = max(errs[name], e)
         check(cuda_dp.batch_route(n, 0, True, B=1) == "cta",
               f"K3's route at n = {n}")
         check(cuda_dp.affine_score(t1, t2, 0, beta, gamma, delta)
               == int(k1[:, 0, 0, n].max()), f"score_affine_ms0 score {n, m}")
 
-    n, m = MS0_BEYOND
-    rng = np.random.default_rng(SEED + n)
-    t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
-    check(cuda_dp.batch_route(n, 0, True, B=1) == "grid",
-          f"K3's route at n = {n}")
-    try:
-        cuda_dp.affine_ms0_last_slab(t1, t2, beta, gamma, delta, route="cta")
-        check(False, f"K3's one-CTA route took a pair of {n + 1} rows")
-    except ValueError:
-        pass
-    k3 = cuda_dp.affine_ms0_last_slab(t1, t2, beta, gamma, delta)
-    k1 = cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
-    e = row_err(k3, k1[live, 0, 0], n)
-    check(e == 0, f"score_affine_ms0_grid beyond one CTA ({n}, {m}): {e}")
-    errs["score_affine_ms0_grid"] = max(errs["score_affine_ms0_grid"], e)
+    for n, m in (MS0_BEYOND, MS0_BIG):
+        rng = np.random.default_rng(SEED + n)
+        t1, t2 = tables_to_torch(*rand_tables(rng, n, m), dev)
+        check(cuda_dp.batch_route(n, 0, True, B=1) == "resident",
+              f"K3's route at n = {n}")
+        try:
+            cuda_dp.affine_ms0_last_slab(t1, t2, beta, gamma, delta,
+                                         route="cta")
+            check(False, f"K3's one-CTA route took a pair of {n + 1} rows")
+        except ValueError:
+            pass
+        junk = garbage_ring(rng, (3, 3, n + 1), dev)
+        rings = {route: junk.clone() for route in ("resident", "grid")}
+        k3 = {route: cuda_dp.affine_ms0_last_slab(
+            t1, t2, beta, gamma, delta, ring=ring,
+            route=None if route == "resident" else route)
+            for route, ring in rings.items()}
+        k1 = cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
+        for route, name in (("resident", "score_affine_ms0_resident"),
+                            ("grid", "score_affine_ms0_grid")):
+            e = max(row_err(k3[route], k1[live, 0, 0], n),
+                    tensor_err(rings[route], rings["grid"]))
+            check(e == 0, f"{name} beyond one CTA ({n}, {m}): {e}")
+            errs[name] = max(errs[name], e)
+        del t1, t2, rings, k3, k1
     torch.cuda.synchronize()
 
 
@@ -1435,7 +1492,8 @@ def phase_full_score(mol) -> dict:
             max_memory_allocated=peak, band_bytes=ba._band.ys.numel() * 4)
 
     # K3 beyond one CTA: affine_score at max_shift 0 on a pair of random
-    # tables whose ring does not fit, against K1's score at max_shift 0
+    # tables whose ring does not fit (its route "resident"), against K1's
+    # score at max_shift 0 and the per-diagonal route forced
     n, m = MS0_BEYOND
     beta, gamma, delta = AFFINE_PARAMS
     t1, t2 = tables_to_torch(
@@ -1445,9 +1503,86 @@ def phase_full_score(mol) -> dict:
     seconds = time.perf_counter() - t0
     want = int(cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
                [:, 0, 0, n].max())
-    check(score == want, f"K3 beyond one CTA {n, m}: {score} != K1 {want}")
-    found["affine_ms0_beyond_one_cta"] = dict(n=n, m=m, score=score,
-                                              k1_score=want, seconds=seconds)
+    grid = int(cuda_dp.affine_ms0_last_slab(t1, t2, beta, gamma, delta,
+                                            route="grid")[:, n].max())
+    check(score == want == grid, f"K3 beyond one CTA {n, m}: {score} "
+          f"(grid forced {grid}) != K1 {want}")
+    found["affine_ms0_beyond_one_cta"] = dict(
+        n=n, m=m, route=cuda_dp.batch_route(n, 0, True, B=1), score=score,
+        k1_score=want, grid_forced_score=grid, seconds=seconds)
+    return found
+
+
+def k3_beyond_times(errs: dict) -> tuple[dict, dict, dict]:
+    """K3's route "resident" on the pairs beyond one CTA (MS0_BEYOND, the
+    main path's, and MS0_BIG), against the per-diagonal route in turns
+    (CUDA events, warm, three turns each way), both against K1 at max_shift
+    0; the twin's time at MS0_BEYOND.  Returns (times, bounds, more) for
+    the kernels line, at MS0_BEYOND."""
+    beta, gamma, delta = AFFINE_PARAMS
+    more, times, bounds = {}, {}, {}
+    for n, m in (MS0_BEYOND, MS0_BIG):
+        t1, t2 = tables_to_torch(
+            *rand_tables(np.random.default_rng(SEED + 7 * n), n, m), "cuda")
+        want = int(cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
+                   [:, 0, 0, n].max())
+        k3 = {route: lambda route=route: cuda_dp.affine_ms0_last_slab(
+            t1, t2, beta, gamma, delta, route=route)
+            for route in ("resident", "grid")}
+        for route, name in (("resident", "score_affine_ms0_resident"),
+                            ("grid", "score_affine_ms0_grid")):
+            got = int(k3[route]()[:, n].max())           # and the warm-up
+            check(got == want, f"{name} at {n, m}: {got} != K1 {want}")
+        turns = {route: [] for route in k3}
+        for route in ["resident", "grid", "grid", "resident"] * 3:
+            turns[route].append(cuda_ms(k3[route], reps=1)[0])
+        D = n + m + 1
+        more[f"{n}x{m}"] = dict(
+            shape=cuda_dp.ms0_resident_shape(n), turns_ms=turns,
+            ms_min_max={r: (min(v), max(v)) for r, v in turns.items()},
+            us_per_diagonal={r: min(v) * 1e3 / D for r, v in turns.items()})
+        if (n, m) == MS0_BEYOND:
+            ms_p, sp = cuda_ms(lambda: cuda_dp.affine_ms0_last_slab_plain(
+                t1, t2, beta, gamma, delta), reps=1)
+            e = row_err(k3["resident"](), sp, n)
+            check(e == 0, f"score_affine_ms0_resident at {n, m}: |err| {e}")
+            errs["score_affine_ms0_resident"] = max(
+                errs["score_affine_ms0_resident"], e)
+            times["score_affine_ms0_resident"] = (min(turns["resident"]),
+                                                  ms_p)
+            bounds["score_affine_ms0_resident"] = dp_bound(n, m, 0, 3, 3,
+                                                           band=False)
+            more[f"{n}x{m}"]["twin_ms"] = ms_p
+        del t1, t2
+    return times, bounds, more
+
+
+def k3_route_times() -> dict:
+    """K3's routes "cta" and "resident" in turns (CUDA events, warm, three
+    turns each way) at MS0_ROUTE_SHAPES, both against K1 at max_shift 0:
+    where the one-CTA route stops paying."""
+    beta, gamma, delta = AFFINE_PARAMS
+    found = {}
+    for n, m in MS0_ROUTE_SHAPES:
+        t1, t2 = tables_to_torch(
+            *rand_tables(np.random.default_rng(SEED + 3 * n), n, m), "cuda")
+        want = int(cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
+                   [:, 0, 0, n].max())
+        k3 = {route: lambda route=route: cuda_dp.affine_ms0_last_slab(
+            t1, t2, beta, gamma, delta, route=route)
+            for route in ("cta", "resident")}
+        for route in k3:
+            got = int(k3[route]()[:, n].max())           # and the warm-up
+            check(got == want, f"K3 {route} at {n, m}: {got} != K1 {want}")
+        turns = {route: [] for route in k3}
+        for route in ["cta", "resident", "resident", "cta"] * 3:
+            turns[route].append(cuda_ms(k3[route], reps=1)[0])
+        found[f"{n}x{m}"] = dict(
+            ms_min_max={r: (min(v), max(v)) for r, v in turns.items()},
+            us_per_diagonal={r: min(v) * 1e3 / (n + m + 1)
+                             for r, v in turns.items()},
+            resident_shape=cuda_dp.ms0_resident_shape(n))
+        del t1, t2
     return found
 
 
@@ -1480,17 +1615,17 @@ def phase_big_pair(dev) -> dict:
     check(found["score_only"]["score"] == found["band"]["score"],
           f"{n}x{m} scores differ: {found}")
 
-    # K3 at max_shift 0 on the same pair: one CTA against a launch a
-    # diagonal, in turns, both against K1 at max_shift 0
+    # K3 at max_shift 0 on the same pair: one CTA against the cooperative
+    # grid and a launch a diagonal, in turns, each against K1 at max_shift 0
     k3 = {route: lambda route=route: int(cuda_dp.affine_ms0_last_slab(
         t1, t2, beta, gamma, delta, route=route)[:, n].max())
-        for route in ("cta", "grid")}
+        for route in ("cta", "resident", "grid")}
     want = int(cuda_dp.affine_last_slab(t1, t2, 0, beta, gamma, delta)
                [:, 0, 0, n].max())
     ms0 = {route: dict(ms=[]) for route in k3}
     for route in k3:
         k3[route]()                                           # warm-up
-    for route in ("cta", "grid", "grid", "cta"):
+    for route in [*k3, *reversed(k3)] * 2:
         ms, score = cuda_ms(k3[route], reps=1)
         check(score == want, f"K3 {route} on {n}x{m}: {score} != K1 {want}")
         ms0[route]["ms"].append(ms)
@@ -2568,27 +2703,30 @@ def phase_full_timing(mol, errs: dict) -> tuple[dict, dict, dict]:
                 kern, cuda_dp.affine_batch_scores if name == "affine"
                 else cuda_dp.nonaffine_batch_scores, t1, t2, S, p))
 
-        if name == "affine":             # K3 on both routes, in turns
+        if name == "affine":             # K3 on its routes, in turns
             k3 = {route: lambda route=route: cuda_dp.affine_ms0_last_slab(
-                t1, t2, *p, route=route) for route in ("cta", "grid")}
+                t1, t2, *p, route=route)
+                for route in ("cta", "resident", "grid")}
             turns = {route: [] for route in k3}
             for route in k3:
                 k3[route]()                                   # warm-up
-            for route in ("cta", "grid", "grid", "cta"):
+            for route in [*k3, *reversed(k3)]:
                 turns[route].append(cuda_ms(k3[route], reps=5)[0])
             ms_p, sp = cuda_ms(
                 lambda: cuda_dp.affine_ms0_last_slab_plain(t1, t2, *p), reps=1)
             for route, key in (("cta", "score_affine_ms0"),
+                               ("resident", "score_affine_ms0_resident"),
                                ("grid", "score_affine_ms0_grid")):
                 e = row_err(k3[route](), sp, n)
                 check(e == 0, f"{key} DNA-Pol last slab: |err| {e}")
                 errs[key] = max(errs[key], e)
-                times[key] = (min(turns[route]), ms_p)
-                # three live states, three sources each, no shift axes
-                bounds[key] = dp_bound(n, m, 0, 3, 3, band=False)
+                if route != "resident":   # its line: at MS0_BEYOND
+                    times[key] = (min(turns[route]), ms_p)
+                    # three live states, three sources each, no shift axes
+                    bounds[key] = dp_bound(n, m, 0, 3, 3, band=False)
                 more[key] = dict(
                     turns_ms=turns[route],
-                    launches=1 if route == "cta" else n + m + 1,
+                    launches=n + m + 1 if route == "grid" else 1,
                     us_per_diagonal=min(turns[route]) * 1e3 / (n + m + 1))
 
         if name == "affine":
@@ -3782,8 +3920,9 @@ def phase_triplet_kernels(dev, errs: dict) -> list:
     "shared" wherever triplet_route gives it (elsewhere a forced "shared"
     must raise), both at TRIPLET_THREADS; route "cluster" on each of
     TRIPLET_CLUSTERS CTAs wherever cluster_shape holds the pair (elsewhere
-    a forced "cluster" must raise).  Returns the cases with, for each
-    thread count and then each cluster size, the routes run."""
+    a forced "cluster" must raise); route "resident" on its own CTAs and on
+    3.  Returns the cases with, for each thread count, then each cluster
+    size, then each resident grid, the routes run."""
     rng = np.random.default_rng(SEED)
     ran = []
 
@@ -3825,6 +3964,9 @@ def phase_triplet_kernels(dev, errs: dict) -> list:
             else:
                 held(route="cluster", cluster=C)
                 routes_of.append(f"cluster{C}")
+        for G in TRIPLET_RESIDENT_CTAS:
+            held(route="resident", ctas=G)
+            routes_of.append(f"resident{trip.resident_shape(n, S, G)[0]}")
         ran.append((n, m, S, kind, *routes_of))
     return ran
 
@@ -3846,29 +3988,24 @@ def triplet_bound(n: int, m: int, S: int, cells: int):
                  cells * TRIPLET_OPS_PER_CELL)
 
 
-def triplet_big_pair(mol) -> tuple:
-    """(seqA, strA, seqB, strB) of TRIPLET_BIG's lengths: each DNA-Pol-1
-    sequence and structure continued by its own start."""
-    n, m, _ = TRIPLET_BIG
-
-    def grow(text, k):
-        return (text * (k // len(text) + 1))[:k]
-
-    seqA, strA, seqB, strB = mol
-    return grow(seqA, n), grow(strA, n), grow(seqB, m), grow(strB, m)
-
-
 def triplet_launcher(route, mu1, mu2, S, gamma, delta, dev, threads=None,
                      cluster=None):
     """(call, ys): one launch of route's kernel alone (route "cluster" on
-    ``cluster`` CTAs, default cluster_shape's), on tables laid out once as
-    fill_slabs_cuda lays them out, through the C entry (so not counted),
-    for timing."""
+    ``cluster`` CTAs, default cluster_shape's; route "resident" on a grid
+    of ``cluster`` CTAs, default resident_shape's, its flags zeroed before
+    each launch), on tables laid out once as fill_slabs_cuda lays them out,
+    through the C entry (so not counted), for timing."""
     n, m = mu1.shape[0] - 1, mu1.shape[1] - 1
     more = ()
     if route == "cluster":
         cluster, threads, _ = trip.cluster_shape(n, S, cluster, threads)
         more = (cluster,)
+    elif route == "resident":       # `cluster` is the grid's CTAs here
+        G, threads, _ = trip.resident_shape(n, S, cluster, threads)
+        halo = (torch.empty((G - 1, n + m + 1, 2 * S + 1), dtype=torch.int32,
+                            device=dev) if G > 1 else None)
+        flags = torch.zeros(G, dtype=torch.int32, device=dev)
+        more = (G, halo, flags, cuda_dp.fault_word())
     elif threads is None:
         threads = trip.default_threads(n)
     if route == "global":
@@ -3880,9 +4017,15 @@ def triplet_launcher(route, mu1, mu2, S, gamma, delta, dev, threads=None,
                      device=dev)
     name = {"shared": "bialign_triplet_fill_shared",
             "cluster": "bialign_triplet_fill_cluster",
+            "resident": "bialign_triplet_fill_resident",
             "global": "bialign_triplet_fill"}[route]
     args = (ys, t1, t2, n, m, S, trip._int32(2 * gamma),
             trip._int32(gamma + delta), threads, *more)
+    if route == "resident":         # its flags zeroed before each launch
+        def call():
+            more[2].zero_()
+            _build.launch(name, dev, *args)
+        return call, ys
     return (lambda: _build.launch(name, dev, *args)), ys
 
 
@@ -3931,40 +4074,90 @@ def triplet_turns(launch: dict, runs: int) -> dict:
     return found
 
 
+def triplet_grown(mol, n: int, m: int) -> tuple:
+    """(seqA, strA, seqB, strB) of n and m residues: each DNA-Pol-1
+    sequence and structure continued by its own start."""
+    def grow(text, k):
+        return (text * (k // len(text) + 1))[:k]
+
+    seqA, strA, seqB, strB = mol
+    return grow(seqA, n), grow(strA, n), grow(seqB, m), grow(strB, m)
+
+
+def triplet_big_pair(mol) -> tuple:
+    """(seqA, strA, seqB, strB) of TRIPLET_BIG's lengths."""
+    return triplet_grown(mol, *TRIPLET_BIG[:2])
+
+
+def slabs_err_on_domain(got, ys, n: int, m: int, S: int) -> int:
+    """Max |difference| on the domain of slabs ``got`` (numpy on the host,
+    or a tensor) from ``ys`` (on the card), a thousand diagonals at a
+    time."""
+    e = 0
+    for d0 in range(0, n + m + 1, 1000):
+        d1 = min(n + m + 1, d0 + 1000)
+        part = torch.as_tensor(got[d0:d1]).to(ys.device)
+        d = torch.arange(d0, d1, device=ys.device)[:, None, None]
+        i = torch.arange(n + 1, device=ys.device)[None, :, None]
+        k = d - i + torch.arange(2 * S + 1, device=ys.device) - S
+        live = (d - i >= 0) & (d - i <= m) & (k >= 0) & (k <= m)
+        diff = (part.long() - ys[d0:d1].long()).abs() * live
+        e = max(e, int(diff.max()))
+    return e
+
+
 def phase_triplet(mol, dev, errs: dict) -> tuple:
     """The triplet aligner through its default engine, the CUDA kernel
     (counted launches): the DNA-Pol-1 pair at max_shift 1 (route "shared":
     score TRIPLET_DNAPOL_SCORE, and score, trace, rows, rows with
     structures and eval_trace lines equal to the plain twin's on the CPU),
-    the TRIPLET_BIG pair at max_shift 8 (route "cluster"), and that pair's
-    fill forced onto route "global" through fill_slabs_cuda.  Then, not
-    counted: at DNA-Pol-1 the slabs of every route (route "cluster" on each
-    of TRIPLET_DNAPOL_CLUSTERS CTAs) equal to the twin's on the card on the
-    domain; at TRIPLET_BIG the aligner's slabs, route "global"'s and
-    route "cluster"'s on each of TRIPLET_BIG_CLUSTERS CTAs (16 where the
-    card makes such a cluster resident) equal to the twin's on the card,
-    and the aligner's score to the twin's cell; each route's time (CUDA
-    events, warm, in turns) beside the twin's on the card and on the CPU,
-    the bounds, the chain floors (one L2 load a diagonal, csrc/probe.cu,
-    for "global"; "shared" on a pair of one row, whose diagonals are a
-    barrier, the shared loads and the W-step chain alone); optimize()'s
-    stages at DNA-Pol-1 and at TRIPLET_BIG; the kernel on a 200 x 200
-    window against fill_oracle in every banded cell.  Returns (report,
-    launches, {kernel: (ms, twin ms)}, {kernel: bound})."""
+    the TRIPLET_BIG pair at max_shift 8 (its own route, triplet_route's) and
+    the TRIPLET_HUGE pair (route "resident", beyond any portable cluster),
+    run once: its slabs equal to route "global"'s forced on the domain, its
+    score to that route's last cell; and TRIPLET_BIG's fill forced onto the
+    routes that are not its own through fill_slabs_cuda.  Then, not
+    counted: at DNA-Pol-1 the slabs of every route (route "cluster" on
+    each of TRIPLET_DNAPOL_CLUSTERS CTAs, "resident" on its own CTAs) equal
+    to the twin's on the card on the domain; at TRIPLET_BIG the aligner's
+    slabs and every route's (route "cluster" on each of
+    TRIPLET_BIG_CLUSTERS CTAs, 16 where the card makes such a cluster
+    resident) equal to the twin's on the card, and the aligner's score to
+    the twin's cell; each route's time (CUDA events, warm, in turns) beside
+    the twin's on the card and on the CPU, the bounds, the chain floors
+    (one L2 load a diagonal, csrc/probe.cu, for "global"; "shared" on a
+    pair of one row, whose diagonals are a barrier, the shared loads and
+    the W-step chain alone); "resident" and "global" in turns at
+    TRIPLET_HUGE; "resident" and "cluster" in turns at
+    TRIPLET_ROUTE_SHAPES; optimize()'s stages at DNA-Pol-1 and at
+    TRIPLET_BIG; the kernel on a 200 x 200 window against fill_oracle in
+    every banded cell.  Returns (report, launches, {kernel: (ms, twin
+    ms)}, {kernel: bound})."""
     big = triplet_big_pair(mol)
     big_params = dict(TRIPLET_PARAMS, max_shift=TRIPLET_BIG[2])
     bn, bm, bS = TRIPLET_BIG
+    hn, hm, hS = TRIPLET_HUGE
+    big_route = trip.triplet_route(bn, bS)
+    huge = triplet_grown(mol, hn, hm)
     reset_counts()
     seconds, (ba, got) = timed(lambda: (lambda bt: (
         bt, triplet_outputs(bt)))(triplet_aligner(mol, **TRIPLET_PARAMS)))
     big_s, (bb, big_got) = timed(lambda: (lambda bt: (
         bt, triplet_outputs(bt)))(triplet_aligner(big, **big_params)))
     bp = (bS, bb.gamma, bb.delta)
-    big_global = trip.fill_slabs_cuda(bb.mu1, bb.mu2, *bp, device=dev,
-                                      route="global")
+    forced = {route: trip.fill_slabs_cuda(bb.mu1, bb.mu2, *bp, device=dev,
+                                          route=route)
+              for route in ("cluster", "resident", "global")
+              if route != big_route}
+    huge_s, (hb, huge_got) = timed(lambda: (lambda bt: (
+        bt, triplet_outputs(bt)))(triplet_aligner(
+            huge, **dict(TRIPLET_PARAMS, max_shift=hS))))
+    hp = (hS, hb.gamma, hb.delta)
+    huge_global = trip.fill_slabs_cuda(hb.mu1, hb.mu2, *hp, device=dev,
+                                       route="global")
     launches = path_counts("triplet")
     check(trip.triplet_route(len(mol[0]), ba.max_shift) == "shared"
-          and trip.triplet_route(len(big[0]), bb.max_shift) == "cluster",
+          and big_route in ("cluster", "resident")
+          and trip.triplet_route(hn, hS) == "resident",
           "the triplet pairs' routes")
     check(got[0] == TRIPLET_DNAPOL_SCORE, f"triplet DNA-Pol-1 score "
           f"{got[0]}, not {TRIPLET_DNAPOL_SCORE}")
@@ -3972,6 +4165,22 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
     cpu_s, _ = timed(ref.optimize)
     check(got == triplet_outputs(ref), f"triplet on the kernel (score "
           f"{got[0]}) differs from the twin on the CPU")
+    # the pair beyond any portable cluster: its slabs (copied back by
+    # optimize()) against route "global"'s on the domain, its score against
+    # that route's last cell; then its kernel and "global" alone, in turns
+    e = slabs_err_on_domain(hb.M.ys, huge_global, hn, hm, hS)
+    check(e == 0, f"triplet_fill_resident at {TRIPLET_HUGE}: max |err| {e} "
+          "from route 'global'")
+    check(huge_got[0] == int(huge_global[hn + hm, hn, hS]),
+          f"triplet at {TRIPLET_HUGE}: score {huge_got[0]} differs from "
+          "route 'global''s last cell")
+    errs["triplet_fill_resident"] = max(errs["triplet_fill_resident"], e)
+    errs["triplet_fill_global"] = max(errs["triplet_fill_global"], e)
+    huge_slab_bytes = int(huge_global.numel()) * 4
+    j = np.arange(hm + 1)
+    huge_cells = (hn + 1) * int((np.minimum(hm, j + hS)
+                                 - np.maximum(0, j - hS) + 1).sum())
+    del huge_global, hb
 
     optimize_s = [timed(ba.optimize)[0] for _ in range(3)]
     stages = triplet_stages(ba, dev)
@@ -3987,7 +4196,7 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
     # two rows a thread: the tables in shared memory), route "cluster" on
     # each of TRIPLET_DNAPOL_CLUSTERS CTAs
     launch = {route: triplet_launcher(route, ba.mu1, ba.mu2, *p, dev)
-              for route in ("global", "shared")}
+              for route in ("global", "shared", "resident")}
     launch["staged"] = triplet_launcher("shared", ba.mu1, ba.mu2, *p, dev,
                                         threads=TRIPLET_STAGED_THREADS)
     for C in TRIPLET_DNAPOL_CLUSTERS:
@@ -4010,14 +4219,14 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
     cells = int(live.sum())
     del ys, twin, live, launch
 
-    # the pair beyond one CTA: the aligner's route "cluster", "global"
-    # forced, and route "cluster" on each of TRIPLET_BIG_CLUSTERS CTAs
+    # the pair beyond one CTA: the aligner's route, the others forced, and
+    # route "cluster" on each of TRIPLET_BIG_CLUSTERS CTAs
     b1, b2 = tables_to_torch(bb.mu1, bb.mu2, dev)
     big_plain_ms, big_twin = cuda_ms(lambda: trip.fill_slabs(
         bb.mu1, bb.mu2, *bp, device=dev), 1)
     big_live = trip.domain(bn, bm, bS, dev)
-    big_launch = {"global": triplet_launcher("global", bb.mu1, bb.mu2, *bp,
-                                             dev)}
+    big_launch = {route: triplet_launcher(route, bb.mu1, bb.mu2, *bp, dev)
+                  for route in ("global", "resident")}
     not_resident = {}
     big_C = trip.cluster_shape(bn, bS)[0]       # the route's own
     for C in sorted({*TRIPLET_BIG_CLUSTERS, big_C}):
@@ -4033,10 +4242,11 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
             not_resident[C] = str(exc)
             continue
         big_launch[f"cluster{C}"] = (call, slabs)
-    big_launch["global"][0]()
+    for route in ("global", "resident"):
+        big_launch[route][0]()
     for route, slabs in [
-            ("cluster", torch.from_numpy(bb.M.ys).to(dev)),
-            ("global", big_global),
+            (big_route, torch.from_numpy(bb.M.ys).to(dev)),
+            *forced.items(),
             *((r, v[1]) for r, v in big_launch.items())]:
         name = "triplet_fill_" + ("cluster" if route.startswith("cluster")
                                   else route)
@@ -4048,9 +4258,49 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
           "twin's last cell")
     big_ms = triplet_turns({r: v[0] for r, v in big_launch.items()}, 3)
     big_cells = int(big_live.sum())
-    del big_global, big_twin, big_live, big_launch
+    del forced, big_twin, big_live, big_launch
     big_optimize_s = [timed(bb.optimize)[0] for _ in range(3)]
     big_stages = triplet_stages(bb, dev)
+    del bb
+
+    # "resident" and "global" alone at TRIPLET_HUGE, in turns (its tables
+    # random: the kernels' time does not depend on the values)
+    rng = np.random.default_rng(SEED + hn)
+    h1, h2 = triplet_tables(rng, hn, hm, "random")
+    huge_launch = {route: triplet_launcher(route, h1, h2, *hp, dev)
+                   for route in ("resident", "global")}
+    for call, _ in huge_launch.values():
+        call()
+    e = slabs_err_on_domain(huge_launch["resident"][1],
+                            huge_launch["global"][1], hn, hm, hS)
+    check(e == 0, f"triplet_fill_resident at {TRIPLET_HUGE}, random tables: "
+          f"max |err| {e} from route 'global'")
+    huge_ms = triplet_turns({r: v[0] for r, v in huge_launch.items()}, 2)
+    del huge_launch
+
+    # "resident" and "cluster" (its own C) in turns at the low end of
+    # route "cluster"'s range, equal to each other on the domain
+    route_ms = {}
+    for rn, rm, rS in TRIPLET_ROUTE_SHAPES:
+        r1, r2 = triplet_tables(np.random.default_rng(SEED + rn), rn, rm,
+                                "random")
+        pair = {route: triplet_launcher(route, r1, r2, rS, *TRIPLET_COSTS[
+            "random"], dev) for route in ("cluster", "resident")}
+        for call, _ in pair.values():
+            call()
+        rl = trip.domain(rn, rm, rS, dev)
+        e = int((pair["cluster"][1].long() - pair["resident"][1].long())
+                [rl].abs().max())
+        check(e == 0, f"triplet_fill_resident at {(rn, rm, rS)}: max |err| "
+              f"{e} from route 'cluster'")
+        turns = triplet_turns({r: v[0] for r, v in pair.items()}, 3)
+        route_ms[f"{rn}x{rm} max_shift {rS}"] = dict(
+            shapes=dict(cluster=trip.cluster_shape(rn, rS),
+                        resident=trip.resident_shape(rn, rS)),
+            ms_min_max={r: (min(v), max(v)) for r, v in turns.items()},
+            us_per_diagonal={r: min(v) * 1e3 / (rn + rm + 1)
+                             for r, v in turns.items()})
+        del pair, rl
 
     # the chain floors: one L2 load a diagonal; a pair of one row on
     # "shared", at DNA-Pol-1's threads
@@ -4077,7 +4327,8 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
           "the triplet kernel differs from fill_oracle on the window")
     b = triplet_bound(n, m, S, cells)
     big_b = triplet_bound(bn, bm, bS, big_cells)
-    D, big_D = n + m + 1, bn + bm + 1
+    huge_b = triplet_bound(hn, hm, hS, huge_cells)
+    D, big_D, huge_D = n + m + 1, bn + bm + 1, hn + hm + 1
     floor_us = floor_ms * 1e3 / (fm + 1)
     found = dict(
         dnapol_score=got[0], trace_columns=len(got[1]),
@@ -4089,6 +4340,7 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
         staged_threads=TRIPLET_STAGED_THREADS,
         dnapol_cluster_shapes={C: trip.cluster_shape(n, S, C)
                                for C in TRIPLET_DNAPOL_CLUSTERS},
+        dnapol_resident_shape=trip.resident_shape(n, S),
         wrapper_ms=wrapper_ms,
         twin_on_card_ms=plain_ms, twin_on_cpu_s=cpu_s,
         slabs_of_every_route_equal_to_twin_on_card=True, domain_cells=cells,
@@ -4096,10 +4348,11 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
         chain_floor_global_ms=D * l2_ns * 1e-6,
         one_row_us_per_diagonal=floor_us,
         chain_floor_shared_ms=D * floor_us * 1e-3,
-        big=f"{bn}x{bm} max_shift {bS}", big_route="cluster",
+        big=f"{bn}x{bm} max_shift {bS}", big_route=big_route,
         big_cluster_shape=trip.cluster_shape(bn, bS),
         big_cluster_shapes={C: trip.cluster_shape(bn, bS, C)
                             for C in TRIPLET_BIG_CLUSTERS},
+        big_resident_shape=trip.resident_shape(bn, bS),
         big_not_resident=not_resident,
         big_score=big_got[0], big_trace_columns=len(big_got[1]),
         big_first_run_s=big_s, big_optimize_s=big_optimize_s,
@@ -4113,14 +4366,28 @@ def phase_triplet(mol, dev, errs: dict) -> tuple:
         big_domain_cells=big_cells, big_bound_ms=big_b[0],
         big_bound_by=big_b[1],
         big_shared_bytes=trip.shared_bytes(bn, bS),
+        huge=f"{hn}x{hm} max_shift {hS}", huge_route="resident",
+        huge_resident_shape=trip.resident_shape(hn, hS),
+        huge_score=huge_got[0], huge_trace_columns=len(huge_got[1]),
+        huge_first_run_s=huge_s, huge_slab_bytes=huge_slab_bytes,
+        huge_slabs_equal_to_global=True, huge_kernel_ms=huge_ms,
+        huge_us_per_diagonal={r: min(v) * 1e3 / huge_D
+                              for r, v in huge_ms.items()},
+        huge_domain_cells=huge_cells, huge_bound_ms=huge_b[0],
+        huge_bound_by=huge_b[1],
+        huge_ratio_to_bound={r: min(v) / huge_b[0]
+                             for r, v in huge_ms.items()},
+        resident_against_cluster=route_ms,
         window=f"{w}x{w}", window_cells=int(band.sum()),
         window_equal_to_oracle=True)
     times = {"triplet_fill_shared": (min(kernel_ms["shared"]), plain_ms),
              "triplet_fill_cluster": (min(big_ms[f"cluster{big_C}"]),
                                       big_plain_ms),
+             "triplet_fill_resident": (min(big_ms["resident"]),
+                                       big_plain_ms),
              "triplet_fill_global": (min(big_ms["global"]), big_plain_ms)}
     bounds = {"triplet_fill_shared": b, "triplet_fill_cluster": big_b,
-              "triplet_fill_global": big_b}
+              "triplet_fill_resident": big_b, "triplet_fill_global": big_b}
     return found, launches, times, bounds
 
 
@@ -4708,6 +4975,12 @@ def main() -> int:
         "twin (phase 3's cases), the DNA-Pol-1 pair through "
         "BiAlignerTriplet against the twin on the CPU, the kernel's times")
     parser.add_argument(
+        "--resident-only", action="store_true",
+        help="build, then only the two fills of route 'resident': K3's "
+        "phase 3 checks and times beyond one CTA, and the triplet's phase 3 "
+        "checks and phase 5 (every route, the pair beyond any portable "
+        "cluster, 'resident' against 'cluster' in turns)")
+    parser.add_argument(
         "--profile-stress", action="store_true",
         help="build, then only the stress phase, with the in-process "
         "traces after the large one that reproduce the conditions of a "
@@ -4796,7 +5069,17 @@ def main() -> int:
             in_process=True))
         return 0
     errs = dict.fromkeys(KERNELS, 0)
-    if args.triplet_only:
+    if args.resident_only:
+        phase_k3_kernels(dev, errs)
+        k3_times, k3_bounds, k3_more = k3_beyond_times(errs)
+        say("5 kernel times, K3 beyond one CTA", nvidia_smi=smi,
+            ms_kernel_vs_plain={k: {"kernel_ms": v[0], "plain_ms": v[1],
+                                    "bound_ms": k3_bounds[k][0],
+                                    "bound_by": k3_bounds[k][1]}
+                                for k, v in k3_times.items()},
+            details=k3_more, cta_against_resident=k3_route_times(),
+            max_abs_err={k: errs[k] for k in errs if "ms0" in k})
+    if args.triplet_only or args.resident_only:
         ran = phase_triplet_kernels(dev, errs)
         say("3 kernels, triplet", triplet_n_m_shift_tables_routes=ran,
             triplet_threads=TRIPLET_THREADS,
@@ -4841,6 +5124,10 @@ def main() -> int:
         return 0
     if args.fills_only:
         times, bounds, more = phase_full_timing(dnapol_pair(), errs)
+        k3_times, k3_bounds, more["k3_beyond_one_cta"] = k3_beyond_times(
+            errs)
+        times.update(k3_times)
+        bounds.update(k3_bounds)
         say("5 kernel times", nvidia_smi=smi, ms_kernel_vs_plain={
             k: {"kernel_ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1]} for k, v in times.items()},
@@ -4897,6 +5184,10 @@ def main() -> int:
     times, bounds, more = phase_full_timing(mol, errs)
     times.update(triplet_times)
     bounds.update(triplet_bounds)
+    k3_times, k3_bounds, more["k3_beyond_one_cta"] = k3_beyond_times(errs)
+    more["k3_cta_against_resident"] = k3_route_times()
+    times.update(k3_times)
+    bounds.update(k3_bounds)
     batch_times, batch_bounds, batch_more = phase_batch_timing(batches, errs)
     more.update(batch_more)
     times.update(batch_times)
@@ -4975,8 +5266,10 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     except Exception:
-        # a split launch that trapped names its CTA here (seqsplit.fault_word)
-        if ssp is not None and ssp._FAULT and int(ssp._FAULT[0][0]):
-            print(f"route 'resident' fault word {ssp._FAULT[0].tolist()}",
+        # a launch of a route "resident" that trapped names its CTA here
+        # (cuda_dp.fault_word)
+        fault = getattr(cuda_dp, "_FAULT", None)
+        if fault and int(fault[0][0]):
+            print(f"route 'resident' fault word {fault[0].tolist()}",
                   file=sys.stderr)
         raise

@@ -86,16 +86,18 @@ inline void flag_fault(int32_t* fault, int d, int which) {
   host_trap();
 }
 
-inline void flag_wait(const int32_t* flag, int32_t want, bool sys,
-                      int32_t* fault, int d, int which) {
+inline int32_t flag_wait(const int32_t* flag, int32_t want, bool sys,
+                         int32_t* fault, int d, int which) {
   host_flag_delay();
-  if (flag_acquire(flag, sys) >= want) return;
+  int32_t v = flag_acquire(flag, sys);
+  if (v >= want) return v;
   const uint64_t t0 = flag_clock_ns();
-  while (flag_acquire(flag, sys) < want) {
+  while ((v = flag_acquire(flag, sys)) < want) {
     if (flag_clock_ns() - t0 > host_budget_ns.load())
       flag_fault(fault, d, which);
     std::this_thread::yield();
   }
+  return v;
 }
 
 }  // namespace bialign

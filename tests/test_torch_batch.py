@@ -343,11 +343,16 @@ def test_route_follows_shared_memory(N, S, affine, nbytes, route):
     """The route rule: three slabs of N+1 rows and the tables' buffers
     against the 227 KB of one CTA (at affine max_shift 0 also 4096 rows,
     four a thread); beyond it the conveyor for two pairs or more, the
-    per-diagonal kernel for one."""
+    per-diagonal kernel for one (one pair's K3 at affine max_shift 0 the
+    cooperative grid from 1024 rows, which a bucket of one does not
+    take)."""
     assert cuda_dp.cta_shared_bytes(N, S, affine) == nbytes
     assert cuda_dp.batch_route(N, S, affine, B=17) == route
     assert cuda_dp.batch_route(N, S, affine, B=2) == route
+    k3 = affine and S == 0 and N + 1 >= cuda_dp.MS0_RESIDENT_ROWS
     assert cuda_dp.batch_route(N, S, affine, B=1) == \
+        ("resident" if k3 else "cta" if route == "cta" else "grid")
+    assert cuda_dp._bucket_route(N, S, affine, None, 1) == \
         ("cta" if route == "cta" else "grid")
     for forced in ("grid", "conveyor"):
         assert cuda_dp.batch_route(N, S, affine, forced, B=1) == forced

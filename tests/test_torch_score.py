@@ -251,18 +251,21 @@ def test_affine_score_at_max_shift_0_goes_through_k3(monkeypatch):
     assert len(called) == 1
 
 
-# K3's route by the pair's rows: one CTA while it holds them, four rows a
-# thread of 1024 (n <= 4095; the ring, 36 bytes a row, fits shared memory
-# up to there)
+# K3's route by the pair's rows: one CTA below MS0_RESIDENT_ROWS (1024),
+# one cooperative grid from there, where it measured faster; one CTA holds
+# a pair while four rows a thread of 1024 do (n <= 4095; the ring, 36 bytes
+# a row, fits shared memory up to there), so "cta" may be forced up to there
 @pytest.mark.parametrize("n,route", [
-    (0, "cta"), (928, "cta"), (4000, "cta"), (4095, "cta"), (4096, "grid"),
-    (13000, "grid")])
+    (0, "cta"), (928, "cta"), (1022, "cta"), (1023, "resident"),
+    (4000, "resident"), (4095, "resident"), (4096, "resident"),
+    (13000, "resident")])
 def test_k3_route_follows_one_ctas_capacity(n, route):
     assert cuda_dp.cta_shared_bytes(n, 0, True) == 36 * (n + 1)
-    assert cuda_dp.cta_fits(n, 0, True) == (route == "cta")
+    assert cuda_dp.cta_fits(n, 0, True) == (n <= 4095)
     assert cuda_dp.batch_route(n, 0, True, B=1) == route
     assert cuda_dp.batch_route(n, 0, True, "grid", B=1) == "grid"
-    if route == "cta":
+    assert cuda_dp.batch_route(n, 0, True, "resident", B=1) == "resident"
+    if n <= 4095:
         assert cuda_dp.batch_route(n, 0, True, "cta", B=1) == "cta"
     else:
         with pytest.raises(ValueError, match="one CTA"):
@@ -270,13 +273,13 @@ def test_k3_route_follows_one_ctas_capacity(n, route):
 
 
 def test_k3_forced_routes():
-    """Either route forced on a pair that fits gives the twin's slab; a
+    """Each route forced on a pair that fits gives the twin's slab; a
     forced one-CTA route on a pair beyond one CTA raises before anything
-    runs (it does not give way to the other route), and the conveyor is no
+    runs (it does not give way to another route), and the conveyor is no
     route of one pair."""
     t1, t2 = _tables(*_pair(7, 9, 0))
     want = cuda_dp.affine_ms0_last_slab_plain(t1, t2, -150, -50, -150)
-    for route in ("cta", "grid", None):
+    for route in ("cta", "resident", "grid", None):
         assert torch.equal(cuda_dp.affine_ms0_last_slab(
             t1, t2, -150, -50, -150, route=route), want)
     long = torch.zeros((4097, 1), dtype=torch.int32)

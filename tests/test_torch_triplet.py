@@ -128,8 +128,8 @@ def test_fill_slabs_cuda_on_the_cpu_is_the_twin(n, m, S):
 ])
 def test_triplet_route_at_its_boundary(S, last_shared, threads):
     """``triplet_route`` is "shared" while ring (and staged tables) fit one
-    CTA's 232,448 bytes, and "cluster" one row beyond (a cluster of CTAs
-    holds it)."""
+    CTA's 232,448 bytes, and one row beyond "resident" at the compiled
+    widths, "cluster" at the wider bands (a cluster of CTAs holds it)."""
     W = 2 * S + 1
 
     def staged(n):
@@ -142,9 +142,10 @@ def test_triplet_route_at_its_boundary(S, last_shared, threads):
     assert T.shared_bytes(last_shared, S, threads) <= T.CTA_SHARED_LIMIT
     assert T.shared_bytes(last_shared + 1, S, threads) > T.CTA_SHARED_LIMIT
     assert T.triplet_route(last_shared, S, threads) == "shared"
-    assert T.triplet_route(last_shared + 1, S, threads) == "cluster"
+    assert T.triplet_route(last_shared + 1, S, threads) == (
+        "cluster" if S > T.STATIC_SHIFTS else "resident")
     assert T.triplet_route(928, 1) == "shared"         # DNA-Pol-1
-    assert T.triplet_route(1500, 8) == "cluster"       # its ring: 306 KB
+    assert T.triplet_route(1500, 8) == "resident"      # its ring: 306 KB
 
 
 def test_forced_shared_route_beyond_one_cta_raises():
@@ -178,14 +179,19 @@ CLUSTER_BOUNDS = [(8, 1023, 6535), (4, 1489, 11911), (1, 3873, 30983),
 @pytest.mark.parametrize("S,last_shared,last_cluster", CLUSTER_BOUNDS)
 def test_cluster_shape_and_route_at_their_boundaries(S, last_shared,
                                                      last_cluster):
-    """``triplet_route``: "shared" up to the last pair one CTA holds,
-    "cluster" from the next one to the last pair that a cluster of 8 CTAs
-    holds (its CTAs' rings and staged tables, ``ring_bytes`` with the halo
-    row, within 232,448 bytes each), "global" beyond."""
+    """``triplet_route``: "shared" up to the last pair one CTA holds; at
+    the wider bands "cluster" from the next one to the last pair that a
+    cluster of 8 CTAs holds (its CTAs' rings and staged tables,
+    ``ring_bytes`` with the halo row, within 232,448 bytes each), and
+    "resident" beyond; at the compiled widths "resident" (faster there)
+    from the next one on ("global" only when forced)."""
+    wide = S > T.STATIC_SHIFTS
     assert T.triplet_route(last_shared, S) == "shared"
-    assert T.triplet_route(last_shared + 1, S) == "cluster"
-    assert T.triplet_route(last_cluster, S) == "cluster"
-    assert T.triplet_route(last_cluster + 1, S) == "global"
+    assert T.triplet_route(last_shared + 1, S) == (
+        "cluster" if wide else "resident")
+    assert T.triplet_route(last_cluster, S) == (
+        "cluster" if wide else "resident")
+    assert T.triplet_route(last_cluster + 1, S) == "resident"
     assert T.cluster_shape(last_cluster + 1, S) is None
     C, threads, need = T.cluster_shape(last_cluster, S)
     assert C == T.CLUSTER_PORTABLE and need <= T.CTA_SHARED_LIMIT
@@ -247,5 +253,5 @@ def test_forced_cluster_route_beyond_its_capacity_raises():
 
 
 def test_launch_counts_name_every_route():
-    assert T.ROUTES == ("shared", "cluster", "global")
+    assert T.ROUTES == ("shared", "cluster", "resident", "global")
     assert set(T.LAUNCHES) == {f"triplet_fill_{r}" for r in T.ROUTES}

@@ -63,14 +63,15 @@ FILL = ("    for (int i0 = lo; i0 <= hi; i0 += R)\n",
         "    if (d < 0)\n    for (int i0 = lo; i0 <= hi; i0 += R)\n")
 FLAGS = "neighbour_flags.cuh"
 RELAXED_POLL = (FLAGS,
-                "  if (flag_acquire(flag, sys) >= want) return;\n"
+                "  int32_t v = flag_acquire(flag, sys);\n"
+                "  if (v >= want) return v;\n"
                 "  const uint64_t t0 = flag_clock_ns();\n"
-                "  while (flag_acquire(flag, sys) < want)\n",
+                "  while ((v = flag_acquire(flag, sys)) < want)\n",
                 "  int32_t v;\n"
                 "  asm volatile(\"ld.global.relaxed.gpu.b32 %0, [%1];\" : "
                 "\"=r\"(v) : \"l\"(flag) : \"memory\");\n"
                 "  if (v >= want) { asm volatile(\"fence.acq_rel.gpu;\" ::: "
-                "\"memory\"); return; }\n"
+                "\"memory\"); return v; }\n"
                 "  const uint64_t t0 = flag_clock_ns();\n"
                 "  for (;;) {\n"
                 "    asm volatile(\"ld.global.relaxed.gpu.b32 %0, [%1];\" : "

@@ -88,9 +88,9 @@ NO_ROWS = ("    const int at = (i - first + kHalo) * W;\n",
 RELEASE = ("cluster_barrier.cuh", "barrier.cluster.arrive.relaxed;",
            "barrier.cluster.arrive.release;")
 NO_FENCE = ("    if (halo) cluster_fence();\n", "")
-STAMP_AT = ("      end_diagonal(d);\n      return ++d <= n + m;",
+STAMP_AT = ("      end_diagonal(d);\n      return ++d <= d_last;",
             "      stamp(g_arrive, d);\n      end_diagonal(d);\n"
-            "      stamp(g_release, d);\n      return ++d <= n + m;")
+            "      stamp(g_release, d);\n      return ++d <= d_last;")
 STAMP_DEFS = ("namespace bialign {\nnamespace {\n",
               f"__device__ long long g_arrive[{STAMPED_D}][{WARPS}];\n"
               f"__device__ long long g_release[{STAMPED_D}][{WARPS}];\n"
