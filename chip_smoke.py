@@ -19,12 +19,15 @@
                                              # (both routes "resident")
     python3 chip_smoke.py --profile-stress   # phases 1-2 and phase 8, with
                                              # in-process traces recorded
+    python3 chip_smoke.py --fuzz-only        # phases 1-2 and the fuzz
+                                             # phase (--fuzz-seconds N)
 
 Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
 package.  Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds csrc/*.cu into build/bialign_tpu_torch/;
+2. build: nvcc builds csrc/*.cu into build/bialign_tpu_torch/ (unless the
+   library there is newer than every source);
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card,
    on random tables at small to medium shapes and at the edges of the tile
    kernels' CTAs (R-1, R, R+1 and 2R+1 live rows at max_shift 1 and 3) and
@@ -73,7 +76,25 @@ package.  Phases, one line each:
    n and m of 0-2, 31-33, 63-65 and 1023-1025 mixed, max_shift 0-4 and
    beyond the compiled widths, a CTA of 1024 threads and of 100, random,
    tie-heavy and int32-wrapping tables; the domain's cells equal to the
-   twin's, every other cell keeping its garbage;
+   twin's, every other cell keeping its garbage.
+   Beside phase 3, in a process of its own (--fuzz-only), the fuzz
+   phase: every kernel of KERNELS against its twin on
+   garbage over the seeded cases of tests/torch_fuzz_cases.py (the
+   generator of the CPU tests): n and m up to 300, max_shift up to each
+   family's limit (17 affine, 48 non-affine, the triplet on both sides of
+   its route boundary at 8, K3 across its 1024 rows), random costs in
+   [-500, 200] and the corner sets (zero gap costs, a positive shift
+   reward, gamma > delta, beta = gamma = delta), random, tie-heavy and
+   int32-edge tables, uneven shards and forced routes; the DNA-Pol-1 pair
+   through BiAligner at max_shift 3 (the golden 771550), 5 and 8 against
+   the twin's score; tables beyond the int32 certificate through BiAligner
+   (the int64 engine, no kernel launched).  Rounds of one case a family
+   until FUZZ_SECONDS; its line {"fuzz": {kernel: {"cases", "max_abs_err"}}}
+   is printed before the kernels line.  Beside phase 3 too, the port's three
+   examples (examples/*_torch.py), each in a process of its own: the
+   README walkthrough (6800, 48500, the golden lines), the DNA-Pol-1
+   pipeline (761500) and the stream of 32 pairs (its spool equal to the
+   plain twins' stream on the card, checked after phase 3);
 4. goldens: the toy RNA/protein goldens and the DNA-Pol-1 prefix-150 score
    through bialign_tpu_torch.BiAligner, and one CLI run in a subprocess;
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
@@ -216,8 +237,9 @@ pointer-chase probe's ns a dependent load (device memory, L2) and each
 walk's chain floor, steps x that latency.  The whole run prints the probe
 too, after phase 5's kernel times.
 
-Then one JSON line of per-kernel results (with each kernel's bound: the
-least time the card could take for the same work), and last the line
+Then the fuzz line, one JSON line of per-kernel results (with each
+kernel's bound: the least time the card could take for the same work), and
+last the line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 nonzero and that line is not printed.  Exits 2 without a CUDA device.
 """
@@ -4948,6 +4970,494 @@ def say_split_times(smi: str, errs: dict) -> None:
             for k, v in times.items()}, details=more, max_abs_err=errs)
 
 
+# The fuzz phase (also alone: --fuzz-only): every kernel of KERNELS held to
+# its plain twin on the card, on garbage memory, over the seeded cases of
+# tests/torch_fuzz_cases.py, the generator the CPU tests draw from: n and m
+# up to FUZZ_MAX_LEN, max_shift up to each family's limit (17 affine, 48
+# non-affine, the triplet across its route boundary at 8), random costs in
+# [-500, 200] and the corner sets, random, tie-heavy and int32-edge tables.
+# Rounds of one case a family, until FUZZ_SECONDS are spent; round 0 always
+# whole, with the cases at the limits, K3 across its 1024-row boundary, the
+# DNA-Pol-1 pair at max_shift 3, 5 and 8 through BiAligner, and tables
+# beyond the int32 certificate (the int64 engine, no kernel).
+FUZZ_SECONDS = 240       # about phase 3's own time, beside which it runs
+FUZZ_MAX_LEN = 300
+FUZZ_CELLS = 2_000_000          # 4-D cells (x 9 states affine) a case
+FUZZ_SPLIT_KS = (1, 2, 3)
+FUZZ_DNAPOL_SHIFTS = (3, 5, 8)
+# DNA-Pol-1 at DNAPOL_FULL's costs and max_shift 3: the JAX package's XLA
+# engine and the port's plain twin agree
+DNAPOL_MS3_SCORE = 771550
+
+
+@functools.lru_cache(maxsize=1)
+def fuzz_generator():
+    """tests/torch_fuzz_cases.py, read from the checkout (numpy only)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_fuzz_cases", ROOT / "tests" / "torch_fuzz_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class FuzzTally:
+    """Per kernel of KERNELS: its calls held to the twin, and max |err|."""
+
+    def __init__(self):
+        self.cases = dict.fromkeys(KERNELS, 0)
+        self.err = dict.fromkeys(KERNELS, 0)
+
+    def add(self, name: str, e: int, what: str) -> None:
+        check(e == 0, f"fuzz {name} [{what}]: max |err| {e}")
+        self.cases[name] += 1
+        self.err[name] = max(self.err[name], e)
+
+    def line(self) -> dict:
+        return {k: {"cases": self.cases[k], "max_abs_err": self.err[k]}
+                for k in KERNELS}
+
+
+def fuzz_pair(case, affine: bool, dev, tally: FuzzTally, rng) -> None:
+    """One pair through every single-pair kernel of its kind: the band fill
+    on a band of garbage, its walk, the score-only fill on a ring of
+    garbage, the checkpointed fill, every block and block walk, and the
+    split on uneven shards over both routes."""
+    n, m, S = case.n, case.m, case.max_shift
+    params, what = case.params(affine), case.tag()
+    mu1, mu2 = case.tables()
+    t1, t2 = tables_to_torch(mu1, mu2, dev)
+    kind = "affine" if affine else "nonaffine"
+    W = 2 * S + 1
+    cells = ((9,) if affine else ()) + (W, W)
+    fill, fill_plain = ((cuda_dp.fill_affine_device, cuda_dp.fill_affine_plain)
+                        if affine else (cuda_dp.fill_nonaffine_device,
+                                        cuda_dp.fill_nonaffine_plain))
+    bp = fill_plain(t1, t2, S, *params)
+    junk = garbage_band(tuple(bp.ys.shape), dev)
+    bk = fill(t1, t2, S, *params, band=junk.clone())
+    live = live_rows(n, m, bp.ys.dim(), dev)
+    tally.add(f"fill_{kind}", tensor_err(bk.ys, torch.where(live, bp.ys,
+                                                            junk)), what)
+    check(bk.final_score() == bp.final_score(), f"fuzz score [{what}]")
+    if affine:
+        walked = dtb.affine_traceback(bk, *params, t1, t2)
+        tp, cp = dtb.affine_traceback_plain(bp, *params, t1, t2)
+        e = max(trace_err(walked[0], tp), int(walked[1] != cp))
+    else:
+        walked = dtb.nonaffine_traceback(bk, *params, t1, t2)
+        e = trace_err(walked, dtb.nonaffine_traceback_plain(bp, *params, t1,
+                                                            t2))
+    tally.add(f"walk_{kind}", e, what)
+
+    last = (cuda_dp.affine_last_slab if affine else
+            cuda_dp.nonaffine_last_slab)(
+        t1, t2, S, *params, ring=garbage_ring(rng, (3, *cells, n + 1), dev))
+    tally.add(f"score_{kind}", row_err(last, bp.ys[n + m], n), what)
+
+    (ck_fill, ck_plain, block, block_plain, bwalk, bwalk_plain, traceback,
+     _costs, (ck_name, block_name, walk_name)) = lowmem_forms(affine)
+    D = n + m + 1
+    C = ckp.default_block(D)
+    if case.seed % 2:                 # another block size around it
+        C = int(rng.integers(max(C // 2, 1), 2 * C + 5))
+    NB = (n + m) // C + 1
+    ring = garbage_band((3, *cells, n + 1), dev)
+    ckpts = garbage_band((NB, 2, *cells, n + 1), dev)
+    cb = ck_fill(t1, t2, S, *params, block=C, ring=ring.clone(),
+                 ckpts=ckpts.clone())
+    twin = ck_plain(t1, t2, S, *params, block=C, ring=ring, ckpts=ckpts)
+    tally.add(ck_name, max(tensor_err(cb.ckpts, twin.ckpts),
+                           tensor_err(cb.final, twin.final)), what)
+    walk_k, walk_p = ckp.new_walk(cb), ckp.new_walk(cb, "cpu")
+    twinned = {0, NB // 2, NB - 1}
+    for b in range(NB - 1, -1, -1):
+        junk = garbage_band(cb.window_shape, dev)
+        window = block(cb, b, window=junk.clone())
+        e = tensor_err(window, window_from_band(cb, b, bp, junk))
+        if b in twinned:
+            e = max(e, tensor_err(window, block_plain(cb, b, window=junk)))
+        tally.add(block_name, e, f"{what} C={C} block {b}")
+        bwalk(cb, b, window, walk_k)
+        bwalk_plain(cb, b, window, walk_p)
+        tally.add(walk_name, tensor_err(walk_k.cpu(), walk_p),
+                  f"{what} C={C} block {b}")
+    check(traceback(cb, *params) == walked,
+          f"fuzz blockwise traceback [{what}] C={C}")
+
+    K = int(rng.choice([k for k in FUZZ_SPLIT_KS if k <= n + 1]))
+    rows = fuzz_generator().uneven_rows(rng, n, K)
+    shards = ssp.make_shards(mu1, mu2, mesh_places(K), rows=rows)
+    routes = SPLIT_ROUTES if n + 1 <= 64 else SPLIT_ROUTES[:2]
+    errs, rings, _ck, _ms = split_against_twins(
+        shards, S, params, affine, C, sorted({0, NB - 1}), routes=routes)
+    for (route, cta_rows), err in errs.items():
+        tail = rings[route, cta_rows][-1][(n + m) % 3][
+            ..., n - shards[-1].a + 1]
+        e_row = tensor_err(tail.to(dev), bp.ys[n + m][..., n])
+        for name, x in zip(split_forms(affine, route)[-1],
+                           (max(err[0], e_row), *err[1:])):
+            tally.add(name, x, f"{what} rows {rows} a CTA's {cta_rows}")
+
+
+def fuzz_ms0(n: int, m: int, costs, tables, dev, tally: FuzzTally, rng,
+             what: str) -> None:
+    """K3 on its own route and every forced one, from one ring of garbage:
+    each ring equal to the twin's in every cell."""
+    t1, t2 = tables_to_torch(*tables, dev)
+    junk = garbage_ring(rng, (3, 3, n + 1), dev)
+    twin = junk.clone()
+    cuda_dp.affine_ms0_last_slab_plain(t1, t2, *costs, ring=twin)
+    own = cuda_dp.batch_route(n, 0, True, B=1)
+    names = {"cta": "score_affine_ms0", "grid": "score_affine_ms0_grid",
+             "resident": "score_affine_ms0_resident"}
+    forms = [(None, {}), ("resident", {}), ("grid", {})]
+    if cuda_dp.cta_fits(n, 0, True):
+        forms.append(("cta", {}))
+    if -(-(n + 1) // 3) <= 4 * 32:
+        forms.append(("resident", dict(ctas=3, threads=32)))
+    for route, kw in forms:
+        ring = junk.clone()
+        cuda_dp.affine_ms0_last_slab(t1, t2, *costs, ring=ring, route=route,
+                                     **kw)
+        tally.add(names[route or own], tensor_err(ring, twin),
+                  f"{what} route {route or own} {kw}")
+
+
+def fuzz_bucket(case, affine: bool, dev, tally: FuzzTally, rng) -> None:
+    """A bucket of mixed lengths (the case's n and m its size) through K4/K5
+    ("grid"), K8 on one and three lanes, K6/K7 ("cta") where a pair fits
+    one CTA, all on rings of garbage, then K4/K5 in band mode on a band of
+    garbage and the batch walks."""
+    N, M, S = max(case.n, 1), max(case.m, 1), case.max_shift
+    params, what = case.params(affine), case.tag()
+    F = fuzz_generator()
+    B = int(rng.integers(2, 9))
+    lengths = F.mixed_bucket(rng, N, M, B)
+    tables = [F.draw_tables(rng, n, m, case.table_kind, case.costs)
+              for n, m in lengths]
+    stacks = tuple(torch.from_numpy(a).to(dev) for a in (
+        pbatch.stack_padded([t[0] for t in tables], N, M),
+        pbatch.stack_padded([t[1] for t in tables], N, M),
+        np.asarray([n for n, _m in lengths], np.int32),
+        np.asarray([m for _n, m in lengths], np.int32)))
+    W = 2 * S + 1
+    kind = "affine" if affine else "nonaffine"
+    cells = ((9,) if affine else ()) + (W, W)
+    (kern, plain, conveyor_plain) = (
+        (cuda_dp.affine_batch_scores, cuda_dp.affine_batch_scores_plain,
+         cuda_dp.affine_conveyor_scores_plain) if affine else
+        (cuda_dp.nonaffine_batch_scores, cuda_dp.nonaffine_batch_scores_plain,
+         cuda_dp.nonaffine_conveyor_scores_plain))
+    want = plain(*stacks, S, *params)
+    got = kern(*stacks, S, *params, route="grid",
+               ring=garbage_ring(rng, (B, 3, *cells, N + 1), dev))
+    tally.add(f"batch_{kind}", score_err(got, want), what)
+    for lanes in sorted({1, min(3, B)}):
+        belt = kern(*stacks, S, *params, route="conveyor", lanes=lanes,
+                    ring=garbage_ring(rng, (lanes, 3, *cells, N + 1), dev))
+        e = score_err(belt, want)
+        if conveyor_steps(B, M, lanes, N + M) <= CONVEYOR_TWIN_STEPS:
+            e = max(e, score_err(belt, conveyor_plain(*stacks, S, *params,
+                                                      lanes=lanes)))
+        tally.add("conveyor_scores", e, f"{what} lanes {lanes}")
+    if cuda_dp.cta_fits(N, S, affine):
+        ms0 = affine and S == 0
+        if ms0:
+            def ring_twin(mu1, mu2, ring):
+                cuda_dp.affine_ms0_last_slab_plain(mu1, mu2, *params,
+                                                   ring=ring)
+        else:
+            last_plain = (cuda_dp.affine_last_slab_plain if affine
+                          else cuda_dp.nonaffine_last_slab_plain)
+
+            def ring_twin(mu1, mu2, ring):
+                last_plain(mu1, mu2, S, *params, ring=ring)
+        junk = garbage_ring(rng, (B, 3, *((3,) if ms0 else cells), N + 1),
+                            dev)
+        rings_want = cta_rings_want(stacks, junk, ring_twin)
+        for threads in (None, 64):
+            ring = junk.clone()
+            cta = kern(*stacks, S, *params, route="cta", ring=ring,
+                       threads=threads)
+            tally.add("cta_scores_ms0" if ms0 else "cta_scores",
+                      max(score_err(cta, want), tensor_err(ring, rings_want)),
+                      f"{what} threads {threads}")
+
+    fill, fill_plain, walk, walk_plain = (
+        (cuda_dp.affine_batch_bands, cuda_dp.affine_batch_bands_plain,
+         dtb.affine_walk_batch, dtb.affine_walk_batch_plain) if affine else
+        (cuda_dp.nonaffine_batch_bands, cuda_dp.nonaffine_batch_bands_plain,
+         dtb.nonaffine_walk_batch, dtb.nonaffine_walk_batch_plain))
+    d_max = max(n + m for n, m in lengths)
+    junk = garbage_band((B, d_max + 1, *cells, N + 1), dev)
+    bk, sk = fill(*stacks, S, *params, d_max=d_max, band=junk.clone())
+    bp, sp = fill_plain(*stacks, S, *params, d_max=d_max, band=junk)
+    tally.add(f"batch_fill_{kind}", max(batch_band_err(bk, bp),
+                                        score_err(sk, sp),
+                                        score_err(sk, want)), what)
+    e, _steps = walks_err(walk(bk, *params, *stacks[:2]),
+                          walk_plain(bp, *params, *stacks[:2]))
+    tally.add(f"walk_{kind}_batch", e, what)
+
+
+def fuzz_triplet(case, dev, tally: FuzzTally, rng) -> None:
+    """The triplet fill on every route that can hold the pair, each on
+    slabs of garbage: the twin's values on the domain, the garbage kept
+    elsewhere; a forced "shared" beyond it must raise."""
+    n, m, S = case.n, case.m, case.max_shift
+    gamma, delta = case.params(False)
+    mu1, mu2 = case.tables()
+    want = trip.fill_slabs(mu1, mu2, S, gamma, delta, device=dev)
+    forms = [dict(route="global"), dict(route="resident"),
+             dict(route="resident", ctas=3)]
+    if trip.triplet_route(n, S) == "shared":
+        forms.append(dict(route="shared"))
+    else:
+        try:
+            trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta, device=dev,
+                                 route="shared")
+            check(False, f"fuzz triplet [{case.tag()}]: a forced 'shared' "
+                  "that does not fit ran")
+        except ValueError:
+            pass
+    if trip.cluster_shape(n, S) is not None:
+        forms.append(dict(route="cluster"))
+    if trip.cluster_shape(n, S, 3) is not None:
+        forms.append(dict(route="cluster", cluster=3))
+    for kw in forms:
+        junk = garbage_band(tuple(want.shape), dev)
+        got = trip.fill_slabs_cuda(mu1, mu2, S, gamma, delta, device=dev,
+                                   ys=junk.clone(), **kw)
+        tally.add(f"triplet_fill_{kw['route']}",
+                  triplet_err(got, want, junk, n, m, S),
+                  f"{case.tag()} {kw}")
+
+
+def fuzz_dnapol(mol, dev, shifts) -> dict:
+    """The DNA-Pol-1 pair through BiAligner on the card at ``shifts``
+    against the twin's score on the card; at max_shift 3 also the golden.
+    Returns each max_shift's score and the seconds of both runs."""
+    out = {}
+    for S in shifts:
+        params = dict(DNAPOL_FULL, max_shift=S)
+        seconds, score, _lines, ba = run_e2e(mol, params)
+        t1, t2 = tables_to_torch(ba.mu1, ba.mu2, dev)
+        t = time.perf_counter()
+        twin = cuda_dp.affine_score_plain(t1, t2, S, ba.beta, ba.gamma,
+                                          ba.delta)
+        check(score == twin, f"fuzz DNA-Pol-1 max_shift {S}: {score} "
+              f"against the twin's {twin}")
+        if S == 3:
+            check(score == DNAPOL_MS3_SCORE, f"DNA-Pol-1 max_shift 3 golden: "
+                  f"{score} != {DNAPOL_MS3_SCORE}")
+        out[f"max_shift_{S}"] = dict(score=score, aligner_s=seconds,
+                                     twin_s=time.perf_counter() - t)
+        del ba, t1, t2
+    return out
+
+
+def fuzz_int64(dev, rng) -> int:
+    """Tables beyond the int32 certificate through BiAligner on the card:
+    a RuntimeWarning, the int64 engine's score, and no kernel launched."""
+    import warnings
+    ba = BiAligner(**TOY, type="Protein", simmatrix="BLOSUM62",
+                   gap_opening_cost=-150, gap_cost=-50, shift_cost=-150,
+                   max_shift=1)
+    n, m = ba.mu1.shape[0] - 1, ba.mu1.shape[1] - 1
+    ba.mu1, ba.mu2 = fuzz_generator().int32_outside_tables(rng, n, m)
+    before = counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        score = ba.optimize()
+        ba.traceback()
+    check(any("int64" in str(w.message) for w in caught),
+          "tables beyond the int32 certificate: no int64 warning")
+    check(counts() == before, "tables beyond the int32 certificate "
+          "reached a kernel")
+    want = cuda_dp.fill_affine_plain(
+        *(torch.from_numpy(mu.astype(np.int64)) for mu in (ba.mu1, ba.mu2)),
+        1, ba.beta, ba.gamma, ba.delta, dtype=torch.int64).final_score()
+    check(score == want, f"int64 engine {score} != {want}")
+    return score
+
+
+def phase_fuzz(dev, seconds: float) -> tuple[dict, dict]:
+    """The fuzz phase; returns (the fuzz line's dict, a summary with each
+    kind's seconds and the slowest cases)."""
+    F, tally = fuzz_generator(), FuzzTally()
+    rng = np.random.default_rng(SEED + 17)
+    t0 = time.perf_counter()
+    rows = {True: lambda S: cuda_dp.tile_rows(S, True),
+            False: lambda S: cuda_dp.tile_rows(S, False)}
+    ran, by_kind = [], {}
+
+    def run(kind: str, tag: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t
+        ran.append((round(dt, 2), kind, tag))
+        by_kind[kind] = by_kind.get(kind, 0.0) + dt
+        return out
+
+    def pair(case):
+        run("pair", case.tag(), fuzz_pair, case, case.family == "affine",
+            dev, tally, rng)
+
+    def bucket(case):
+        run("bucket", case.tag(), fuzz_bucket, case, case.family == "affine",
+            dev, tally, rng)
+
+    def triplet(case):
+        run("triplet", case.tag(), fuzz_triplet, case, dev, tally, rng)
+
+    def ms0(case, n, m, tables):
+        run("ms0", f"{case.tag()} at n={n} m={m}", fuzz_ms0, n, m,
+            case.costs, tables, dev, tally, rng, case.tag())
+
+    # round 0's own cases: each family at its limit on a toy shape, the
+    # triplet on both sides of its boundary, K7, K3 across its 1024 rows
+    for case in (F.at_limit("affine", 0), F.at_limit("nonaffine", 1),
+                 F.at_limit("affine", 2, max_len=12, max_shift=5),
+                 F.at_limit("nonaffine", 3, max_len=12, max_shift=16)):
+        pair(case)
+    for case in (F.at_limit("triplet", 0, max_len=40),
+                 F.at_limit("triplet", 1, max_len=120,
+                            max_shift=F.TRIPLET_STATIC_SHIFTS),
+                 F.at_limit("triplet", 2, max_len=120,
+                            max_shift=F.TRIPLET_STATIC_SHIFTS + 1)):
+        triplet(case)
+    bucket(F.at_limit("affine", 4, max_len=40, max_shift=0))
+    for k, n in enumerate(range(F.MS0_RESIDENT_ROWS - 2,
+                                F.MS0_RESIDENT_ROWS + 1)):
+        case = F.draw("ms0", 100 + k, max_len=FUZZ_MAX_LEN)
+        m = max(case.m, 1)
+        ms0(case, n, m, F.draw_tables(rng, n, m, case.table_kind,
+                                      case.costs))
+    dnapol = run("dnapol", "DNA-Pol-1", fuzz_dnapol, dnapol_pair(), dev,
+                 FUZZ_DNAPOL_SHIFTS)
+    int64_score = run("int64", "toy protein", fuzz_int64, dev, rng)
+    rounds = 0
+    while rounds == 0 or time.perf_counter() - t0 < seconds:
+        r = rounds
+        max_len = FUZZ_MAX_LEN if r % 2 == 0 else 40
+        # round 0 at max_shift <= 4 (its own cases reach the limits), then
+        # up to the limits one round in three
+        def wide(family: str, k: int) -> int:
+            return F.LIMITS[family] if r and r % 3 == k else 4
+        for family in ("affine", "nonaffine"):
+            pair(F.draw(family, r, max_len=max_len,
+                        max_shift=wide(family, 1), cells=FUZZ_CELLS,
+                        rows=rows[family == "affine"]))
+            bucket(F.draw(family, 1000 + r, max_len=max_len // 2,
+                          max_shift=wide(family, 2), cells=FUZZ_CELLS // 16,
+                          rows=rows[family == "affine"]))
+        case = F.draw("ms0", r, max_len=max_len)
+        ms0(case, case.n, case.m, case.tables())
+        triplet(F.draw("triplet", r, max_len=max_len,
+                       max_shift=wide("triplet", 0),
+                       cells=FUZZ_CELLS))
+        rounds += 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # its largest bands, for later phases
+    missing = [k for k, v in tally.cases.items() if v == 0]
+    check(not missing, f"fuzz: kernels without a case: {missing}")
+    return tally.line(), dict(
+        rounds=rounds, cases=len(ran), seconds=time.perf_counter() - t0,
+        seconds_by_kind=by_kind, slowest=sorted(ran, reverse=True)[:10],
+        dnapol=dnapol, int64_score=int64_score)
+
+
+EXAMPLE_PAIRS = 32          # one chunk of examples/batch_streaming_torch.py
+EXAMPLE_SPOOL = ROOT / "build" / "examples" / "scores.jsonl"
+
+
+def start_examples() -> dict:
+    """The port's three examples (examples/*_torch.py, their defaults: the
+    CUDA kernels), each started in a process of its own: the README
+    walkthrough, the DNA-Pol-1 pipeline (no plot: the card's machine has
+    no matplotlib) and a stream of EXAMPLE_PAIRS pairs."""
+    EXAMPLE_SPOOL.parent.mkdir(parents=True, exist_ok=True)
+    EXAMPLE_SPOOL.unlink(missing_ok=True)
+    runs = {"readme_walkthrough_torch.py": (),
+            "dnapol_pipeline_torch.py": (),
+            "batch_streaming_torch.py": (str(EXAMPLE_PAIRS), "--spool",
+                                         str(EXAMPLE_SPOOL))}
+    return {script: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / script), *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for script, args in runs.items()}
+
+
+def phase_examples(dev, started: dict) -> dict:
+    """The examples of :func:`start_examples`, waited for and checked: the
+    README walkthrough's SCORE 6800 and 48500 (each asserted by the example)
+    and its lines equal to the goldens'; the DNA-Pol-1 pipeline's 761500;
+    the stream's spool equal to the plain twins' stream over the same pairs
+    on the card."""
+    found, out = {}, {}
+    for script, (t0, proc) in started.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"{script}: {stderr[-2000:]}")
+        found[script] = {"seconds": time.perf_counter() - t0}
+        out[script] = stdout.splitlines()
+
+    G = load_golden()
+    lines = out["readme_walkthrough_torch.py"]
+    gap = lines.index("")
+    check(lines[0] == "SCORE: 6800" and lines[gap + 1] == "SCORE: 48500",
+          f"readme walkthrough scores {lines[0]!r} {lines[gap + 1]!r}")
+    check(lines[1:gap] == list(G.TOY_RNA_AFFINE_DEFAULT_OUT)
+          and lines[gap + 2:] == list(G.TOY_PROTEIN_SORTED_OUT),
+          "readme walkthrough: its lines differ from the goldens")
+    lines = out["dnapol_pipeline_torch.py"]
+    check(lines[0].startswith("SCORE: 761500 "), lines[0])
+    found["dnapol_pipeline_torch.py"]["first_line"] = lines[0]
+    found["batch_streaming_torch.py"]["devices"] = \
+        out["batch_streaming_torch.py"][0]
+    spec = importlib.util.spec_from_file_location(
+        "batch_streaming_torch", ROOT / "examples" / "batch_streaming_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    twin = StreamingAligner(example.PARAMS, chunk_pairs=32, engine="torch",
+                            device=dev)
+    want = dict(twin.run(example.records(EXAMPLE_PAIRS)))
+    got = {r["id"]: r["score"] for r in read_spool(EXAMPLE_SPOOL)}
+    check(got == want, "batch streaming example: its spool differs from the "
+          "plain twins' stream")
+    found["batch_streaming_torch.py"]["pairs"] = len(got)
+    return found
+
+
+FUZZ_LOG = ROOT / "build" / "fuzz"
+
+
+def start_fuzz() -> subprocess.Popen:
+    """The fuzz phase in a process of its own (--fuzz-only), beside phase 3:
+    both hold kernels to twins, whose launches leave the card mostly idle,
+    and the process's launches are not this one's counts.  Its output goes
+    to files (a pipe nobody reads until phase 3 ends would stop it)."""
+    FUZZ_LOG.mkdir(parents=True, exist_ok=True)
+    with open(FUZZ_LOG / "stdout.txt", "w") as out, \
+            open(FUZZ_LOG / "stderr.txt", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--fuzz-only",
+             "--fuzz-seconds", str(FUZZ_SECONDS)], cwd=ROOT, stdout=out,
+            stderr=err, text=True)
+
+
+def fuzz_of(proc) -> tuple[dict, dict]:
+    """The fuzz line's dict and the summary of the process of
+    :func:`start_fuzz`, once it has ended; fails where it failed."""
+    proc.wait(timeout=1200)
+    stderr = (FUZZ_LOG / "stderr.txt").read_text()
+    check(proc.returncode == 0, f"the fuzz phase: exit {proc.returncode}: "
+          f"{stderr[-3000:]}")
+    lines = (FUZZ_LOG / "stdout.txt").read_text().splitlines()
+    summary = next(ln for ln in lines if ln.startswith("[3 fuzz] "))
+    return (json.loads(lines[-1])["fuzz"],
+            json.loads(summary[len("[3 fuzz] "):]))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -5002,6 +5512,15 @@ def main() -> int:
         "against one device, both routes' times (on a host of several "
         "cards the shards lie on distinct cards, through peer memory)")
     parser.add_argument(
+        "--fuzz-only", action="store_true",
+        help="build, then only the fuzz phase: every kernel against its "
+        "twin on the seeded cases of tests/torch_fuzz_cases.py, and its "
+        "fuzz line")
+    parser.add_argument(
+        "--fuzz-seconds", type=float, default=FUZZ_SECONDS,
+        help="seconds after which the fuzz phase starts no new round "
+        f"(default {FUZZ_SECONDS}; round 0 always runs whole)")
+    parser.add_argument(
         "--fills-only", action="store_true",
         help="build, then only time the single-pair fills, score-only fills "
         "and walks at the DNA-Pol-1 shapes against their twins (phase 5's "
@@ -5035,7 +5554,9 @@ def main() -> int:
         count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    report = _build.build()
+    # a library newer than every source is this checkout's (the fuzz
+    # phase's process, started by the whole script once it has built)
+    report = _build.build() if _build.stale() else ""
     _build.load()
     resources = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -5067,6 +5588,11 @@ def main() -> int:
         say("8 stress", nvidia_smi=smi, **phase_profile_stress(
             dnapol_pair(), ROOT / "build" / "profile" / "stress",
             in_process=True))
+        return 0
+    if args.fuzz_only:
+        fuzz, summary = phase_fuzz(dev, args.fuzz_seconds)
+        say("3 fuzz", nvidia_smi=smi, **summary)
+        print(json.dumps({"fuzz": fuzz}))
         return 0
     errs = dict.fromkeys(KERNELS, 0)
     if args.resident_only:
@@ -5133,10 +5659,17 @@ def main() -> int:
                 "bound_by": bounds[k][1]} for k, v in times.items()},
             details=more, max_abs_err=errs)
         return 0
-    phase_kernels(dev, errs)
     if args.kernels_only:
+        phase_kernels(dev, errs)
         say("stopped after phase 3 (--kernels-only)")
         return 0
+    # the fuzz phase and the examples in processes of their own, while
+    # phase 3 runs: all are checks, none is timed against the others
+    fuzz_proc, examples = start_fuzz(), start_examples()
+    phase_kernels(dev, errs)
+    fuzz, summary = fuzz_of(fuzz_proc)
+    say("3 fuzz", **summary)
+    say("5 examples", nvidia_smi=smi, **phase_examples(dev, examples))
 
     G = load_golden()
     mol = dnapol_pair()
@@ -5245,6 +5778,7 @@ def main() -> int:
     say("8 stress", nvidia_smi=smi, **phase_profile_stress(
         mol, out / "stress", in_process=False))
 
+    print(json.dumps({"fuzz": fuzz}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

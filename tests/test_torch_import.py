@@ -17,8 +17,13 @@ from bialign_tpu_torch.data import dnapol_pair
 ROOT = Path(__file__).resolve().parents[1]
 
 
+# the files that run where there is no JAX: the port, chip_smoke.py and the
+# fuzz cases it reads, the port's examples and the probes of tools/
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 PORT_FILES = sorted((ROOT / "bialign_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_fuzz_cases.py",
+    *EXAMPLES, ROOT / "tools" / "seqsplit_probe.py",
+    ROOT / "tools" / "triplet_probe.py"]
 FORBIDDEN = {"jax", "jaxlib", "bialign_tpu"}
 
 
@@ -130,3 +135,15 @@ def test_chip_smoke_imports_only_the_port():
     tops = _imported_tops(ROOT / "chip_smoke.py")
     assert "jax" not in tops and "bialign_tpu" not in tops, sorted(tops)
     assert "bialign_tpu_torch" in tops
+
+
+def test_examples_and_fuzz_cases_import_what_the_cards_machine_has():
+    """The port's examples import the port, torch, numpy and the standard
+    library; the fuzz cases numpy and the standard library alone."""
+    assert len(EXAMPLES) == 3, EXAMPLES
+    allowed = set(sys.stdlib_module_names)
+    for path in EXAMPLES:
+        assert _imported_tops(path) <= allowed | {"bialign_tpu_torch",
+                                                  "torch", "numpy"}, path
+    assert _imported_tops(ROOT / "tests" / "torch_fuzz_cases.py") <= \
+        allowed | {"numpy"}
