@@ -22,6 +22,14 @@ Engines (``engine=``; the device is explicit, ``device=``):
   device; raises otherwise.
 * ``"torch"``: the plain PyTorch twins of the kernels, on any device.
 
+The stages are timed in spans (:mod:`bialign_tpu_torch.utils.profiling`):
+``pair.setup`` (the constructor: ``pair.molecules``, ``pair.tables``),
+``pair.fill`` (``optimize()``: ``pair.check``, the int32 check;
+``pair.upload``, the tables to the device; ``pair.launch``, the fill's call,
+which queues its kernels; ``pair.score``, the final score, which waits for
+the device), ``pair.walk`` (``traceback()``) and ``pair.decode``
+(``decode_trace()``).
+
 Tables and costs that fail the int32 check
 (:func:`~bialign_tpu_torch.ops.cases.check_int32_safe`) take the int64
 engine whichever engine was asked for, with a ``RuntimeWarning``, as the
@@ -50,6 +58,7 @@ from .ops.cases import (
 )
 from .render import decode as render_decode
 from .scoring.tables import build_score_tables
+from .utils.profiling import span
 
 ENGINES = ("cuda", "torch")
 
@@ -105,20 +114,26 @@ class BiAligner:
         self._params = dict(PARAM_DEFAULTS)
         self._params.update(params)
 
-        try:
-            self.molA = preprocess_molecule(seqA, strA, is_rna=self._is_rna)
-            self.molB = preprocess_molecule(seqB, strB, is_rna=self._is_rna)
-        except MoleculeError as e:
-            self.error(str(e))
+        # the constructor's work: molecules and score tables
+        with span("pair.setup"):
+            try:
+                with span("pair.molecules"):
+                    self.molA = preprocess_molecule(seqA, strA,
+                                                    is_rna=self._is_rna)
+                    self.molB = preprocess_molecule(seqB, strB,
+                                                    is_rna=self._is_rna)
+            except MoleculeError as e:
+                self.error(str(e))
 
-        self.gamma = int(self._params["gap_cost"])
-        self.beta = int(self._params["gap_opening_cost"])
-        self.delta = int(self._params["shift_cost"])
-        self.max_shift = int(self._params["max_shift"])
+            self.gamma = int(self._params["gap_cost"])
+            self.beta = int(self._params["gap_opening_cost"])
+            self.delta = int(self._params["shift_cost"])
+            self.max_shift = int(self._params["max_shift"])
 
-        self.mu1, self.mu2 = build_score_tables(
-            self.molA, self.molB, self._params, is_rna=self._is_rna
-        )
+            with span("pair.tables"):
+                self.mu1, self.mu2 = build_score_tables(
+                    self.molA, self.molB, self._params, is_rna=self._is_rna
+                )
         self._band = None
         self._int64 = False     # the band is the int64 engine's
 
@@ -148,7 +163,9 @@ class BiAligner:
     def _fill(self):
         costs = ((self.beta, self.gamma, self.delta) if self._affine
                  else (self.gamma, self.delta))
-        if not check_int32_safe(self.mu1, self.mu2, self._params):
+        with span("pair.check"):
+            safe = check_int32_safe(self.mu1, self.mu2, self._params)
+        if not safe:
             # the int32 range cannot be certified: the int64 engine, as the
             # JAX package's aligner runs its int64 XLA fill
             warnings.warn(
@@ -156,29 +173,35 @@ class BiAligner:
                 "the int64 engine (the plain PyTorch recurrence at int64 on "
                 f"{self.device}, slower than the int32 kernels)",
                 RuntimeWarning, stacklevel=3)
-            mu1, mu2 = (torch.from_numpy(np.ascontiguousarray(mu, np.int64))
-                        .to(self.device) for mu in (self.mu1, self.mu2))
+            with span("pair.upload"):
+                mu1, mu2 = (
+                    torch.from_numpy(np.ascontiguousarray(mu, np.int64))
+                    .to(self.device) for mu in (self.mu1, self.mu2))
             self._mu1_t, self._mu2_t = mu1, mu2
             fill = (cuda_dp.fill_affine_plain if self._affine
                     else cuda_dp.fill_nonaffine_plain)
-            self._band = fill(mu1, mu2, self.max_shift, *costs,
-                              dtype=torch.int64)
+            with span("pair.launch"):
+                self._band = fill(mu1, mu2, self.max_shift, *costs,
+                                  dtype=torch.int64)
             self._int64 = True
             return
         if self._params.get("seqsplit_mesh") is not None:
             from .parallel.seqsplit import fill_seqsplit
 
-            self._band = fill_seqsplit(
-                self.mu1, self.mu2, self.max_shift, costs,
-                mesh=self._params["seqsplit_mesh"],
-                axis=self._params.get("seqsplit_axis", "sp"),
-                affine=self._affine,
-                block=self._params.get("checkpoint_block") or None,
-                engine=self._engine,
-                route=self._params.get("seqsplit_route"))
+            # the split puts the tables on its devices itself
+            with span("pair.launch"):
+                self._band = fill_seqsplit(
+                    self.mu1, self.mu2, self.max_shift, costs,
+                    mesh=self._params["seqsplit_mesh"],
+                    axis=self._params.get("seqsplit_axis", "sp"),
+                    affine=self._affine,
+                    block=self._params.get("checkpoint_block") or None,
+                    engine=self._engine,
+                    route=self._params.get("seqsplit_route"))
             self._mu1_t, self._mu2_t = self._band.mu1, self._band.mu2
             return
-        mu1, mu2 = tables_to_torch(self.mu1, self.mu2, self.device)
+        with span("pair.upload"):
+            mu1, mu2 = tables_to_torch(self.mu1, self.mu2, self.device)
         self._mu1_t, self._mu2_t = mu1, mu2
         cuda = self._engine == "cuda"
         more = {}
@@ -195,36 +218,41 @@ class BiAligner:
                      (cuda_dp.fill_nonaffine_device,
                       cuda_dp.fill_nonaffine_plain))
         fill = fills[0 if self._affine else 1][0 if cuda else 1]
-        self._band = fill(mu1, mu2, self.max_shift, *costs, **more)
+        with span("pair.launch"):
+            self._band = fill(mu1, mu2, self.max_shift, *costs, **more)
 
     def optimize(self) -> int:
         """Fill the DP band; return the optimal score (pyx:443-509)."""
-        self._fill()
-        return self._band.final_score()
+        with span("pair.fill"):
+            self._fill()
+            with span("pair.score"):
+                return self._band.final_score()
 
     def traceback(self):
         """Trace columns of one optimal alignment (pyx:513-586)."""
         if self._band is None:
             self.optimize()
-        # the CUDA walk reads int32 bands; the int64 engine's is walked on
-        # the host
-        cuda = self._engine == "cuda" and not self._int64
-        if isinstance(self._band, checkpoint_dp.CheckpointBand):
-            mod, tables = checkpoint_dp, ()     # the band holds its tables
-        else:
-            mod, tables = dtb, (self._mu1_t, self._mu2_t)
-        if self._affine:
-            walk = (mod.affine_traceback if cuda
-                    else mod.affine_traceback_plain)
-            trace, complete = walk(self._band, self.beta, self.gamma,
-                                   self.delta, *tables)
-            if not complete:
-                print("WARNING: incomplete traceback. "
-                      "Alignment could be garbage.")
-            return trace
-        walk = (mod.nonaffine_traceback if cuda
-                else mod.nonaffine_traceback_plain)
-        return walk(self._band, self.gamma, self.delta, *tables)
+        with span("pair.walk"):
+            # the CUDA walk reads int32 bands; the int64 engine's is walked
+            # on the host
+            cuda = self._engine == "cuda" and not self._int64
+            if isinstance(self._band, checkpoint_dp.CheckpointBand):
+                # the band holds its tables
+                mod, tables = checkpoint_dp, ()
+            else:
+                mod, tables = dtb, (self._mu1_t, self._mu2_t)
+            if self._affine:
+                walk = (mod.affine_traceback if cuda
+                        else mod.affine_traceback_plain)
+                trace, complete = walk(self._band, self.beta, self.gamma,
+                                       self.delta, *tables)
+                if not complete:
+                    print("WARNING: incomplete traceback. "
+                          "Alignment could be garbage.")
+                return trace
+            walk = (mod.nonaffine_traceback if cuda
+                    else mod.nonaffine_traceback_plain)
+            return walk(self._band, self.gamma, self.delta, *tables)
 
     def _band_cells(self, idxs):
         """Values of band cells (i, j, k, l), for the verbose replay; a
@@ -245,11 +273,12 @@ class BiAligner:
         )
 
     def decode_trace(self, trace=None):
-        return render_decode.decode_trace(
-            self.decode_trace_full(trace),
-            outmode=self._params.get("outmode") or "default",
-            nodescription=bool(self._params.get("nodescription")),
-        )
+        with span("pair.decode"):
+            return render_decode.decode_trace(
+                self.decode_trace_full(trace),
+                outmode=self._params.get("outmode") or "default",
+                nodescription=bool(self._params.get("nodescription")),
+            )
 
     # -- verbose evaluation (CLI -v; pyx:745-832) ---------------------------
 

@@ -31,6 +31,13 @@ bytes each, and the tables are built on the device from a 256 x 256 table
 ``engine="torch"`` runs their plain PyTorch twins on any device.  Neither
 gives way to the other.
 
+Each stage is timed in a span (:mod:`bialign_tpu_torch.utils.profiling`):
+``batch.pack`` (the int32 checks, bucketing, padded stacks), ``batch.upload``
+(pinning and queueing the copies), ``batch.planes`` (tables from codes),
+``batch.launch`` (queueing a bucket's or chunk's kernels), ``batch.wait``
+(the copy back, the host blocked on the device) and ``batch.unpack`` (the
+walks' codes decoded on the host).
+
 ``mesh=`` (a :class:`~bialign_tpu_torch.parallel.mesh.Mesh`; ``device`` is
 then not used) shards every bucket over the devices of its axis ``"data"``:
 the bucket's pairs are dealt out in contiguous shards, as even as they
@@ -51,6 +58,7 @@ import torch
 from ..ops import cuda_dp
 from ..ops import device_traceback as dtb
 from ..ops.cases import N_STATES
+from ..utils.profiling import span
 from .mesh import joined, mesh_devices, shard_stream, split, using
 
 ENGINES = ("cuda", "torch")
@@ -219,11 +227,13 @@ def _upload_tables(b: Bucket, device: torch.device,
                    rows: slice = slice(None)) -> tuple:
     """(mu1p, mu2p, ns, ms) of the pairs ``rows`` of a bucket of tables on
     ``device``."""
-    stacks = (stack_padded(b.mu1d[rows], b.N, b.M),
-              stack_padded(b.mu2d[rows], b.N, b.M),
-              np.asarray(b.n[rows], dtype=np.int32),
-              np.asarray(b.m[rows], dtype=np.int32))
-    return tuple(_to_device(x, device) for x in stacks)
+    with span("batch.pack"):
+        stacks = (stack_padded(b.mu1d[rows], b.N, b.M),
+                  stack_padded(b.mu2d[rows], b.N, b.M),
+                  np.asarray(b.n[rows], dtype=np.int32),
+                  np.asarray(b.m[rows], dtype=np.int32))
+    with span("batch.upload"):
+        return tuple(_to_device(x, device) for x in stacks)
 
 
 def _device_buckets(tables, bucket_quantum: int, device: torch.device):
@@ -237,8 +247,10 @@ def _shard_buckets(tables, bucket_quantum: int, places) -> list:
     """[(indices, (mu1p, mu2p, ns, ms), d_max, (device, stream))] per shard
     of each bucket, uploaded on its stream; d_max is the shard's largest
     n + m, its last diagonal.  Queue under ``joined(places)``."""
+    with span("batch.pack"):
+        buckets = make_buckets_dense(tables, bucket_quantum)
     out = []
-    for b in make_buckets_dense(tables, bucket_quantum).values():
+    for b in buckets.values():
         for rows, dev, stream in _shards_of(b, places):
             with using(stream):
                 out.append((b.indices[rows], _upload_tables(b, dev, rows),
@@ -250,13 +262,14 @@ def _bucket_scores(stacks, d_max: int, max_shift: int, params, affine: bool,
                    engine: str) -> torch.Tensor:
     """Queue one bucket's scores on its device; ``[B]`` int32, not waited
     for."""
-    if engine == "cuda":
-        fn = (cuda_dp.affine_batch_scores if affine
-              else cuda_dp.nonaffine_batch_scores)
-        return fn(*stacks, max_shift, *params, d_max=d_max)
-    fn = (cuda_dp.affine_batch_scores_plain if affine
-          else cuda_dp.nonaffine_batch_scores_plain)
-    return fn(*stacks, max_shift, *params)
+    with span("batch.launch"):
+        if engine == "cuda":
+            fn = (cuda_dp.affine_batch_scores if affine
+                  else cuda_dp.nonaffine_batch_scores)
+            return fn(*stacks, max_shift, *params, d_max=d_max)
+        fn = (cuda_dp.affine_batch_scores_plain if affine
+              else cuda_dp.nonaffine_batch_scores_plain)
+        return fn(*stacks, max_shift, *params)
 
 
 class PendingScores:
@@ -286,8 +299,9 @@ class PendingScores:
         # waits for the device (the shards of a mesh gathered on the first
         # one's device first)
         first = self._parts[0][1].device
-        fetched = torch.cat([dev.to(first) for _, dev in self._parts]) \
-            .cpu().numpy()
+        with span("batch.wait"):
+            fetched = torch.cat([dev.to(first) for _, dev in self._parts]) \
+                .cpu().numpy()
         order = np.concatenate([np.asarray(indices, dtype=np.int64)
                                 for indices, _ in self._parts])
         out[order] = fetched
@@ -305,7 +319,8 @@ def dispatch_score_batch(tables, max_shift: int, params, *, affine: bool,
     """
     places = _places(_resolve(engine, device, mesh), mesh)
     tables = list(tables)
-    _require_int32_safe(tables, params, affine)
+    with span("batch.pack"):
+        _require_int32_safe(tables, params, affine)
     with joined(places):
         parts = _dispatch_scores(
             _shard_buckets(tables, bucket_quantum, places), max_shift,
@@ -376,8 +391,9 @@ def _fill_walk(stacks, d_max: int, max_shift: int, params, affine: bool,
                 else cuda_dp.nonaffine_batch_bands_plain)
         walk = (dtb.affine_walk_batch_plain if affine
                 else dtb.nonaffine_walk_batch_plain)
-    bband, _scores = fill(*stacks, max_shift, *params, d_max=d_max)
-    return walk(bband, *params, mu1p, mu2p)
+    with span("batch.launch"):
+        bband, _scores = fill(*stacks, max_shift, *params, d_max=d_max)
+        return walk(bband, *params, mu1p, mu2p)
 
 
 class PendingAlignments:
@@ -402,19 +418,22 @@ class PendingAlignments:
             return scores, traces, complete
         # one copy back for all chunks (see PendingScores.get)
         first = self._parts[0][2].device
-        flat = torch.cat([dev.reshape(-1).to(first)
-                          for _, _, dev in self._parts]).cpu().numpy()
+        with span("batch.wait"):
+            flat = torch.cat([dev.reshape(-1).to(first)
+                              for _, _, dev in self._parts]).cpu().numpy()
         at = 0
-        for idxs, affine, dev in self._parts:
-            walks = dtb.unpack_walks(
-                flat[at:at + dev.numel()].reshape(dev.shape))
-            at += dev.numel()
-            for idx, (codes, done, score) in zip(idxs, walks):
-                traces[idx] = dtb.decode_codes(codes)
-                scores[idx] = score
-                # a non-affine walk has no such flag: it always completes
-                if affine:
-                    complete[idx] = done == 1
+        with span("batch.unpack"):
+            for idxs, affine, dev in self._parts:
+                walks = dtb.unpack_walks(
+                    flat[at:at + dev.numel()].reshape(dev.shape))
+                at += dev.numel()
+                for idx, (codes, done, score) in zip(idxs, walks):
+                    traces[idx] = dtb.decode_codes(codes)
+                    scores[idx] = score
+                    # a non-affine walk has no such flag: it always
+                    # completes
+                    if affine:
+                        complete[idx] = done == 1
         return scores, traces, complete
 
 
@@ -470,11 +489,13 @@ def dispatch_align_batch(tables, max_shift: int, params, *, affine: bool,
     chunks per bucket from the band-memory budget (:func:`_auto_chunk`)."""
     places = _places(_resolve(engine, device, mesh), mesh)
     tables = list(tables)
-    _require_int32_safe(tables, params, affine)
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be at least 1, got {chunk}")
+    with span("batch.pack"):
+        _require_int32_safe(tables, params, affine)
+        buckets = make_buckets_dense(tables, bucket_quantum)
     parts = _dispatch_chunks(
-        make_buckets_dense(tables, bucket_quantum), _upload_tables,
+        buckets, _upload_tables,
         lambda stacks, rows, _dev: tuple(t[rows] for t in stacks), places,
         max_shift, tuple(params), affine, chunk, engine)
     return PendingAlignments(len(tables), parts)
@@ -608,10 +629,11 @@ def _upload_codes(b: Bucket, device: torch.device,
                   rows: slice = slice(None)) -> tuple:
     """(ca, cb, sa, sb, ns, ms) of the pairs ``rows`` of a bucket of codes
     on ``device``."""
-    arrays = (*(stack[rows] for stack in b.mu1d),
-              np.asarray(b.n[rows], dtype=np.int32),
-              np.asarray(b.m[rows], dtype=np.int32))
-    return tuple(_to_device(x, device) for x in arrays)
+    with span("batch.upload"):
+        arrays = (*(stack[rows] for stack in b.mu1d),
+                  np.asarray(b.n[rows], dtype=np.int32),
+                  np.asarray(b.m[rows], dtype=np.int32))
+        return tuple(_to_device(x, device) for x in arrays)
 
 
 def _device_lut(lut, device: torch.device, devices=()) -> torch.Tensor:
@@ -641,16 +663,20 @@ def _codes_setup(pairs, max_shift, params, affine, lut, structure_weight,
     there once."""
     devices = _resolve(engine, device, mesh)
     pairs = list(pairs)
-    buckets = _code_buckets(pairs, bucket_quantum)
-    _require_int32_safe_codes(lut, structure_weight, buckets, params, affine)
+    with span("batch.pack"):
+        buckets = _code_buckets(pairs, bucket_quantum)
+        _require_int32_safe_codes(lut, structure_weight, buckets, params,
+                                  affine)
     # the table on each device once a call
-    luts = {dev: _device_lut(lut, dev, devices) for dev in devices}
+    with span("batch.upload"):
+        luts = {dev: _device_lut(lut, dev, devices) for dev in devices}
     sw = int(structure_weight)
 
     def planes(codes, rows, dev):
-        ca, cb, sa, sb, ns, ms = (t[rows] for t in codes)
-        mu1p, mu2p = cuda_dp.mu_planes_from_codes(luts[dev], ca, cb, sa, sb,
-                                                  ns, ms, sw)
+        with span("batch.planes"):
+            ca, cb, sa, sb, ns, ms = (t[rows] for t in codes)
+            mu1p, mu2p = cuda_dp.mu_planes_from_codes(
+                luts[dev], ca, cb, sa, sb, ns, ms, sw)
         return mu1p, mu2p, ns, ms
 
     return pairs, buckets, planes, _places(devices, mesh)
@@ -720,7 +746,8 @@ class PreparedBatch:
         self.device = devices[0]
         self._places = _places(devices, mesh)
         tables = list(tables)
-        _require_int32_safe(tables, params, affine)
+        with span("batch.pack"):
+            _require_int32_safe(tables, params, affine)
         self.max_shift = max_shift
         self.params = tuple(params)
         self.affine = affine

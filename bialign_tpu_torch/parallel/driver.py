@@ -10,7 +10,9 @@ Counterpart of :mod:`bialign_tpu.parallel.driver`.  Design:
   fsync, so a crashed or preempted run resumes exactly where it stopped:
   on restart, already-spooled pair ids are skipped;
 * per-chunk structured stats (pairs/s, DP cells/s, bucket occupancy) via
-  :class:`bialign_tpu_torch.utils.profiling.RunStats`;
+  :class:`bialign_tpu_torch.utils.profiling.RunStats`, and each chunk's
+  stages timed in spans (``stream.dispatch`` and its ``stream.encode``,
+  ``stream.harvest``; :mod:`bialign_tpu_torch.utils.profiling`);
 * several processes: each consumes the pairs whose
   ``index % process_count == process_index`` (round-robin sharding of the
   stream on the host; a pair's DP is local to its device, so no collective
@@ -35,7 +37,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from dataclasses import dataclass
 from typing import Iterable, Iterator
 
@@ -44,7 +45,7 @@ import torch
 
 from ..models.molecule import preprocess_molecule
 from ..scoring.tables import build_score_tables
-from ..utils.profiling import RunStats, band_cells
+from ..utils.profiling import RunStats, band_cells, span
 from . import batch as pbatch
 
 
@@ -145,7 +146,8 @@ class StreamingAligner:
         self.codes = codes
         self.stats = RunStats()
         # host seconds of the chunks' dispatches (tables or codes, packing,
-        # queueing); the rest of a run is harvest and waiting
+        # queueing): the span stream.dispatch's; the rest of a run is
+        # harvest and waiting
         self.dispatch_seconds = 0.0
 
         self.max_shift = int(self.params["max_shift"])
@@ -245,18 +247,20 @@ class StreamingAligner:
         self.stats.start()
         chunk: list[PairRecord] = []
         pending = None
+        k = 0               # the chunk's ordinal in this run
         for idx, rec in enumerate(records):
             if not self.takes(idx, rec):
                 continue
             chunk.append(rec)
             if len(chunk) >= self.chunk_pairs:
-                dispatched = self._dispatch(chunk)
+                dispatched = self._dispatch(chunk, k)
                 if pending is not None:
                     yield from self._harvest(*pending)
                 pending = (chunk, dispatched)
                 chunk = []
+                k += 1
         if chunk:
-            dispatched = self._dispatch(chunk)
+            dispatched = self._dispatch(chunk, k)
             if pending is not None:
                 yield from self._harvest(*pending)
             pending = (chunk, dispatched)
@@ -264,64 +268,71 @@ class StreamingAligner:
             yield from self._harvest(*pending)
         self.stats.stop()
 
-    def _dispatch(self, chunk):
-        """Host side of a chunk: build tables (or encode codes), pack
-        buckets, LAUNCH the kernels; returns (pending handle, band
-        cells) without blocking.  Its host seconds add to
-        ``dispatch_seconds``."""
-        t0 = time.perf_counter()
+    def _dispatch(self, chunk, k):
+        """Host side of the chunk ``k`` of a run: build tables (or encode
+        codes), pack buckets, LAUNCH the kernels; returns (pending handle,
+        band cells, ``k``) without blocking.  Its span, ``stream.dispatch``,
+        adds its host seconds to ``dispatch_seconds``."""
         kw = dict(affine=self.affine, bucket_quantum=self.bucket_quantum,
                   engine=self.engine, device=self.device, mesh=self.mesh)
-        if self._codes_lut is not None:
-            pairs = [self._encode(r) for r in chunk]
-            dispatch = (pbatch.dispatch_align_batch_codes if self.alignments
-                        else pbatch.dispatch_score_batch_codes)
-            p = dispatch(pairs, self.max_shift, self.ptuple,
-                         lut=self._codes_lut, structure_weight=self._sw, **kw)
-            cells = sum(
-                band_cells(len(r.seqA), len(r.seqB), self.max_shift)
-                for r in chunk
-            )
-        else:
-            tables = [self._tables(r) for r in chunk]
-            dispatch = (pbatch.dispatch_align_batch if self.alignments
-                        else pbatch.dispatch_score_batch)
-            p = dispatch(tables, self.max_shift, self.ptuple, **kw)
-            cells = sum(
-                band_cells(t[0].shape[0] - 1, t[0].shape[1] - 1,
-                           self.max_shift)
-                for t in tables
-            )
-        self.dispatch_seconds += time.perf_counter() - t0
-        return p, cells
+        with span("stream.dispatch", chunk=k) as s:
+            if self._codes_lut is not None:
+                with span("stream.encode", chunk=k):
+                    pairs = [self._encode(r) for r in chunk]
+                dispatch = (pbatch.dispatch_align_batch_codes
+                            if self.alignments
+                            else pbatch.dispatch_score_batch_codes)
+                p = dispatch(pairs, self.max_shift, self.ptuple,
+                             lut=self._codes_lut, structure_weight=self._sw,
+                             **kw)
+                cells = sum(
+                    band_cells(len(r.seqA), len(r.seqB), self.max_shift)
+                    for r in chunk
+                )
+            else:
+                with span("stream.encode", chunk=k):
+                    tables = [self._tables(r) for r in chunk]
+                dispatch = (pbatch.dispatch_align_batch if self.alignments
+                            else pbatch.dispatch_score_batch)
+                p = dispatch(tables, self.max_shift, self.ptuple, **kw)
+                cells = sum(
+                    band_cells(t[0].shape[0] - 1, t[0].shape[1] - 1,
+                               self.max_shift)
+                    for t in tables
+                )
+        self.dispatch_seconds += s.seconds
+        return p, cells, k
 
     def _harvest(self, chunk, dispatched):
-        """Block on a dispatched chunk, spool it (one fsync), yield."""
-        p, cells = dispatched
-        if self.alignments:
-            scores, traces, complete = p.get()
-            if self.spool is not None:
-                self.spool.write_many(
-                    (rec.id, int(score),
-                     {"trace": trace_to_codes(traces[pos]),
-                      "complete": bool(complete[pos])})
-                    for pos, (rec, score) in enumerate(zip(chunk, scores))
-                )
+        """Block on a dispatched chunk, spool it (one fsync), yield its
+        results; the span ``stream.harvest`` closes before the first
+        yield."""
+        p, cells, k = dispatched
+        with span("stream.harvest", chunk=k):
+            if self.alignments:
+                scores, traces, complete = p.get()
+                if self.spool is not None:
+                    self.spool.write_many(
+                        (rec.id, int(score),
+                         {"trace": trace_to_codes(traces[pos]),
+                          "complete": bool(complete[pos])})
+                        for pos, (rec, score) in enumerate(zip(chunk,
+                                                               scores))
+                    )
+                out = [(rec.id, int(score), traces[pos])
+                       for pos, (rec, score) in enumerate(zip(chunk, scores))]
+            else:
+                scores = p.get()
+                if self.spool is not None:
+                    self.spool.write_many(
+                        (rec.id, int(score), None)
+                        for rec, score in zip(chunk, scores)
+                    )
+                out = [(rec.id, int(score))
+                       for rec, score in zip(chunk, scores)]
             self.stats.add_batch("chunk", len(chunk), cells,
                                  n_dispatches=p.n_dispatches)
-            for pos, (rec, score) in enumerate(zip(chunk, scores)):
-                yield rec.id, int(score), traces[pos]
-        else:
-            scores = p.get()
-            if self.spool is not None:
-                self.spool.write_many(
-                    (rec.id, int(score), None)
-                    for rec, score in zip(chunk, scores)
-                )
-            self.stats.add_batch("chunk", len(chunk), cells,
-                                 n_dispatches=p.n_dispatches)
-            for rec, score in zip(chunk, scores):
-                yield rec.id, int(score)
+        yield from out
 
 
 def trace_from_codes(codes) -> list:

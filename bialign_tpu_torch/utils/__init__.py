@@ -1,2 +1,2 @@
-"""Host utilities: run statistics and traces (:mod:`.profiling`) and kernel
+"""Host utilities: spans and run statistics (:mod:`.profiling`) and kernel
 warmup (:mod:`.warmup`)."""

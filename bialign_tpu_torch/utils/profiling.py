@@ -1,37 +1,120 @@
-"""Tracing and run statistics.
+"""Spans and run statistics.
 
-Counterpart of :mod:`bialign_tpu.utils.profiling`: a ``torch.profiler``
-trace wrapper for kernel-level inspection, and the structured-stats
-accumulator of the streaming driver (DP cells/s and pairs/s are the
-framework's first-class metrics).  ``band_cells`` and ``RunStats`` are
-copies of the originals.
+:class:`span` times a stage of the program where the work happens: the
+stream driver's chunks (``stream.*``), the batch layer's stages
+(``batch.*``) and the single-pair aligner's (``pair.*``).  Each span adds
+its host seconds and a count to one registry of the process, keyed by
+name, and its seconds to the child time of the span that encloses it on
+the same thread, so a stage's self time is its total less its child time.
+:func:`snapshot` and :func:`since` give the registry's deltas over a stretch
+of a run.  While a ``torch.profiler`` profile is active a span is also an
+annotation ``bialign.<name>`` on the profiler's host timeline, the clock of
+its device trace.  A span never waits for the device or allocates on it.
+
+``band_cells`` and ``RunStats`` (the structured-stats accumulator of the
+streaming driver) are copies of :mod:`bialign_tpu.utils.profiling`'s.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
-import os
+import threading
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import torch
+
+try:
+    # a host-side profiler annotation (a "cpu_op"): unlike record_function's
+    # user annotation, the profiler gives it no copy on the device timeline,
+    # where it would count as device work
+    from torch._C._profiler import _RecordFunctionFast as _Annotation
+except ImportError:      # a PyTorch without it: no annotation
+    _Annotation = None
+
+_profiling = torch.autograd._profiler_enabled
+
+_lock = threading.Lock()
+_totals: dict = {}          # name -> [ns, count, child ns]
+_local = threading.local()  # .stack: the open spans of the thread
 
 
-@contextlib.contextmanager
-def profile_trace(log_dir: str, device="cuda"):
-    """Capture a ``torch.profiler`` trace of the block (host activity, and
-    the card's when ``device`` is a CUDA device) and write it as a chrome
-    trace, ``trace.json`` in ``log_dir`` (open it in chrome://tracing or
-    Perfetto).  Yields the profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+class Tally(NamedTuple):
+    """A span name's total over a stretch of a run: host seconds, spans
+    closed, and the seconds of its children (spans it enclosed)."""
 
-    activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    seconds: float
+    count: int
+    child_seconds: float
+
+    @property
+    def self_seconds(self) -> float:
+        return self.seconds - self.child_seconds
+
+
+class span:
+    """``with span("stream.dispatch", chunk=k) as s:`` times the block into
+    the registry under its name; ``s.seconds`` is then its duration.
+    ``args`` (ints) go with the profiler annotation, such as a chunk's
+    ordinal in its stream."""
+
+    __slots__ = ("name", "args", "seconds", "_t0", "_child", "_note")
+
+    def __init__(self, name: str, **args):
+        self.name = name
+        self.args = args
+        self.seconds = 0.0
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(self)
+        self._child = 0
+        self._note = None
+        if _Annotation is not None and _profiling():
+            self._note = _Annotation("bialign." + self.name, [], self.args)
+            self._note.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self._t0
+        if self._note is not None:
+            self._note.__exit__(None, None, None)
+        stack = _local.stack
+        stack.pop()
+        if stack:
+            stack[-1]._child += ns
+        with _lock:
+            tally = _totals.get(self.name)
+            if tally is None:
+                _totals[self.name] = [ns, 1, self._child]
+            else:
+                tally[0] += ns
+                tally[1] += 1
+                tally[2] += self._child
+        self.seconds = ns * 1e-9
+        return False
+
+
+def snapshot() -> dict:
+    """The registry as it stands, for :func:`since`."""
+    with _lock:
+        return {name: tuple(t) for name, t in _totals.items()}
+
+
+def since(before: dict) -> dict:
+    """``{name: Tally}`` of the spans closed after the ``snapshot()``
+    ``before`` (``{}``: since the process started)."""
+    out = {}
+    for name, (ns, count, child) in snapshot().items():
+        ns0, count0, child0 = before.get(name, (0, 0, 0))
+        if count > count0:
+            out[name] = Tally((ns - ns0) * 1e-9, count - count0,
+                              (child - child0) * 1e-9)
+    return out
 
 
 def band_cells(n: int, m: int, max_shift: int) -> int:

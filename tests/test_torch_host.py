@@ -628,14 +628,6 @@ def test_profiling_run_stats():
     assert runs[0] == runs[1]
 
 
-def test_profiling_trace_on_the_cpu(tmp_path):
-    import torch
-
-    with T.utils.profiling.profile_trace(str(tmp_path), device="cpu"):
-        torch.ones(4).sum()
-    assert (tmp_path / "trace.json").stat().st_size > 0
-
-
 # -- models/triplet.py: the numpy parts ---------------------------------------
 
 def test_triplet_constants():
