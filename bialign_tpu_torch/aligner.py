@@ -22,13 +22,26 @@ Engines (``engine=``; the device is explicit, ``device=``):
   device; raises otherwise.
 * ``"torch"``: the plain PyTorch twins of the kernels, on any device.
 
+The score tables ``mu1``/``mu2`` (int32 ``[n+1, m+1]``) are built where
+the fill reads them.  For a protein pair on a CUDA device, without
+``seqsplit_mesh`` and with a rectangular similarity matrix (or match and
+mismatch), the device builds them from the pair's residue and structure
+codes (:mod:`bialign_tpu_torch.scoring.pair_codes`), with the host tables'
+``KeyError`` and int32 verdict; ``BiAligner.mu1``/``mu2`` are then their
+copies on the host, made on first read.  Everything else builds them on
+the host (:func:`~bialign_tpu_torch.scoring.tables.build_score_tables`)
+and uploads them in ``optimize()``.
+
 The stages are timed in spans (:mod:`bialign_tpu_torch.utils.profiling`):
-``pair.setup`` (the constructor: ``pair.molecules``, ``pair.tables``),
-``pair.fill`` (``optimize()``: ``pair.check``, the int32 check;
-``pair.upload``, the tables to the device; ``pair.launch``, the fill's call,
-which queues its kernels; ``pair.score``, the final score, which waits for
-the device), ``pair.walk`` (``traceback()``) and ``pair.decode``
-(``decode_trace()``).
+``pair.setup`` (the constructor: ``pair.molecules``, ``pair.tables``; on
+the device route ``pair.tables`` holds ``pair.encode``, the codes, their
+checks and the tables' peak, and ``pair.planes``, the tables queued on
+the device), ``pair.fill`` (``optimize()``: ``pair.check``, the int32
+check; ``pair.upload``, host tables to the device; ``pair.launch``, the
+fill's call, which queues its kernels; ``pair.score``, the final score,
+which waits for the device), ``pair.walk`` (``traceback()``) and
+``pair.decode`` (``decode_trace()``).  The count of ``pair.planes`` over
+that of ``pair.tables`` is the share of pairs on the device route.
 
 Tables and costs that fail the int32 check
 (:func:`~bialign_tpu_torch.ops.cases.check_int32_safe`) take the int64
@@ -57,6 +70,7 @@ from .ops.cases import (
     check_int32_safe,
 )
 from .render import decode as render_decode
+from .scoring import pair_codes
 from .scoring.tables import build_score_tables
 from .utils.profiling import span
 
@@ -86,6 +100,25 @@ PARAM_DEFAULTS = {
     "seqsplit_mesh": None,
     "seqsplit_axis": "sp",
 }
+
+
+def _builds_on_device(device: torch.device) -> bool:
+    """Whether ``device`` builds a pair's tables from codes: a CUDA device,
+    which host tables reach only through an O(n*m) check and upload; on
+    the CPU the host tables are already the device's."""
+    return device.type == "cuda"
+
+
+def _code_table(device: torch.device, params: dict):
+    """The route of a pair's tables: the
+    :class:`~bialign_tpu_torch.scoring.pair_codes.CodeTable` they are built
+    from on ``device``, or ``None`` for host tables (RNA, whose mu2 is
+    float64 math; the sequence split, which places host tables itself; a
+    ragged matrix; a device that does not build them)."""
+    if (not _builds_on_device(device) or params["type"] != "Protein"
+            or params.get("seqsplit_mesh") is not None):
+        return None
+    return pair_codes.code_table(params)
 
 
 class BiAligner:
@@ -130,12 +163,64 @@ class BiAligner:
             self.delta = int(self._params["shift_cost"])
             self.max_shift = int(self._params["max_shift"])
 
+            # _peak: the tables' peak magnitude where the device built them
+            # (then _mu, their host copies, is made on first read)
+            self._mu, self._peak = None, None
             with span("pair.tables"):
-                self.mu1, self.mu2 = build_score_tables(
-                    self.molA, self.molB, self._params, is_rna=self._is_rna
-                )
+                table = _code_table(self.device, self._params)
+                if table is not None:
+                    self._tables_from_codes(table)
+                if self._peak is None:
+                    self._mu = list(build_score_tables(
+                        self.molA, self.molB, self._params,
+                        is_rna=self._is_rna))
         self._band = None
         self._int64 = False     # the band is the int64 engine's
+
+    def _tables_from_codes(self, table):
+        """The device route: the tables on the device from the pair's codes;
+        leaves ``_peak`` None for a character outside latin-1, which the
+        host tables then report."""
+        sw = int(self._params["structure_weight"])
+        with span("pair.encode"):
+            codes = pair_codes.encode(self.molA, self.molB, table, sw)
+        if codes is None:
+            return
+        with span("pair.planes"):
+            self._mu1_t, self._mu2_t = pair_codes.planes(codes, table, sw,
+                                                         self.device)
+        self._peak = codes.peak
+
+    def _host_tables(self) -> list:
+        if self._mu is None:
+            # one copy back each, kept
+            self._mu = [t.cpu().numpy() for t in (self._mu1_t, self._mu2_t)]
+        return self._mu
+
+    def _set_host_table(self, k: int, mu) -> None:
+        # tables set by hand are host tables: checked and uploaded by the fill
+        self._host_tables()[k] = mu
+        self._peak = None
+
+    @property
+    def mu1(self) -> np.ndarray:
+        """Sequence scores, int32 ``[n+1, m+1]`` (1-based; row and column 0
+        are 0).  Where the device built the tables this is their copy: to
+        change what the fill reads, assign a table (``mu1``, ``mu2``)."""
+        return self._host_tables()[0]
+
+    @mu1.setter
+    def mu1(self, mu):
+        self._set_host_table(0, mu)
+
+    @property
+    def mu2(self) -> np.ndarray:
+        """Structure scores, int32 ``[n+1, m+1]``."""
+        return self._host_tables()[1]
+
+    @mu2.setter
+    def mu2(self, mu):
+        self._set_host_table(1, mu)
 
     @property
     def _is_rna(self) -> bool:
@@ -164,7 +249,12 @@ class BiAligner:
         costs = ((self.beta, self.gamma, self.delta) if self._affine
                  else (self.gamma, self.delta))
         with span("pair.check"):
-            safe = check_int32_safe(self.mu1, self.mu2, self._params)
+            if self._peak is None:
+                safe = check_int32_safe(self.mu1, self.mu2, self._params)
+            else:
+                safe = pair_codes.int32_safe(
+                    self.molA["len"], self.molB["len"], self._peak,
+                    self._params)
         if not safe:
             # the int32 range cannot be certified: the int64 engine, as the
             # JAX package's aligner runs its int64 XLA fill
@@ -200,9 +290,11 @@ class BiAligner:
                     route=self._params.get("seqsplit_route"))
             self._mu1_t, self._mu2_t = self._band.mu1, self._band.mu2
             return
-        with span("pair.upload"):
-            mu1, mu2 = tables_to_torch(self.mu1, self.mu2, self.device)
-        self._mu1_t, self._mu2_t = mu1, mu2
+        if self._peak is None:
+            with span("pair.upload"):
+                self._mu1_t, self._mu2_t = tables_to_torch(
+                    self.mu1, self.mu2, self.device)
+        mu1, mu2 = self._mu1_t, self._mu2_t
         cuda = self._engine == "cuda"
         more = {}
         if self._params.get("lowmem"):

@@ -21,6 +21,8 @@
                                              # in-process traces recorded
     python3 chip_smoke.py --fuzz-only        # phases 1-2 and the fuzz
                                              # phase (--fuzz-seconds N)
+    python3 chip_smoke.py --pair-tables-only # phases 1-2 and the pair's
+                                             # tables built on the card
 
 Needs one CUDA card and nvcc; imports no JAX and nothing of the JAX
 package.  Phases, one line each:
@@ -100,6 +102,12 @@ package.  Phases, one line each:
 5. full size, the DNA-Pol-1 928x933 pair.  The band path: affine max_shift
    1 (SCORE 761500 and the six md5 row anchors of tests/test_dnapol.py),
    and the CLI defaults (non-affine, max_shift 2) against the plain twins.
+   The protein pair's tables built on the card from codes (BiAligner's
+   device route): the toy protein, DNA-Pol-1 and its CLI defaults, each
+   route's tables equal to the host tables and its int32 verdict to the
+   host check, the goldens (48500 and its lines, 761500 and the md5
+   anchors) through it, and the constructor's and the pair's ms on both
+   routes in turns (--pair-tables-only runs this alone).
    The score-only path through the port's tables: affine_score = 761500,
    at max_shift 0 (K3, one CTA) and 2 and nonaffine_score at the CLI
    defaults equal to the band path's; and a pair beyond one CTA at
@@ -267,18 +275,22 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from bialign_tpu_torch import BiAligner, BiAlignerTriplet, _build
+from bialign_tpu_torch import aligner as pair_aligner
 from bialign_tpu_torch.convert import tables_to_torch
 from bialign_tpu_torch.data import dnapol_pair
 from bialign_tpu_torch.ops import checkpoint_dp as ckp
 from bialign_tpu_torch.ops import cuda_dp
 from bialign_tpu_torch.ops import device_traceback as dtb
 from bialign_tpu_torch.models import triplet as trip
-from bialign_tpu_torch.ops.cases import affine_score_multiplicities
+from bialign_tpu_torch.ops.cases import (affine_score_multiplicities,
+                                         check_int32_safe)
 from bialign_tpu_torch.parallel import batch as pbatch
 from bialign_tpu_torch.parallel import batch_cli
 from bialign_tpu_torch.parallel.driver import (PairRecord, StreamingAligner,
                                                merge_spools, trace_to_codes)
-from bialign_tpu_torch.scoring.tables import _sim_lut
+from bialign_tpu_torch.scoring import pair_codes
+from bialign_tpu_torch.scoring.tables import _sim_lut, build_score_tables
+from bialign_tpu_torch.utils import profiling
 
 try:    # checkouts before the sequence split lack it: --tile-times and
     # --walk-times run this script in them too
@@ -1474,6 +1486,104 @@ def phase_full_main(mol, md5) -> dict:
         nonaffine_band_bytes=bak._band.ys.numel() * 4,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
     )
+
+
+@contextlib.contextmanager
+def host_route():
+    """BiAligner's host route on the card: the tables built on the host,
+    checked and uploaded by the fill."""
+    keep = pair_aligner._builds_on_device
+    pair_aligner._builds_on_device = lambda device: False
+    try:
+        yield
+    finally:
+        pair_aligner._builds_on_device = keep
+
+
+PAIR_TABLE_ROUNDS = 10           # each route's timed pairs, in turns
+
+
+def _pair_times(mol, params) -> tuple[float, float, float]:
+    """(constructor ms, the card's ms between events around the
+    constructor, pair ms) of one pair, BiAligner(...) to decode_trace() as
+    the CLI runs it."""
+    seqA, strA, seqB, strB = mol
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    ba = BiAligner(seqA, seqB, strA, strB, **params)
+    end.record()
+    t1 = time.perf_counter()
+    ba.optimize()
+    ba.decode_trace(ba.traceback())
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, start.elapsed_time(end), (t2 - t0) * 1e3
+
+
+def phase_pair_tables(mol, md5, G) -> dict:
+    """The protein pair's tables built on the card from codes against the
+    host tables, the goldens through that route, and both routes' times
+    in turns at DNA-Pol-1."""
+    seqA, strA, seqB, strB = mol
+    toy = tuple(G.TOY_PROTEIN[k] for k in ("seqA", "strA", "seqB", "strB"))
+    cases = (("toy_protein", toy, G.TOY_PROTEIN_PARAMS),
+             ("dnapol", mol, DNAPOL_FULL),
+             ("dnapol_cli_defaults", mol, DNAPOL_CLI_DEFAULTS))
+    found = {}
+    for name, (a, sa, b, sb), params in cases:
+        ba = BiAligner(a, b, sa, sb, **params)
+        check(ba._peak is not None, f"{name}: not on the device route")
+        host = build_score_tables(ba.molA, ba.molB, ba._params, is_rna=False)
+        check(all(np.array_equal(got, want) and got.dtype == want.dtype
+                  for got, want in zip((ba.mu1, ba.mu2), host)),
+              f"{name}: the card's tables differ from the host tables")
+        safe = pair_codes.int32_safe(len(a), len(b), ba._peak, ba._params)
+        check(safe == check_int32_safe(*host, ba._params),
+              f"{name}: int32 verdict differs from the host check")
+        score = ba.optimize()
+        lines = list(ba.decode_trace())
+        with host_route():
+            hb = BiAligner(a, b, sa, sb, **params)
+        check(hb._peak is None, f"{name}: host route not taken")
+        check(score == hb.optimize() and lines == list(hb.decode_trace()),
+              f"{name}: the routes' scores or lines differ")
+        found[name] = dict(score=score, peak=ba._peak, int32_safe=safe)
+    check(found["toy_protein"]["score"] == G.TOY_PROTEIN_SCORE,
+          "toy protein score on the device route")
+    ba = BiAligner(**G.TOY_PROTEIN, **G.TOY_PROTEIN_PARAMS)
+    ba.optimize()
+    check(list(ba.decode_trace()) == G.TOY_PROTEIN_SORTED_OUT,
+          "toy protein lines on the device route")
+    check(found["dnapol"]["score"] == 761500, "dnapol score, device route")
+    _, score, lines, _ = run_e2e(mol, DNAPOL_FULL)
+    check(score == 761500 and md5_anchors(lines) == md5,
+          "dnapol md5 anchors on the device route")
+    found["dnapol"]["md5_anchors"] = "all 6 equal"
+
+    # both routes in turns, after one warm pair each
+    _pair_times(mol, DNAPOL_FULL)
+    with host_route():
+        _pair_times(mol, DNAPOL_FULL)
+    runs = {"device": [], "host": []}
+    spans = {}
+    for k in range(2 * PAIR_TABLE_ROUNDS):
+        route = ("device", "host")[(k + k // 2) % 2]     # d h h d d h ...
+        before = profiling.snapshot()
+        with host_route() if route == "host" else contextlib.nullcontext():
+            runs[route].append(_pair_times(mol, DNAPOL_FULL))
+        for name, t in profiling.since(before).items():
+            spans.setdefault(route, {}).setdefault(name, []).append(
+                t.seconds * 1e3)
+    for route, times in runs.items():
+        ctor, ctor_card, pair = zip(*times)
+        found[f"dnapol_{route}_route"] = dict(
+            constructor_ms=float(np.median(ctor)),
+            constructor_card_ms=float(np.median(ctor_card)),
+            pair_ms=float(np.median(pair)), pair_ms_all=list(pair),
+            span_ms={name: float(np.median(v))
+                     for name, v in sorted(spans[route].items())})
+    return found
 
 
 def port_tables(mol, params):
@@ -5521,6 +5631,11 @@ def main() -> int:
         help="seconds after which the fuzz phase starts no new round "
         f"(default {FUZZ_SECONDS}; round 0 always runs whole)")
     parser.add_argument(
+        "--pair-tables-only", action="store_true",
+        help="build, then only the protein pair's tables built on the card "
+        "from codes: against the host tables, the goldens through them, "
+        "both routes' times in turns")
+    parser.add_argument(
         "--fills-only", action="store_true",
         help="build, then only time the single-pair fills, score-only fills "
         "and walks at the DNA-Pol-1 shapes against their twins (phase 5's "
@@ -5648,6 +5763,10 @@ def main() -> int:
             check(launches[name] > 0, f"kernel {name} not launched")
         say_split_times(smi, errs)
         return 0
+    if args.pair_tables_only:
+        say("5 pair tables", nvidia_smi=smi, **phase_pair_tables(
+            dnapol_pair(), dnapol_md5(), load_golden()))
+        return 0
     if args.fills_only:
         times, bounds, more = phase_full_timing(dnapol_pair(), errs)
         k3_times, k3_bounds, more["k3_beyond_one_cta"] = k3_beyond_times(
@@ -5680,6 +5799,7 @@ def main() -> int:
     full = phase_full_main(mol, md5)
     launches = path_counts("band")
     say("5 full size", **full)
+    say("5 pair tables", nvidia_smi=smi, **phase_pair_tables(mol, md5, G))
     reset_counts()
     full_score = phase_full_score(mol)
     launches.update(path_counts("score_only"))

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import golden as G
-from bialign_tpu_torch import BiAligner
+from bialign_tpu_torch import BiAligner, aligner
 from bialign_tpu_torch.parallel.driver import PairRecord, StreamingAligner
 from bialign_tpu_torch.utils import profiling as P
 
@@ -235,3 +235,46 @@ def test_pair_spans(lowmem):
     assert fill.child_seconds <= fill.seconds
     # a decode given its trace walks nothing again
     assert got["pair.decode"].child_seconds == 0
+
+
+@pytest.mark.parametrize("lowmem", [False, True])
+def test_pair_spans_on_the_device_route(lowmem, monkeypatch):
+    """The tables built from codes (the route of a CUDA device, forced on
+    the CPU): ``pair.tables`` holds ``pair.encode`` and ``pair.planes``,
+    and the fill uploads nothing."""
+    monkeypatch.setattr(aligner, "_builds_on_device", lambda device: True)
+    before = P.snapshot()
+    ba = BiAligner(**G.TOY_PROTEIN, lowmem=lowmem, **G.TOY_PROTEIN_PARAMS,
+                   **CPU)
+    assert ba.optimize() == G.TOY_PROTEIN_SCORE
+    ba.decode_trace(ba.traceback())
+    got = P.since(before)
+    assert set(got) == {"pair.setup", "pair.molecules", "pair.tables",
+                        "pair.encode", "pair.planes", "pair.fill",
+                        "pair.check", "pair.launch", "pair.score",
+                        "pair.walk", "pair.decode"}
+    assert all(t.count == 1 for t in got.values())
+    tables, fill = got["pair.tables"], got["pair.fill"]
+    assert tables.child_seconds == pytest.approx(
+        _children(got, ("pair.encode", "pair.planes")), rel=1e-9)
+    assert fill.child_seconds == pytest.approx(
+        _children(got, ("pair.check", "pair.launch", "pair.score")),
+        rel=1e-9)
+    assert tables.child_seconds <= tables.seconds
+
+
+@pytest.mark.parametrize("mol,params,share", [
+    (G.TOY_PROTEIN, G.TOY_PROTEIN_PARAMS, 1.0),
+    (G.TOY_RNA, G.TOY_RNA_AFFINE_PARAMS, 0.0),
+], ids=["protein", "rna"])
+def test_the_share_of_pairs_on_the_device_route(mol, params, share,
+                                                monkeypatch):
+    """``pair.planes``'s count over ``pair.tables``': every protein pair
+    on a device that builds tables, no RNA pair."""
+    monkeypatch.setattr(aligner, "_builds_on_device", lambda device: True)
+    before = P.snapshot()
+    for _ in range(3):
+        BiAligner(**mol, **params, **CPU)
+    got = P.since(before)
+    planes = got["pair.planes"].count if "pair.planes" in got else 0
+    assert planes / got["pair.tables"].count == share
